@@ -1,0 +1,237 @@
+"""Masked-LM pretraining / fine-tuning of ESM-2 on one device, on the port.
+
+Port of examples/pretrain_mlm.py with the same flags and defaults, for one
+device and full parameters: FASTA data with token-budget batching (sequence
+axis padded to a multiple of 128), BERT-style masking, AdamW
+(esm_tpu_torch.training), optional rematerialization, gradient accumulation,
+global-norm clipping, bf16 first moments, masked-perplexity evaluation, and
+checkpoints that resume bit for bit: the batch order and each step's
+corruption generator are functions of (seed, step) alone.
+
+    python -m esm_tpu_torch.cli.pretrain --fasta seqs.fasta --steps 100
+
+Runs on the GPU; --cpu runs on the CPU, and without a GPU the run raises
+unless --cpu is given. Not ported yet, and raising NotImplementedError:
+--lora and its options, and --adafactor. The JAX example's memory plan and
+mesh-scaling warnings were fitted to a 16 GB TPU and are not carried over.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import time
+
+import numpy as np
+import torch
+
+
+def create_parser():
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--fasta", required=True, help="training sequences (FASTA)")
+    p.add_argument("--steps", type=int, default=100)
+    p.add_argument("--toks-per-batch", type=int, default=8192)
+    p.add_argument("--truncation-seq-length", type=int, default=1022)
+    p.add_argument("--num-layers", type=int, default=6)
+    p.add_argument("--embed-dim", type=int, default=320)
+    p.add_argument("--attention-heads", type=int, default=20)
+    p.add_argument("--lr", type=float, default=4e-4)
+    p.add_argument("--warmup-steps", type=int, default=10)
+    p.add_argument(
+        "--init-from", default=None,
+        help="warm-start from a checkpoint in the reference's .pt layout (a "
+        "path, or a registry name in the local cache) instead of random init",
+    )
+    p.add_argument(
+        "--remat", action="store_true",
+        help="rematerialize layer bodies on backward (activation memory "
+        "independent of depth; ~constant-factor extra compute)",
+    )
+    p.add_argument("--checkpoint-dir", default=None, help="directory for the final params")
+    p.add_argument(
+        "--save-every", type=int, default=0,
+        help="also save the FULL train state (params+optimizer+step) every N "
+        "steps to the sibling dir <checkpoint-dir>-state for --resume",
+    )
+    p.add_argument(
+        "--resume", action="store_true",
+        help="restore <checkpoint-dir>-state and continue; the per-step "
+        "generator is seeded from the step index, so the resumed run is bit-exact",
+    )
+    p.add_argument(
+        "--accum-steps", type=int, default=1,
+        help="gradient accumulation: split each batch into N sequential "
+        "microbatches (exact big-batch equivalence)",
+    )
+    p.add_argument("--grad-clip", type=float, default=None, help="global-norm gradient clip")
+    p.add_argument("--lora", type=int, default=0, metavar="RANK",
+                   help="LoRA fine-tuning (not ported yet)")
+    p.add_argument("--lora-alpha", type=float, default=None, help="with --lora (not ported yet)")
+    p.add_argument("--lora-int8-base", action="store_true", help="with --lora (not ported yet)")
+    p.add_argument("--lora-full-remat", action="store_true", help="with --lora (not ported yet)")
+    p.add_argument("--adafactor", action="store_true",
+                   help="factored second-moment optimizer (not ported yet)")
+    p.add_argument(
+        "--bf16-moments", action="store_true",
+        help="store AdamW first moments in bfloat16 (halves their memory)",
+    )
+    p.add_argument(
+        "--stop-after", type=int, default=0,
+        help="exit after this step (simulated pre-emption; LR schedule still "
+        "targets --steps, so a later --resume continues bit-exactly)",
+    )
+    p.add_argument("--eval-fasta", default=None, help="held-out FASTA for masked-ppl eval")
+    p.add_argument("--eval-every", type=int, default=0, help="eval every N steps (and at the end)")
+    p.add_argument(
+        "--shuffle", action="store_true",
+        help="deterministically shuffle batch order each epoch (seeded by "
+        "(seed, epoch), so --resume stays bit-exact)",
+    )
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--log-every", type=int, default=10)
+    p.add_argument("--cpu", action="store_true", help="run on the CPU even when a GPU is present")
+    return p
+
+
+def step_generator(seed: int, step: int, device) -> torch.Generator:
+    """A generator on ``device`` seeded from (seed, step) alone."""
+    value = int(np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0])
+    return torch.Generator(device=device).manual_seed(value & ((1 << 63) - 1))
+
+
+def _refuse_unported(args) -> None:
+    lora = [f for f, on in (("--lora", args.lora), ("--lora-alpha", args.lora_alpha is not None),
+                            ("--lora-int8-base", args.lora_int8_base),
+                            ("--lora-full-remat", args.lora_full_remat)) if on]
+    if lora:
+        raise NotImplementedError(
+            f"{', '.join(lora)}: LoRA fine-tuning is not ported yet (ROADMAP Queue 1, item 10)"
+        )
+    if args.adafactor:
+        raise NotImplementedError(
+            "--adafactor: make_optimizer(factored=True) is not ported yet (ROADMAP Queue 1)"
+        )
+
+
+def run(args):
+    """Train as the flags say. Returns the final ``training.TrainState``."""
+    from .. import pretrained, training
+    from ..data import Alphabet, FastaBatchedDataset
+    from ..io.checkpoint import load_train_state, save_params, save_train_state
+    from ..models import esm2
+
+    _refuse_unported(args)
+    device = pretrained.resolve_device("cpu" if args.cpu else None)
+    if args.init_from:
+        handle, alphabet = pretrained.load_model_and_alphabet(args.init_from, device=device)
+        cfg = dataclasses.replace(handle.cfg, remat=args.remat)
+        model = handle.model
+        print(f"warm start from {args.init_from} ({cfg.num_layers} layers)")
+    else:
+        alphabet = Alphabet.from_architecture("ESM-1b")
+        cfg = esm2.ESM2Config.from_alphabet(
+            alphabet, num_layers=args.num_layers, embed_dim=args.embed_dim,
+            attention_heads=args.attention_heads, remat=args.remat,
+        )
+        model = esm2.init(cfg, torch.Generator(device=device).manual_seed(args.seed),
+                          device=device)
+    print(f"device: {device}" + (f" ({torch.cuda.get_device_name(device)})"
+                                 if device.type == "cuda" else ""))
+
+    dataset = FastaBatchedDataset.from_file(args.fasta)
+    batches = dataset.get_batch_indices(args.toks_per_batch, extra_toks_per_seq=2)
+    converter = alphabet.get_batch_converter(args.truncation_seq_length, pad_to_multiple=128)
+    print(f"{len(dataset)} sequences, {len(batches)} batches/epoch")
+
+    warmup = min(args.warmup_steps, max(1, args.steps // 5))
+    tx = training.make_optimizer(
+        args.lr, warmup_steps=warmup, total_steps=max(args.steps, warmup + 1),
+        grad_clip_norm=args.grad_clip,
+        mu_dtype=torch.bfloat16 if args.bf16_moments else None,
+    )
+    state = training.init_state(model, tx)
+
+    start_step = 0
+    state_dir = f"{args.checkpoint_dir}-state" if args.checkpoint_dir else None
+    if args.resume:
+        if not (state_dir and os.path.isdir(state_dir)):
+            raise SystemExit(f"--resume: no saved state at {state_dir}")
+        state = load_train_state(state_dir, state)
+        start_step = state.step
+        print(f"resumed from {state_dir} at step {start_step}")
+
+    eval_batches = None
+    if args.eval_fasta:
+        eval_ds = FastaBatchedDataset.from_file(args.eval_fasta)
+        eval_idx = eval_ds.get_batch_indices(args.toks_per_batch, extra_toks_per_seq=2)
+        eval_batches = [converter([eval_ds[i] for i in b])[2] for b in eval_idx]
+
+    def run_eval(step):
+        nll = cnt = 0.0
+        for j, toks in enumerate(eval_batches):
+            sums = training.eval_step(state.model, cfg, step_generator(args.seed + 2, j, device),
+                                      toks.to(device))
+            nll += float(sums["nll_sum"].sum())
+            cnt += float(sums["count"].sum())
+        print(f"step {step:5d}  eval masked-ppl {np.exp(nll / max(cnt, 1)):8.3f}")
+
+    perm_cache = {}
+
+    def batch_for_step(step):
+        """Batch order is a pure function of (seed, step): epoch-seeded
+        permutations with --shuffle, plain cycling otherwise."""
+        epoch, idx = divmod(step, len(batches))
+        if not args.shuffle:
+            return batches[idx]
+        if epoch not in perm_cache:
+            perm_cache.clear()
+            perm_cache[epoch] = np.random.default_rng((args.seed, epoch)).permutation(len(batches))
+        return batches[perm_cache[epoch][idx]]
+
+    t0 = time.perf_counter()
+    tokens_seen = 0
+    last_step = start_step
+    for step in range(start_step, args.steps):
+        last_step = step + 1
+        toks = converter([dataset[i] for i in batch_for_step(step)])[2]
+        if toks.shape[0] % args.accum_steps:  # pad the batch with copies of its first row
+            pad = args.accum_steps - toks.shape[0] % args.accum_steps
+            toks = torch.cat([toks, toks[:1].repeat(pad, 1)])
+        toks = toks.to(device)
+        gen = step_generator(args.seed + 1, step, device)
+        if args.accum_steps > 1:
+            state, metrics = training.train_step_accum(state, cfg, tx, gen, toks,
+                                                       accum_steps=args.accum_steps)
+        else:
+            state, metrics = training.train_step(state, cfg, tx, gen, toks)
+        tokens_seen += toks.numel()
+        if (step + 1) % args.log_every == 0 or step + 1 == args.steps:
+            loss = float(metrics["loss"])
+            acc = float(metrics["acc"])
+            rate = tokens_seen / (time.perf_counter() - t0)
+            print(f"step {step + 1:5d}  loss {loss:7.4f}  masked-acc {acc:6.3f}  "
+                  f"{rate / 1e3:8.1f}k tok/s")
+        if state_dir and args.save_every and (step + 1) % args.save_every == 0:
+            save_train_state(state_dir, state)
+            print(f"saved train state at step {step + 1}")
+        if eval_batches is not None and args.eval_every and (step + 1) % args.eval_every == 0:
+            run_eval(step + 1)
+        if args.stop_after and step + 1 >= args.stop_after:
+            print(f"stopping after step {step + 1} (--stop-after)")
+            break
+
+    if eval_batches is not None and (not args.eval_every or last_step % args.eval_every):
+        run_eval(last_step)
+    if args.checkpoint_dir:
+        save_params(args.checkpoint_dir, state.model)
+        print(f"saved params to {args.checkpoint_dir}")
+    return state
+
+
+def main():
+    run(create_parser().parse_args())
+
+
+if __name__ == "__main__":
+    main()

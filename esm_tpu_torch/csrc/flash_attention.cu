@@ -17,7 +17,11 @@
 // index (q rows and k rows each from 0), from fp32 (L, d) tables with
 // L >= max(T, S); bias is 0, or -1e30 where key_padding_mask is set; keys
 // past S are excluded. Softmax statistics and accumulation are fp32; a row
-// whose sum is 0 divides by 1. The output has q's dtype.
+// whose sum is 0 divides by 1. The output has q's dtype. Given an lse
+// buffer (the differentiated forward, and flash_attention_with_lse), each
+// row's log-sum-exp m + log(max(l, 1e-37)) is written beside it in fp32, as
+// the TPU kernel's with_lse output (:294, :383); the backward
+// (flash_attention_bwd.cu) recomputes the probabilities from it.
 //
 // What bounds it on an H100: at the ESM-2 shapes (T = S ~ 1024, d = 64) the
 // work is 4.B.H.T.S.d operations over 4.B.H.T.d.2 bytes, ~T/2 operations per
@@ -38,17 +42,14 @@
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC; plain C interface, bound with ctypes
-//        (esm_tpu_torch/kernels/flash_attention.py).
+//        (esm_tpu_torch/kernels/flash_attention.py). The helpers shared
+//        with the backward are in flash_common.cuh.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr float kMaskBias = -1e30f;  // the TPU kernel's NEG_INF
-constexpr float kLog2e = 1.4426950408889634f;
+using namespace flash;
 
 struct Params {
   const void* q;
@@ -58,152 +59,22 @@ struct Params {
   const float* cos;     // (L, d) rotary tables, applied to Q; null when off
   const float* sin;
   void* o;
+  float* lse;           // (B, H, T) per-row log-sum-exp; null when not wanted
   int H, T, S, d;
 };
 
 __device__ __forceinline__ float key_bias(const Params& p, int b, int j) {
-  if (j >= p.S) return -INFINITY;
-  if (p.mask != nullptr && p.mask[(size_t)b * p.S + j]) return kMaskBias;
-  return 0.f;
-}
-
-// Four elements of T as floats, and back.
-__device__ __forceinline__ void load4(const float* p, float (&x)[4]) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  x[0] = v.x;
-  x[1] = v.y;
-  x[2] = v.z;
-  x[3] = v.w;
-}
-
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&x)[4]) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-  const float2 a = __bfloat1622float2(h[0]);
-  const float2 b = __bfloat1622float2(h[1]);
-  x[0] = a.x;
-  x[1] = a.y;
-  x[2] = b.x;
-  x[3] = b.y;
-}
-
-__device__ __forceinline__ void store4(float* p, const float (&x)[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&x)[4]) {
-  *reinterpret_cast<uint2*>(p) = make_uint2(pack_bf16(x[0], x[1]), pack_bf16(x[2], x[3]));
-}
-
-// ---------------------------------------------------------------------------
-// Rotary prologue: y = rot(x) for x (rows, d) whose position is row % len.
-// Each thread rotates four pairs (j, j + d/2); both halves of a table row are
-// equal, so only the first half is read.
-// ---------------------------------------------------------------------------
-
-template <typename T>
-__global__ void rotate_rows(const T* __restrict__ x, T* __restrict__ y,
-                            const float* __restrict__ cos, const float* __restrict__ sin,
-                            size_t rows, int len, int d) {
-  const int half = d / 2;
-  const int per_row = half / 4;
-  const size_t n = rows * per_row;
-  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
-       i += (size_t)gridDim.x * blockDim.x) {
-    const size_t row = i / per_row;
-    const int j = (int)(i % per_row) * 4;
-    const size_t t = (row % len) * d + j;
-    float a[4], b[4], c[4], s[4], lo[4], hi[4];
-    load4(x + row * d + j, a);
-    load4(x + row * d + j + half, b);
-    load4(cos + t, c);
-    load4(sin + t, s);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      lo[e] = a[e] * c[e] - b[e] * s[e];
-      hi[e] = b[e] * c[e] + a[e] * s[e];
-    }
-    store4(y + row * d + j, lo);
-    store4(y + row * d + j + half, hi);
-  }
+  return flash::key_bias(p.mask, p.S, b, j);
 }
 
 // ---------------------------------------------------------------------------
 // bf16: tensor cores through mma.sync m16n8k16, fp32 accumulation.
 // ---------------------------------------------------------------------------
 
-constexpr int kBM = 64;  // query rows per block, 16 per warp
-constexpr int kBN = 64;  // keys per tile
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-
 template <int DP>
 constexpr size_t bf16_smem_bytes() {
   // two stages of K and V tiles, (DP + 8)-element rows, and two bias rows
   return 4 * kBN * (DP + 8) * sizeof(__nv_bfloat16) + 2 * kBN * sizeof(float);
-}
-
-__device__ __forceinline__ void mma_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                          uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8x8 bf16 matrices from shared memory: lane i gives the row address of
-// matrix i / 8, row i % 8. Plain, each lane receives per matrix the elements
-// (row lane / 4, columns 2 * (lane % 4) and + 1): the B fragment of mma
-// m16n8k16 when the rows are the output (n) axis. Transposed, it receives
-// (rows 2 * (lane % 4) and + 1, column lane / 4): the B fragment when the
-// rows are the reduction (k) axis.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* smem_row) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem_row));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* smem_row) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem_row));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// Issue cp.async copies of rows [row0, row0 + kBN) of a (n, d) bf16 matrix
-// into dst (row stride ld), 16 bytes at a time, zero-filled past n and past
-// d. The caller commits the group and waits for it.
-template <int DP>
-__device__ __forceinline__ void copy_rows_async(__nv_bfloat16* dst, int ld,
-                                                const __nv_bfloat16* src, int row0, int n,
-                                                int d) {
-  constexpr int kChunks = DP / 8;
-#pragma unroll
-  for (int c = threadIdx.x; c < kBN * kChunks; c += kThreads) {
-    const int r = c / kChunks;
-    const int j = (c % kChunks) * 8;
-    const bool valid = row0 + r < n && j < d;
-    const __nv_bfloat16* g = valid ? src + (size_t)(row0 + r) * d + j : src;
-    const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst + r * ld + j));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(s), "l"(g), "r"(valid ? 16 : 0));
-  }
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // Stage the Q tile [q0, q0 + kBM) into dst (row stride ld), rotated when
@@ -230,7 +101,7 @@ __device__ __forceinline__ void stage_q(__nv_bfloat16* dst, int ld, const __nv_b
         load4(p.sin + t, sn);
         const float sign = lo ? -1.f : 1.f;
 #pragma unroll
-        for (int e = 0; e < 4; ++e) x[e] = x[e] * cs[e] + sign * y[e] * sn[e];
+        for (int e = 0; e < 4; ++e) x[e] = rot_term(x[e], cs[e], sign * y[e], sn[e]);
       }
     }
     store4(dst + (c / kChunks) * ld + j, x);
@@ -272,14 +143,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Params p) {
   __syncthreads();
   uint32_t qa[DP / 16][4];
   const int r0 = warp * 16;
-#pragma unroll
-  for (int kk = 0; kk < DP / 16; ++kk) {
-    const __nv_bfloat16* base = sK + kTile + (r0 + g) * kLd + kk * 16 + t4 * 2;
-    qa[kk][0] = *reinterpret_cast<const uint32_t*>(base);
-    qa[kk][1] = *reinterpret_cast<const uint32_t*>(base + 8 * kLd);
-    qa[kk][2] = *reinterpret_cast<const uint32_t*>(base + 8);
-    qa[kk][3] = *reinterpret_cast<const uint32_t*>(base + 8 * kLd + 8);
-  }
+  load_a_frags<DP>(qa, sK + kTile, kLd, r0, lane);
   __syncthreads();
 
   float acc[DP / 8][4];
@@ -397,6 +261,13 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Params p) {
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
     inv[i] = l[i] == 0.f ? 1.f : 1.f / l[i];
   }
+  if (p.lse != nullptr && t4 == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = q0 + r0 + g + 8 * i;
+      if (row < p.T) p.lse[(size_t)bh * p.T + row] = m[i] + logf(fmaxf(l[i], 1e-37f));
+    }
+  }
   __nv_bfloat16* o = static_cast<__nv_bfloat16*>(p.o) + (size_t)bh * p.T * p.d;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -448,7 +319,7 @@ __global__ void __launch_bounds__(128) flash_fwd_f32(Params p) {
       if (p.cos != nullptr) {
         const bool lo = j < half;
         const size_t c = (size_t)t * p.d + (lo ? j : j - half);  // halves are equal
-        x = x * p.cos[c] + (lo ? -rp[j + half] : rp[j - half]) * p.sin[c];
+        x = rot_term(x, p.cos[c], lo ? -rp[j + half] : rp[j - half], p.sin[c]);
       }
     }
     qr[i] = x;
@@ -496,6 +367,7 @@ __global__ void __launch_bounds__(128) flash_fwd_f32(Params p) {
   }
 
   if (t < p.T) {
+    if (p.lse != nullptr && part == 0) p.lse[(size_t)bh * p.T + t] = m + logf(fmaxf(l, 1e-37f));
     const float denom = l == 0.f ? 1.f : l;
     float* o = static_cast<float*>(p.o) + (size_t)bh * p.T * p.d + (size_t)t * p.d;
 #pragma unroll
@@ -504,16 +376,6 @@ __global__ void __launch_bounds__(128) flash_fwd_f32(Params p) {
       if (j < p.d) o[j] = acc[i] / denom;
     }
   }
-}
-
-template <typename T>
-cudaError_t rotate(const void* x, void* y, const float* cos, const float* sin, size_t rows,
-                   int len, int d, cudaStream_t stream) {
-  const size_t n = rows * (d / 8);
-  const unsigned blocks = (unsigned)((n + 255) / 256 < 132 * 16 ? (n + 255) / 256 : 132 * 16);
-  rotate_rows<T><<<blocks, 256, 0, stream>>>(static_cast<const T*>(x), static_cast<T*>(y), cos,
-                                              sin, rows, len, d);
-  return cudaGetLastError();
 }
 
 template <int DP>
@@ -541,11 +403,12 @@ extern "C" {
 // q (B, H, T, d), k/v (B, H, S, d), o (B, H, T, d): contiguous, all of one
 // dtype (is_bf16: bf16, else fp32), 16-byte aligned. mask: (B, S) uint8 or
 // null. cos/sin: (L >= max(T, S), d) fp32, or null for no rotary; with them,
-// k_rot is scratch of k's shape and dtype that receives rot(k). Launches on
-// `stream` and returns the first CUDA error (0 on success).
+// k_rot is scratch of k's shape and dtype that receives rot(k). lse: (B, H, T)
+// fp32 that receives each row's log-sum-exp m + log(max(l, 1e-37)), or null.
+// Launches on `stream` and returns the first CUDA error (0 on success).
 int esm_flash_attention_fwd(const void* q, const void* k, const void* v, const void* mask,
-                            const void* cos, const void* sin, void* k_rot, void* o, int B,
-                            int H, int T, int S, int d, int is_bf16, void* stream) {
+                            const void* cos, const void* sin, void* k_rot, void* o, void* lse,
+                            int B, int H, int T, int S, int d, int is_bf16, void* stream) {
   if (B <= 0 || H <= 0 || T <= 0 || S <= 0 || d <= 0 || d % 8 != 0 || d > 128 ||
       (cos == nullptr) != (sin == nullptr) || (cos != nullptr && k_rot == nullptr)) {
     return (int)cudaErrorInvalidValue;
@@ -562,7 +425,8 @@ int esm_flash_attention_fwd(const void* q, const void* k, const void* v, const v
     if (e != cudaSuccess) return (int)e;
     kr = k_rot;
   }
-  Params p{q, kr, v, static_cast<const uint8_t*>(mask), c, s, o, H, T, S, d};
+  Params p{q, kr, v, static_cast<const uint8_t*>(mask), c, s, o, static_cast<float*>(lse),
+           H, T, S, d};
   const int bh = B * H;
   cudaError_t e;
   switch ((d + 15) / 16 * 16) {

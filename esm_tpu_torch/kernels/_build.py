@@ -2,7 +2,8 @@
 
 Each library is one ``nvcc`` call over sources in ``esm_tpu_torch/csrc``,
 producing a shared library with a plain C interface that is loaded with
-``ctypes`` (no PyTorch headers, so a build takes seconds). The output goes to
+``ctypes`` (no PyTorch headers, so a build takes seconds); libraries asked
+for together are built by concurrent ``nvcc`` processes. The output goes to
 ``build/kernels/`` beside the package (``ESM_TPU_TORCH_BUILD_DIR`` overrides
 it), named by a hash of the sources and flags, so an edited source rebuilds
 and an unchanged one loads what is there. Nothing is built at import time.
@@ -18,7 +19,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, Mapping, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 NVCC_FLAGS = (
@@ -51,32 +52,43 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels cannot be built")
 
 
-def load_library(name: str, sources: Sequence[str]) -> ctypes.CDLL:
-    """Build ``sources`` (file names under csrc/) into ``lib<name>`` once and
-    load it. Raises with nvcc's output when the build fails."""
+def _output(name: str, sources: Sequence[str]) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.glob("*.cuh")) + [CSRC / s for s in sources]:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def load_libraries(specs: Mapping[str, Sequence[str]]) -> Dict[str, ctypes.CDLL]:
+    """Build each library ``name -> sources`` (file names under csrc/) that is
+    not built yet, all ``nvcc`` processes at once, and load them. Raises with
+    nvcc's output when a build fails. A library loaded before is returned
+    without touching the sources (this runs before every kernel launch)."""
     with _lock:
-        lib = _libs.get(name)
-        if lib is not None:
-            return lib
-        paths = [CSRC / s for s in sources]
-        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for p in sorted(CSRC.glob("*.cuh")) + paths:
-            h.update(p.name.encode())
-            h.update(p.read_bytes())
-        out = build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
-        if not out.exists():
+        outputs = {name: _output(name, sources) for name, sources in specs.items()
+                   if name not in _libs}
+        started = {}
+        for name, out in outputs.items():
+            if out.exists():
+                continue
             out.parent.mkdir(parents=True, exist_ok=True)
             tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, paths)]
-            t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in specs[name])]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                    text=True)
+            started[name] = (cmd, proc, tmp, out, time.perf_counter())
+        failed = []
+        for name, (cmd, proc, tmp, out, t0) in started.items():
+            log, _ = proc.communicate()
             build_seconds[name] = time.perf_counter() - t0
-            build_logs[name] = proc.stdout + proc.stderr
+            build_logs[name] = log
             if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed for {name} ({' '.join(cmd)}):\n{proc.stdout}{proc.stderr}"
-                )
-            os.replace(tmp, out)
-        lib = ctypes.CDLL(str(out))
-        _libs[name] = lib
-        return lib
+                failed.append(f"nvcc failed for {name} ({' '.join(cmd)}):\n{log}")
+            else:
+                os.replace(tmp, out)
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        for name, out in outputs.items():
+            _libs[name] = ctypes.CDLL(str(out))
+        return {name: _libs[name] for name in specs}

@@ -62,7 +62,8 @@ class ESM2Config:
     # Execution options (not part of checkpoint identity)
     compute_dtype: torch.dtype = torch.float32
     use_flash: bool = False
-    remat: bool = False  # training only; not ported yet
+    remat: bool = False  # recompute layer bodies on the backward (training)
+    # "dots" (keep matrix-product outputs) or "full" (save only layer inputs)
     remat_policy: str = "dots"
 
     @property
@@ -83,14 +84,14 @@ class ESM2Config:
         )
 
     def layer_static(self) -> LayerStatic:
-        if self.remat:
-            raise NotImplementedError("remat (training) is not ported yet")
         return LayerStatic(
             num_heads=self.attention_heads,
             use_rotary=True,
             use_bias_kv=False,
             ln_eps=1e-5,
             use_flash=self.use_flash,
+            remat=self.remat,
+            remat_policy=self.remat_policy,
         )
 
 
@@ -154,7 +155,10 @@ def embed_tokens(model: ESM2, cfg: ESM2Config, tokens: torch.Tensor) -> torch.Te
     """Token embedding with mask-token dropout rescale (reference
     esm/model/esm2.py:84-95). Runs in fp32, returns the compute dtype."""
     padding_mask = tokens == cfg.padding_idx
-    x = model.embed_tokens.weight[tokens]
+    # F.embedding, not weight[tokens]: its backward sums each row's gradient
+    # in a fixed order (indexing's backward adds atomically on the CPU), so a
+    # training step, and a resumed run, repeats bit for bit
+    x = torch.nn.functional.embedding(tokens, model.embed_tokens.weight)
 
     if cfg.token_dropout:
         is_mask = (tokens == cfg.mask_idx)[..., None]

@@ -5,18 +5,27 @@ parameters and drives them with ``lax.scan``; here the layers are an
 ``nn.ModuleList`` and the stack is a Python loop, as in the reference
 (esm/model/esm2.py:111-121). Layer semantics follow the reference
 TransformerLayer (esm/modules.py:84-142): pre-LN attention + residual, pre-LN
-GELU MLP + residual; optional per-head attention maps. Rematerialization
-(training) is not ported yet.
+GELU MLP + residual; optional per-head attention maps.
+
+Rematerialization (esm_tpu/models/lm_common.py:33-67, :139-147): with
+``LayerStatic.remat`` each layer runs under non-reentrant
+``torch.utils.checkpoint``, so the backward recomputes its activations
+instead of keeping them for the whole stack. ``remat_policy="dots"`` keeps
+the matrix-product outputs and recomputes the rest, as JAX's
+``dots_saveable`` does (the flash kernel's output is not a product, so it is
+recomputed too); ``"full"`` keeps only each layer's input.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from ..ops.attention import SelfAttention, multihead_attention
 from ..ops.common import (
@@ -40,6 +49,34 @@ class LayerStatic:
     use_bias_kv: bool = False
     ln_eps: float = 1e-5            # ESM-1b/2 LayerNorm eps; ESM-1 uses 1e-12
     use_flash: bool = False
+    # Recompute the layer body on the backward pass (training memory:
+    # activations O(1) layers deep instead of O(num_layers)).
+    remat: bool = False
+    # With remat: "dots" keeps matrix-product outputs (the recompute is
+    # elementwise work and attention); "full" saves nothing but the layer
+    # input (least memory, about a third more operations).
+    remat_policy: str = "dots"
+
+
+# The matrix products a "dots" layer keeps (dispatcher-level ops: nn.Linear
+# and torch.matmul reach these).
+_DOTS = (
+    torch.ops.aten.mm.default,
+    torch.ops.aten.addmm.default,
+    torch.ops.aten.bmm.default,
+    torch.ops.aten.baddbmm.default,
+)
+
+
+def checkpoint_context(name: str):
+    """The ``context_fn`` of torch.utils.checkpoint for a remat_policy name:
+    "dots" saves the matrix products (selective checkpointing), "full" saves
+    nothing (the default context)."""
+    if name == "dots":
+        return functools.partial(create_selective_checkpoint_contexts, list(_DOTS))
+    if name == "full":
+        return None
+    raise ValueError(f"unknown remat_policy {name!r} (use 'dots' or 'full')")
 
 
 class TransformerLayer(nn.Module):
@@ -122,11 +159,16 @@ def transformer_stack_apply(
     wanted = set(collect_layer_ids or ()) if selective else set()
     hiddens: List[torch.Tensor] = []
     attns: List[torch.Tensor] = []
+    layer_fn = functools.partial(
+        transformer_layer_apply, static=static, key_padding_mask=key_padding_mask,
+        need_head_weights=need_head_weights,
+    )
+    if static.remat:
+        context = checkpoint_context(static.remat_policy)
+        kw = {} if context is None else {"context_fn": context}
+        layer_fn = functools.partial(checkpoint, layer_fn, use_reentrant=False, **kw)
     for i, layer in enumerate(layers):
-        x, probs = transformer_layer_apply(
-            layer, x, static=static, key_padding_mask=key_padding_mask,
-            need_head_weights=need_head_weights,
-        )
+        x, probs = layer_fn(layer, x)
         if collect_hiddens or (i + 1) in wanted:
             hiddens.append(x)
         if need_head_weights:

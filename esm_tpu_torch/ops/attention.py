@@ -5,7 +5,8 @@ batch-major (B, T, D), with two execution paths:
   * ``exact``: matmul attention with an fp32 softmax; can return per-head
     probabilities (the contact head and ``need_head_weights`` need them);
   * ``flash``: kernel K1 (esm_tpu_torch/kernels/flash_attention.py, rotary
-    folded in), used when attention maps are not needed.
+    folded in), used when attention maps are not needed; differentiable,
+    with kernel K2 as its backward.
 
 The JAX package's d-major flash branch (esm_tpu/ops/attention.py:141-165,
 ``DMAJOR_IO_DEFAULT``) laid q/k/v out as (B, H, d, T) for the TPU's 128-wide

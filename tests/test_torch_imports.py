@@ -61,11 +61,11 @@ def no_cuda():
 @pytest.mark.parametrize(
     "entry",
     ["resolve_device", "random_model_and_alphabet", "load_model_and_alphabet_local",
-     "extract"],
+     "extract", "pretrain"],
 )
 def test_entry_points_without_device_raise_when_cuda_absent(no_cuda, entry, tmp_path):
     from esm_tpu_torch import pretrained
-    from esm_tpu_torch.cli import extract
+    from esm_tpu_torch.cli import extract, pretrain
 
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         if entry == "resolve_device":
@@ -74,6 +74,9 @@ def test_entry_points_without_device_raise_when_cuda_absent(no_cuda, entry, tmp_
             pretrained.random_model_and_alphabet("esm2_t6_8M_UR50D")
         elif entry == "load_model_and_alphabet_local":
             pretrained.load_model_and_alphabet_local(tmp_path / "esm2_missing.pt")
+        elif entry == "pretrain":
+            pretrain.run(pretrain.create_parser().parse_args(
+                ["--fasta", str(tmp_path / "x.fasta"), "--steps", "1"]))
         else:
             args = extract.create_parser().parse_args(
                 [str(tmp_path / "esm2_missing.pt"), str(tmp_path / "x.fasta"),

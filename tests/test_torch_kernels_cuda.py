@@ -6,10 +6,12 @@ suite's conftest:
 
     python -m pytest --noconftest -q tests/test_torch_kernels_cuda.py
 
-Tolerances: fp32 2e-5 absolute (fp32 FMA in the kernel, TF32 off in the
-plain version: summation order only); bf16 2e-2 (the kernel rounds the
-probabilities to bf16 against the running max, the plain version against the
-row max).
+Tolerances: fp32 2e-5 absolute for the forward (fp32 FMA in the kernel, TF32
+off in the plain version: summation order only), 1e-4 times the result's
+magnitude for the lse and the gradients (longer sums); bf16 2e-2 times the
+magnitude (the kernels round probabilities and dS to bf16 from fp32 values
+that differ from the plain version's in the last bits, and round the result
+to bf16).
 """
 
 import numpy as np
@@ -19,6 +21,7 @@ import torch
 from esm_tpu_torch.kernels import flash_attention as fa
 
 pytestmark = pytest.mark.cuda
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
 @pytest.fixture
@@ -39,6 +42,10 @@ def _inputs(b, h, t, s, d, dtype, device, seed=0):
     mask = torch.zeros(b, s, dtype=torch.bool)
     mask[-1, s - s // 3:] = True
     return [x.to(device=device, dtype=dtype) for x in (q, k, v)] + [mask.to(device)]
+
+
+def _rel_err(got, ref):
+    return (got.float() - ref.float()).abs().max().item() / max(1.0, ref.float().abs().max().item())
 
 
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
@@ -62,3 +69,75 @@ def test_flash_attention_kernel_rejects_strided_input(cuda):
     q, k, v, _ = _inputs(1, 2, 16, 16, 16, torch.bfloat16, cuda)
     with pytest.raises(ValueError, match="contiguous"):
         fa.flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3), k, v)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 24, 64, 128])
+@pytest.mark.parametrize("t,s", [(37, 37), (1024, 1024), (300, 70), (70, 300)])
+def test_flash_backward_kernel_matches_plain(cuda, dtype, d, t, s):
+    """K1 with the lse, then K2 (dq, dk, dv), against the plain versions on
+    the same inputs, rotary off and on, mask off and ragged."""
+    q, k, v, mask = _inputs(2, 2, t, s, d, dtype, cuda, seed=1)
+    do = torch.randn(q.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(2))
+    do = do.to(dtype)
+    tol = GRAD_TOL[dtype]
+    for rotary in (False, True):
+        for m in (None, mask):
+            before = fa.flash_attention_with_lse.launches
+            out, lse, k_main = fa._forward(q, k, v, m, rotary, with_lse=True)
+            ref_out, ref_lse = fa.flash_attention_reference(q, k, v, key_padding_mask=m,
+                                                            rotary=rotary, return_lse=True)
+            torch.cuda.synchronize()
+            assert fa.flash_attention_with_lse.launches == before + 1
+            assert _rel_err(out, ref_out) <= tol and _rel_err(lse, ref_lse) <= 1e-4
+            n_dq, n_dkv = fa.flash_attention_bwd.launches_dq, fa.flash_attention_bwd.launches_dkv
+            got = fa.flash_attention_bwd(q, k_main, v, out, lse, do, key_padding_mask=m,
+                                         rotary=rotary)
+            ref = fa.flash_attention_bwd_reference(q, k_main, v, out, lse, do,
+                                                   key_padding_mask=m, rotary=rotary)
+            torch.cuda.synchronize()
+            assert fa.flash_attention_bwd.launches_dq == n_dq + 1
+            assert fa.flash_attention_bwd.launches_dkv == n_dkv + 1
+            for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+                assert a.dtype == dtype and a.shape == r.shape
+                err = _rel_err(a, r)
+                assert err <= tol, (name, rotary, m is not None, err)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_is_differentiable_on_cuda(cuda, dtype):
+    """Outputs of inputs that require grad carry a grad_fn, and the gradients
+    match autograd through the plain version."""
+    q, k, v, mask = _inputs(2, 4, 200, 200, 64, dtype, cuda, seed=3)
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    w = torch.randn(q.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(4))
+    out = fa.flash_attention(q, k, v, key_padding_mask=mask, rotary=True)
+    assert out.grad_fn is not None
+    got = torch.autograd.grad((out.float() * w).sum(), (q, k, v))
+    ref_out = fa.flash_attention_reference(q, k, v, key_padding_mask=mask, rotary=True)
+    ref = torch.autograd.grad((ref_out.float() * w).sum(), (q, k, v))
+    for name, a, r in zip("qkv", got, ref):
+        assert _rel_err(a, r) <= GRAD_TOL[dtype], name
+    with torch.no_grad():
+        assert fa.flash_attention(q, k, v, key_padding_mask=mask).grad_fn is None
+
+
+def test_k4_k5_entries_on_cuda(cuda):
+    """K4 (forward with lse) and K5 (block backward): two key blocks' partials
+    add up to the full gradients."""
+    dtype = torch.float32
+    q, k, v, mask = _inputs(2, 2, 150, 160, 32, dtype, cuda, seed=5)
+    do = torch.randn(q.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(6))
+    out, lse = fa.flash_attention_with_lse(q, k, v, key_padding_mask=mask)
+    ref_out, ref_lse = fa.flash_attention_reference(q, k, v, key_padding_mask=mask,
+                                                    return_lse=True)
+    assert _rel_err(out, ref_out) <= 2e-5 and _rel_err(lse, ref_lse) <= 1e-4
+    full = fa.flash_attention_block_bwd(q, k, v, out, lse, do, key_padding_mask=mask)
+    parts = [
+        fa.flash_attention_block_bwd(q, k[:, :, sl].contiguous(), v[:, :, sl].contiguous(), out,
+                                     lse, do, key_padding_mask=mask[:, sl].contiguous())
+        for sl in (slice(0, 64), slice(64, 160))
+    ]
+    assert _rel_err(parts[0][0] + parts[1][0], full[0]) <= 1e-4
+    assert _rel_err(torch.cat([parts[0][1], parts[1][1]], 2), full[1]) <= 1e-4
+    assert _rel_err(torch.cat([parts[0][2], parts[1][2]], 2), full[2]) <= 1e-4
