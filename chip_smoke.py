@@ -6,16 +6,20 @@
 Phases, each raising on failure (nothing is caught):
   1. device   — the card's name and power limit;
   2. build    — builds the kernel libraries from the checkout's sources with
-                nvcc, both at once: K1 (esm_tpu_torch/csrc/flash_attention.cu,
-                the flash-attention forward, optionally writing the lse) and
-                K2 (csrc/flash_attention_bwd.cu, the two-pass backward);
+                nvcc, all at once: K1 (esm_tpu_torch/csrc/flash_attention.cu,
+                the flash-attention forward, optionally writing the lse), K2
+                (csrc/flash_attention_bwd.cu, the two-pass backward), K6
+                (csrc/triangle_attention.cu) and K7/K8 (csrc/triangle_mul.cu);
   3. kernels  — every kernel against its plain PyTorch version on the card,
                 fp32 (TF32 off) and bf16, d in {16, 32, 64, 128}, T in {37,
                 1000, 1024, 4096} and T != S, a ragged key-padding mask off
                 and on, rotary off and on: K1 without the lse, K1 with it
                 (output and lse), K2 (dq, dk, dv); then the K4 and K5 entries
                 (a forward with the lse, and two key blocks' backward partials
-                that add up to the whole);
+                that add up to the whole); K6, fp32 and bf16, d in {16, 32,
+                64}, J in {37, 256, 1000, 1100}, H=4, a ragged key mask, on
+                real rows; K7 (mask off and on) and K8, C in {32, 128}, row
+                counts no multiple of the tile;
   4. main     — the inference path: ESM2-650M (esm2_t33_650M_UR50D, 33 x
                 1280, 20 heads; seeded random weights) in bf16 through LMHandle
                 with the flash path at B=32, L=1022 (1024 tokens), as bench.py
@@ -37,7 +41,26 @@ Phases, each raising on failure (nothing is caught):
                 the reference layout, its files checked against a CPU run; and
                 a short esm_tpu_torch.cli.pretrain run on the card at the
                 esm2_t6_8M shape (its defaults) with evaluation;
-  7. summary  — the nvidia-smi line, a JSON line of the ported kernels, and
+  7. fold     — the ESMFold inference path: ESMFold v1 at full width and
+                depth (ESM2-3B LM, 36 x 2560; 48 trunk blocks, c_s 1024, c_z
+                128; seeded random weights, the zero-initialized layers
+                re-drawn) through ESMFoldHandle.infer with the fast preset (bf16
+                LM with K1, bf16 trunk with K6) at B=1, L=512, default
+                recycles: K6 must launch 384 times and K1 36 times per fold;
+                the fold held against the same fold with exact triangle
+                attention and against an fp32 fold; folds/s at L=512 and
+                L=1000, peak memory, a profile of one L=1000 fold; then [k6],
+                K6 timed at B=1, I=J=1000, H=4, d=32 beside its bound and
+                scaled_dot_product_attention;
+  8. trimul   — triangle_multiplicative_update_fused (K7 + einsum + K8)
+                against z + triangle_multiplicative_update at B=1, L=1000,
+                C=128, bf16, with the trunk's mask: agreement and both times;
+                then [k7] and [k8] timed beside their bounds;
+  9. cli-fold — esm_tpu_torch.cli.fold on the card over a seeded FASTA with a
+                reference-layout checkpoint (an esm2_t6_8M-shaped LM, a
+                2-block trunk at ESMFold's widths), --fused-triangle, its PDBs
+                held against a CPU run of the same command;
+ 10. summary  — the nvidia-smi line, a JSON line of the ported kernels, and
                 as the last line {"ok": true, "device": {...}}.
 
 Exits non-zero, with no result line, when there is no GPU or when the port's
@@ -68,6 +91,26 @@ BF16_TOL = 2e-2           # K1 vs plain, bf16: P is rounded relative to the runn
 # The lse is fp32 in both dtypes: 1e-4.
 GRAD_TOL = {"torch.float32": 1e-4, "torch.bfloat16": 2e-2}
 LSE_TOL = 1e-4
+# K6 vs plain: fp32 2e-5 absolute (fp32 FMA, summation order only); bf16 2e-2
+# relative (P rounded against the running max, outputs rounded to bf16).
+# K7/K8 vs plain: fp32 5e-5 (rsqrtf and expf against PyTorch's, sums in
+# another order); bf16 2e-2 relative (normalized rows and outputs rounded to
+# bf16 from fp32 values that differ in the last bits).
+TRI_TOL = {"torch.float32": 2e-5, "torch.bfloat16": 2e-2}
+TRIMUL_TOL = {"torch.float32": 5e-5, "torch.bfloat16": 2e-2}
+# The fast fold (bf16 trunk, K6) against the same fold with exact triangle
+# attention (bf16 trunk, logits rounded to bf16 before the softmax): the two
+# differ only in how attention rounds, so K6's fold must stay as close to an
+# fp32 fold as the exact route is (CA-RMSD at most 1.5x the exact route's
+# distance, plus 0.05 A for two distances that are both near zero), and the
+# two bf16 folds must agree to 2 A CA-RMSD, 2 pLDDT points (mean) and 0.02 pTM.
+FOLD_RMSD_RATIO, FOLD_RMSD_SLACK = 1.5, 0.05
+FOLD_CA_RMSD, FOLD_PLDDT, FOLD_PTM = 2.0, 2.0, 0.02
+# The fused tri-mul (K7 + einsum + K8) against z + the unfused op, bf16: the
+# unfused op rounds the projections, gates and einsum inputs to bf16 at other
+# places than the kernels, which gate in fp32: 5e-2 relative.
+TRIMUL_AB_TOL = 5e-2
+CLI_FOLD_TOL = 5e-3  # A, the fold CLI's PDBs on the card against a CPU run (fp32)
 TRAIN_STEPS = 6
 TRAIN_LR = 1e-6  # larger rates raised the loss of this random init on a fixed batch (PERF.md)
 
@@ -128,11 +171,10 @@ def phase_device():
 
 def phase_build():
     from esm_tpu_torch.kernels import _build
-    from esm_tpu_torch.kernels import flash_attention as fa
 
     t0 = time.perf_counter()
-    fa.build()
-    log(f"[build] K1 and K2 built/loaded in {time.perf_counter() - t0:.1f} s (nvcc, "
+    _build.build_all()
+    log(f"[build] K1, K2, K6 and K7/K8 built/loaded in {time.perf_counter() - t0:.1f} s (nvcc, "
         + ", ".join(f"{n} {s:.1f} s" for n, s in _build.build_seconds.items()) + ")")
     for name, text in _build.build_logs.items():
         for line in text.splitlines():
@@ -203,9 +245,11 @@ def phase_kernels():
                         f"{LSE_TOL}; K2 dq {err['dq']:.2e} dk {err['dk']:.2e} "
                         f"dv {err['dv']:.2e} <= {gtol} (relative)")
         entries_check(gen)
+        tri_cases = triangle_check(gen)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
-    log(f"[kernels] K1, K1-lse and K2 match their plain versions at all {cases} cases")
+    log(f"[kernels] K1, K1-lse and K2 match their plain versions at all {cases} cases; "
+        f"K6, K7 and K8 at all {tri_cases}")
 
 
 def entries_check(gen):
@@ -247,6 +291,100 @@ def entries_check(gen):
             f"blocks (320 + 704 keys) vs whole: {worst:.2e} <= {gtol} (relative)")
 
 
+def tri_inputs(b, i, j, h, d, dtype, gen):
+    """K6 inputs: q/k/v (B, I, J, H, d), tri bias (B, H, J, J) fp32, and a
+    ragged key mask (the last batch row loses a third of its keys, and its
+    last row i every key) as the (B, I, J) fp32 bias; with the (B, I) rows
+    that have a key to attend to."""
+    import torch
+
+    q = (torch.randn(b, i, j, h, d, device="cuda", generator=gen) * d ** -0.5).to(dtype)
+    k = torch.randn(b, i, j, h, d, device="cuda", generator=gen).to(dtype)
+    v = torch.randn(b, i, j, h, d, device="cuda", generator=gen).to(dtype)
+    tri = torch.randn(b, h, j, j, device="cuda", generator=gen)
+    keep = torch.ones(b, i, j, dtype=torch.bool, device="cuda")
+    keep[-1, :, j - j // 3:] = False
+    keep[-1, -1, :] = False
+    mask_bias = torch.where(keep, 0.0, -1e30).float()
+    return (q, k, v, tri, mask_bias), keep.any(-1)
+
+
+def tri_mul_module(c, seed):
+    """A TriangleMultiplication with seeded weights of the init's scales
+    (all layers non-zero), on the card."""
+    import torch
+    from esm_tpu_torch.ops.triangle import TriangleMultiplication
+
+    gen = torch.Generator().manual_seed(seed)
+    mod = TriangleMultiplication(c)
+    with torch.no_grad():
+        for name, p in mod.named_parameters():
+            if name.startswith("layer_norm"):
+                p.normal_(generator=gen).mul_(0.1).add_(1.0 if name.endswith("weight") else 0.0)
+            else:
+                p.uniform_(-c ** -0.5, c ** -0.5, generator=gen)
+    return mod.cuda()
+
+
+def triangle_check(gen):
+    """K6 (fp32 and bf16, d in {16, 32, 64}, J in {37, 256, 1000, 1100}, H=4,
+    ragged mask, real rows), K7 (mask off and on) and K8 (C in {32, 128},
+    row counts no multiple of the tile) against their plain versions."""
+    import torch
+    from esm_tpu_torch.kernels import triangle_attention as ta
+    from esm_tpu_torch.kernels import triangle_mul as tm
+
+    cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = TRI_TOL[str(dtype)]
+        for d in (16, 32, 64):
+            worst = {}
+            for j in (37, 256, 1000, 1100):
+                i = 8 if j <= 256 else 2
+                args, real = tri_inputs(1, i, j, 4, d, dtype, gen)
+                out = ta.triangle_attention_fused(*args)
+                ref = ta.triangle_attention_reference(*args)
+                torch.cuda.synchronize()
+                e = (rel_err(out[real], ref[real]) if dtype == torch.bfloat16
+                     else (out[real] - ref[real]).abs().max().item())
+                if not e <= tol:
+                    raise AssertionError(f"K6 {dtype} d={d} J={j} I={i}: err {e} > {tol}")
+                worst[j] = e
+                cases += 1
+            log(f"[kernels] K6 {str(dtype):14s} d={d:2d} H=4 ragged mask, real rows: "
+                + ", ".join(f"J={j} {e:.2e}" for j, e in worst.items()) + f" <= {tol}")
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = TRIMUL_TOL[str(dtype)]
+        for c in (32, 128):
+            mod = tri_mul_module(c, seed=c)
+            w4, b4, ln_s, ln_b = tm.stage1_weights(mod, dtype)
+            errs = []
+            for shape in ((1, 7, 33), (2, 37, 101)):  # 231 and 7474 rows
+                rows = int(np.prod(shape))
+                z = torch.randn(*shape, c, device="cuda", generator=gen).to(dtype)
+                x = torch.randn(*shape, c, device="cuda", generator=gen).to(dtype)
+                for masked in (False, True):
+                    mask = ((torch.rand(*shape, device="cuda", generator=gen) > 0.3).to(dtype)
+                            if masked else None)
+                    a, b = tm.tri_mul_stage1(z, mask, mod)
+                    ref_a, ref_b = tm.tri_mul_stage1_reference(
+                        z.reshape(rows, c), None if mask is None else mask.reshape(rows).to(
+                            torch.int8), w4, b4, ln_s, ln_b)
+                    errs += [rel_err(a.reshape(rows, c), ref_a), rel_err(b.reshape(rows, c), ref_b)]
+                    cases += 1
+                o = tm.tri_mul_epilogue(x, z, mod)
+                ref_o = tm.tri_mul_epilogue_reference(x.reshape(rows, c), z.reshape(rows, c),
+                                                      *tm.epilogue_weights(mod, dtype))
+                torch.cuda.synchronize()
+                errs.append(rel_err(o.reshape(rows, c), ref_o))
+                cases += 1
+            if not max(errs) <= tol:
+                raise AssertionError(f"K7/K8 {dtype} C={c}: errors {errs} > {tol}")
+            log(f"[kernels] K7 (mask off/on) and K8 {str(dtype):14s} C={c:3d}, 231 and 7474 rows: "
+                f"max err {max(errs):.2e} <= {tol} (relative)")
+    return cases
+
+
 def bench_tokens(alphabet, b, length, seed=0):
     rng = np.random.RandomState(seed)
     toks = np.full((b, length + 2), alphabet.padding_idx, dtype=np.int64)
@@ -258,20 +396,30 @@ def bench_tokens(alphabet, b, length, seed=0):
 
 def zero_counts():
     from esm_tpu_torch.kernels import flash_attention as fa
+    from esm_tpu_torch.kernels import triangle_attention as ta
+    from esm_tpu_torch.kernels import triangle_mul as tm
 
     fa.flash_attention.launches = 0
     fa.flash_attention_with_lse.launches = 0
     fa.flash_attention_bwd.launches_dq = 0
     fa.flash_attention_bwd.launches_dkv = 0
+    ta.triangle_attention_fused.launches = 0
+    tm.tri_mul_stage1.launches = 0
+    tm.tri_mul_epilogue.launches = 0
 
 
 def read_counts():
     from esm_tpu_torch.kernels import flash_attention as fa
+    from esm_tpu_torch.kernels import triangle_attention as ta
+    from esm_tpu_torch.kernels import triangle_mul as tm
 
     return {"flash_attention": fa.flash_attention.launches,
             "flash_attention_with_lse": fa.flash_attention_with_lse.launches,
             "flash_attention_bwd.dq": fa.flash_attention_bwd.launches_dq,
-            "flash_attention_bwd.dkv": fa.flash_attention_bwd.launches_dkv}
+            "flash_attention_bwd.dkv": fa.flash_attention_bwd.launches_dkv,
+            "triangle_attention_fused": ta.triangle_attention_fused.launches,
+            "tri_mul_stage1": tm.tri_mul_stage1.launches,
+            "tri_mul_epilogue": tm.tri_mul_epilogue.launches}
 
 
 def phase_main(card):
@@ -342,10 +490,11 @@ def phase_main(card):
     return launches
 
 
-def profile(label, fn, top=8):
+def profile(label, fn, top=8, by_op=False):
     """Device time by kernel over one call of ``fn`` (torch.profiler), and the
     share of its wall time during which some kernel ran (the union of the
-    device events' intervals)."""
+    device events' intervals); with ``by_op`` also the device time of the
+    PyTorch operators that launched the kernels."""
     import collections
 
     import torch
@@ -375,6 +524,13 @@ def profile(label, fn, top=8):
         f"{len(events)} device events")
     for name, (ms, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
         log(f"[profile]   {ms:9.3f} ms {100 * ms / max(total, 1e-9):5.1f}%  x{count:<5d} {name[:90]}")
+    if by_op:
+        ops = [((getattr(e, "self_device_time_total", 0)
+                 or getattr(e, "self_cuda_time_total", 0)) / 1e3, e.count, e.key)
+               for e in prof.key_averages() if e.key.startswith("aten::")]
+        for ms, count, key in sorted(ops, reverse=True)[:top]:
+            log(f"[profile]   by operator: {ms:9.3f} ms {100 * ms / max(total, 1e-9):5.1f}%  "
+                f"x{count:<5d} {key[:60]}")
 
 
 def attention_bound_ms(flops, nbytes, peak=H100_BF16_FLOPS):
@@ -509,7 +665,8 @@ def phase_train(card):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     per_step = {k: v / TRAIN_STEPS for k, v in counts.items()}
     want = {"flash_attention": 0, "flash_attention_with_lse": 2 * n_layers,
-            "flash_attention_bwd.dq": n_layers, "flash_attention_bwd.dkv": n_layers}
+            "flash_attention_bwd.dq": n_layers, "flash_attention_bwd.dkv": n_layers,
+            "triangle_attention_fused": 0, "tri_mul_stage1": 0, "tri_mul_epilogue": 0}
     log(f"[train] flash path losses over {TRAIN_STEPS} steps: "
         + ", ".join(f"{x:.5f}" for x in losses))
     log(f"[train] launches per step {per_step} (expected {want}); whole run {counts}")
@@ -772,6 +929,327 @@ def phase_cli_pretrain():
             "tensors, all finite")
 
 
+def redraw_zero_layers(model, seed):
+    """Every all-zero parameter of the trunk and heads (the init's
+    zero-initialized residual-branch outputs, g_proj, the IPA head weights,
+    LN biases), re-drawn with seeded noise: weight matrices ~ N(0,
+    1/(4 fan_in)), the rest ~ N(0, 0.01); without it the triangle ops would
+    add exactly zero. The LM is left as it is. Returns the count."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    n = 0
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.startswith("esm.") or p.any():
+                continue
+            scale = 0.5 * p.shape[1] ** -0.5 if p.dim() == 2 else 0.1
+            p.normal_(generator=gen).mul_(scale)
+            n += 1
+    return n
+
+
+def random_protein(length, seed):
+    rng = np.random.RandomState(seed)
+    return "".join(rng.choice(list("ACDEFGHIKLMNPQRSTVWY"), length))
+
+
+def fold_agreement(a, b):
+    """(max atom position error in A, CA-RMSD in A, |mean pLDDT delta|,
+    |pTM delta|) between two single-sequence fold outputs."""
+    exists = a["atom14_atom_exists"][0].bool()
+    pa, pb = a["positions"][-1][0], b["positions"][-1][0]  # (L, 14, 3)
+    err = (pa - pb).norm(dim=-1)[exists].max().item()
+    rmsd = (pa[:, 1] - pb[:, 1]).pow(2).sum(-1).mean().sqrt().item()
+    return (err, rmsd, abs(a["mean_plddt"].item() - b["mean_plddt"].item()),
+            abs(a["ptm"].item() - b["ptm"].item()))
+
+
+def timed_fold(handle, seq, n=2):
+    """Seconds per fold over ``n`` folds (host clock, synchronised)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        handle.infer([seq])["positions"]
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n
+
+
+def phase_fold(card):
+    """ESMFold v1 at full width and depth through the fast preset (K1 in the
+    ESM2-3B LM, K6 in the 48-block trunk)."""
+    import torch
+    from esm_tpu_torch import pretrained
+
+    t0 = time.perf_counter()
+    handle = pretrained.random_esmfold("esmfold_v1", seed=11, device="cuda", fast=True)
+    redrawn = redraw_zero_layers(handle.model, seed=12)
+    cfg = handle.cfg
+    n_lm = sum(p.numel() for p in handle.model.esm.parameters())
+    n_all = sum(p.numel() for p in handle.model.parameters())
+    log(f"[fold] ESMFold v1, seeded: ESM2-3B LM ({cfg.esm.num_layers} x {cfg.esm.embed_dim}, "
+        f"{cfg.esm.attention_heads} heads; {n_lm / 1e6:.1f}M parameters), trunk "
+        f"{cfg.trunk.num_blocks} blocks c_s {cfg.trunk.sequence_state_dim} c_z "
+        f"{cfg.trunk.pairwise_state_dim} ({(n_all - n_lm) / 1e6:.1f}M parameters with the heads); "
+        f"{redrawn} zero-initialized tensors re-drawn; built in {time.perf_counter() - t0:.1f} s")
+    seq = random_protein(512, seed=13)
+    passes = cfg.trunk.max_recycles
+
+    zero_counts()
+    fast = handle.infer([seq])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want_k6 = 2 * cfg.trunk.num_blocks * passes
+    log(f"[fold] fast preset (bf16 LM with K1, bf16 trunk with K6), B=1 L=512, {passes} passes: "
+        f"launches {counts}")
+    if (counts["triangle_attention_fused"] != want_k6
+            or counts["flash_attention"] != cfg.esm.num_layers):
+        raise AssertionError(f"launches {counts}: expected K6 x {want_k6}, K1 x "
+                             f"{cfg.esm.num_layers}")
+    if sum(counts.values()) != want_k6 + cfg.esm.num_layers:
+        raise AssertionError(f"unexpected kernel launches in the fold: {counts}")
+
+    exact = handle.with_options(use_flash_tri=False).infer([seq])
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    f32 = handle.with_options(lm_dtype=torch.float32, use_flash=False,
+                              compute_dtype=torch.float32, use_flash_tri=False).infer([seq])
+    torch.backends.cuda.matmul.allow_tf32 = prev
+    for name, out in (("fast", fast), ("exact", exact), ("fp32", f32)):
+        finite = all(torch.isfinite(out[k]).all() for k in
+                     ("positions", "plddt", "ptm", "predicted_aligned_error"))
+        pl, tm_ = out["mean_plddt"].item(), out["ptm"].item()
+        if not (finite and 0 <= pl <= 100 and 0 <= tm_ <= 1):
+            raise AssertionError(f"{name} fold: finite {finite}, mean pLDDT {pl}, pTM {tm_}")
+    err, rmsd, dpl, dtm = fold_agreement(fast, exact)
+    _, rmsd_fast, _, _ = fold_agreement(fast, f32)
+    _, rmsd_exact, _, _ = fold_agreement(exact, f32)
+    span = fast["positions"][-1][0, :, 1].std(0).norm().item()
+    log(f"[fold] fast vs exact triangle attention (both bf16): max atom position error "
+        f"{err:.4f} A, CA-RMSD {rmsd:.4f} A (CA radius of gyration {span:.2f} A), |d mean pLDDT| "
+        f"{dpl:.4f}, |d pTM| {dtm:.5f}; bounds {FOLD_CA_RMSD} A, {FOLD_PLDDT}, {FOLD_PTM}")
+    log(f"[fold] CA-RMSD to an fp32 fold (fp32 LM and trunk, exact attention, TF32 off): fast "
+        f"{rmsd_fast:.4f} A, exact {rmsd_exact:.4f} A (bound: fast <= {FOLD_RMSD_RATIO} x exact "
+        f"+ {FOLD_RMSD_SLACK} A); mean pLDDT fast {fast['mean_plddt'].item():.3f} exact "
+        f"{exact['mean_plddt'].item():.3f} fp32 {f32['mean_plddt'].item():.3f}; pTM fast "
+        f"{fast['ptm'].item():.4f} exact {exact['ptm'].item():.4f} fp32 {f32['ptm'].item():.4f}")
+    if not (rmsd <= FOLD_CA_RMSD and dpl <= FOLD_PLDDT and dtm <= FOLD_PTM):
+        raise AssertionError(f"fast and exact folds disagree: CA-RMSD {rmsd}, pLDDT {dpl}, "
+                             f"pTM {dtm}")
+    if not rmsd_fast <= FOLD_RMSD_RATIO * rmsd_exact + FOLD_RMSD_SLACK:
+        raise AssertionError(f"the K6 fold is {rmsd_fast} A from fp32, the exact route "
+                             f"{rmsd_exact} A")
+    del fast, exact, f32
+
+    for length in (512, 1000):
+        s = random_protein(length, seed=14 + length)
+        handle.infer([s])  # warm-up at this length
+        torch.cuda.reset_peak_memory_stats()
+        sec = timed_fold(handle, s)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        log(f"[fold] fast preset B=1 L={length}: {sec:.3f} s per fold, {1 / sec:.4f} folds/s, "
+            f"peak memory {peak:.2f} GB (torch.cuda.max_memory_allocated; {card})")
+    s = random_protein(1000, seed=1014)
+    profile("one L=1000 fold (fast preset)", lambda: handle.infer([s])["positions"], top=12,
+            by_op=True)
+    del handle
+    torch.cuda.empty_cache()
+    return counts
+
+
+def measure_k6(counts):
+    """K6 at the trunk's shape at L=1000: B=1, I=J=1000, H=4, d=32, bf16."""
+    import torch
+    import torch.nn.functional as F
+    from esm_tpu_torch.kernels import triangle_attention as ta
+
+    B, I, H, d = 1, 1000, 4, 32
+    J = I
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    q = (torch.randn(B, I, J, H, d, device="cuda", generator=gen) * d ** -0.5).bfloat16()
+    k = torch.randn(B, I, J, H, d, device="cuda", generator=gen).bfloat16()
+    v = torch.randn(B, I, J, H, d, device="cuda", generator=gen).bfloat16()
+    tri = torch.randn(B, H, J, J, device="cuda", generator=gen)
+    mask_bias = torch.zeros(B, I, J, device="cuda")  # one full-length sequence, as in the fold
+    kernel = lambda: ta.triangle_attention_fused(q, k, v, tri, mask_bias)
+    plain = lambda: ta.triangle_attention_reference(q, k, v, tri, mask_bias)
+    err = rel_err(kernel(), plain())
+    ms, plain_ms = cuda_time_ms(kernel), cuda_time_ms(plain, iters=3, warmup=1)
+    # yardstick: scaled_dot_product_attention over (B.I, H, J, d), the tri bias
+    # (bf16) broadcast over the rows
+    qs, ks, vs = (x.reshape(B * I, J, H, d).transpose(1, 2).contiguous() for x in (q, k, v))
+    bias = tri.bfloat16().expand(B * I, H, J, J)
+    lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=bias,
+                                                                 scale=1.0), iters=5)
+    flops = 4 * B * I * H * J * J * d
+    nbytes = 4 * B * I * J * H * d * 2 + B * H * J * J * 4 + B * I * J * 4
+    bound, by = attention_bound_ms(flops, nbytes)
+    exps = B * I * H * J * J
+    log(f"[k6] B={B} I=J={J} H={H} d={d} bf16: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
+        f"plain {plain_ms:.4f} ms, scaled_dot_product_attention (B.I rows, broadcast bias) "
+        f"{lib_ms:.4f} ms, bound {bound:.4f} ms ({by}: {flops / H100_BF16_FLOPS * 1e3:.4f} ms of "
+        f"operations, {nbytes / H100_BYTES * 1e3:.4f} ms of bytes; {exps:.2e} exponentials would "
+        f"take {exps / (132 * 16 * 1.98e9) * 1e3:.4f} ms at 16 per SM-clock, 1.98 GHz); "
+        f"{counts['triangle_attention_fused']} launches per fold; err {err:.3e} (relative)")
+    if not err <= TRI_TOL["torch.bfloat16"]:
+        raise AssertionError(f"K6 at the fold's shape: err {err}")
+    return {"name": "triangle_attention_fused", "route": "cuda",
+            "source": "esm_tpu_torch/csrc/triangle_attention.cu",
+            "replaces": "esm_tpu/kernels/triangle_attention.py:96",
+            "launches": counts["triangle_attention_fused"], "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
+
+
+def phase_trimul():
+    """The A/B left open at esm_tpu/models/esmfold/blocks.py:127-130, on the
+    card: the fused tri-mul (K7 + einsum + K8) against z + the unfused op at
+    the trunk's width; then K7 and K8 timed."""
+    import torch
+    from esm_tpu_torch.kernels import triangle_mul as tm
+    from esm_tpu_torch.ops import triangle as tri
+
+    L, C = 1000, 128
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    mod = tri_mul_module(C, seed=17)
+    z = torch.randn(1, L, L, C, device="cuda", generator=gen).bfloat16()
+    mask = torch.ones(1, L, L, device="cuda", dtype=torch.bfloat16)  # the trunk's tri_mask
+    zero_counts()
+    fused = {o: tri.triangle_multiplicative_update_fused(mod, z, outgoing=o, mask=mask)
+             for o in (True, False)}
+    torch.cuda.synchronize()
+    counts = read_counts()
+    if counts["tri_mul_stage1"] != 2 or counts["tri_mul_epilogue"] != 2:
+        raise AssertionError(f"fused tri-mul launches {counts}: expected K7 x 2, K8 x 2")
+    errs = {}
+    times = {}
+    for o in (True, False):
+        unfused = z + tri.triangle_multiplicative_update(mod, z, outgoing=o, mask=mask)
+        errs[o] = rel_err(fused[o], unfused)
+        times[o] = (cuda_time_ms(lambda: tri.triangle_multiplicative_update_fused(
+                        mod, z, outgoing=o, mask=mask), iters=10),
+                    cuda_time_ms(lambda: z + tri.triangle_multiplicative_update(
+                        mod, z, outgoing=o, mask=mask), iters=10))
+    del fused, unfused
+    for o in (True, False):
+        log(f"[trimul] {'outgoing' if o else 'incoming'} B=1 L={L} C={C} bf16, trunk mask: fused "
+            f"(K7 + einsum + K8) {times[o][0]:.4f} ms, z + unfused {times[o][1]:.4f} ms "
+            f"(fused / unfused {times[o][0] / times[o][1]:.3f}); agreement {errs[o]:.3e} <= "
+            f"{TRIMUL_AB_TOL} (relative)")
+    if not max(errs.values()) <= TRIMUL_AB_TOL:
+        raise AssertionError(f"fused and unfused tri-mul disagree: {errs}")
+
+    rows = L * L
+    entries = []
+    w = tm.stage1_weights(mod, z.dtype)
+    zf, mf = z.reshape(rows, C), mask.reshape(rows).to(torch.int8)
+    x = torch.randn(1, L, L, C, device="cuda", generator=gen).bfloat16()
+    ew = tm.epilogue_weights(mod, z.dtype)
+    for name, kernel, plain, ops, nbytes, line, launches in (
+        ("tri_mul_stage1", lambda: tm.tri_mul_stage1(z, mask, mod),
+         lambda: tm.tri_mul_stage1_reference(zf, mf, *w),
+         2 * rows * C * 4 * C, 3 * rows * C * 2 + rows + 4 * C * C * 2, 147,
+         counts["tri_mul_stage1"]),
+        ("tri_mul_epilogue", lambda: tm.tri_mul_epilogue(x, z, mod),
+         lambda: tm.tri_mul_epilogue_reference(x.reshape(rows, C), zf, *ew),
+         2 * 2 * rows * C * C, 3 * rows * C * 2 + 2 * C * C * 2, 186,
+         counts["tri_mul_epilogue"]),
+    ):
+        got, ref = kernel(), plain()
+        got = got if isinstance(got, tuple) else (got,)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        err = max(rel_err(g.reshape(rows, C), r) for g, r in zip(got, ref))
+        ms, plain_ms = cuda_time_ms(kernel), cuda_time_ms(plain, iters=3, warmup=1)
+        bound, by = attention_bound_ms(ops, nbytes)
+        tag = "k7" if name == "tri_mul_stage1" else "k8"
+        log(f"[{tag}] {name} B=1 L={L} ({rows} rows) C={C} bf16: kernel {ms:.4f} ms "
+            f"({nbytes / ms / 1e6:.1f} GB/s), plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
+            f"({by}); {launches} launches in the [trimul] run; err {err:.3e} (relative)")
+        if not err <= TRIMUL_TOL["torch.bfloat16"]:
+            raise AssertionError(f"{name} at the trunk's width: err {err}")
+        entries.append({"name": name, "route": "cuda", "source": "esm_tpu_torch/csrc/triangle_mul.cu",
+                        "replaces": f"esm_tpu/kernels/triangle_mul.py:{line}", "launches": launches,
+                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                        "bound_by": by, "library_ms": None})
+    return entries
+
+
+def phase_cli_fold():
+    """esm_tpu_torch.cli.fold on the card (--fused-triangle) with a
+    reference-layout checkpoint, its PDBs against a CPU run."""
+    import torch
+    from esm_tpu_torch.cli import fold
+    from esm_tpu_torch.io.export import save_esm2, save_esmfold
+    from esm_tpu_torch.kernels import triangle_attention as ta
+    from esm_tpu_torch.models import esm2
+    from esm_tpu_torch.models import esmfold as ef
+    from esm_tpu_torch.pretrained import _esm2_alphabet
+
+    cfg = ef.ESMFoldConfig(
+        esm=esm2.ESM2Config.from_alphabet(_esm2_alphabet(), **esm2.ESM2_SIZES["esm2_t6_8M_UR50D"]),
+        trunk=ef.FoldingTrunkConfig(num_blocks=2), esm_type="esm2_8M")
+    model = ef.init_esmfold(cfg, torch.Generator().manual_seed(18), device="cpu")
+    redraw = {n: p for n, p in model.named_parameters() if not n.startswith("esm.") and not p.any()}
+    gen = torch.Generator().manual_seed(19)
+    with torch.no_grad():
+        for p in redraw.values():
+            p.normal_(generator=gen).mul_(0.5 * p.shape[1] ** -0.5 if p.dim() == 2 else 0.1)
+    seqs = {f"p{n}": random_protein(n, seed=n) for n in (40, 120, 257)}
+    seqs["dimer"] = random_protein(60, seed=60) + ":" + random_protein(50, seed=50)
+    prev_cache = os.environ.get("ESM_TPU_CACHE")
+    with tempfile.TemporaryDirectory() as tmp:
+        cache = os.path.join(tmp, "cache")
+        os.makedirs(cache)
+        save_esm2(model.esm, os.path.join(cache, "esm2_t6_8M_UR50D_500K.pt"))
+        ckpt = save_esmfold(model, os.path.join(tmp, "esmfold_small.pt"))
+        fasta = os.path.join(tmp, "seqs.fasta")
+        with open(fasta, "w") as f:
+            f.write("".join(f">{k}\n{v}\n" for k, v in seqs.items()))
+        os.environ["ESM_TPU_CACHE"] = cache
+        try:
+            outs = {}
+            for where in ("cuda", "cpu"):
+                out_dir = os.path.join(tmp, where)
+                argv = ["-i", fasta, "-o", out_dir, "-m", ckpt, "--fused-triangle",
+                        "--num-recycles", "0"]
+                zero_counts()
+                t0 = time.perf_counter()
+                n = fold.run(fold.create_parser().parse_args(
+                    argv + (["--cpu-only"] if where == "cpu" else [])))
+                seconds = time.perf_counter() - t0
+                launches = ta.triangle_attention_fused.launches
+                outs[where] = {k: open(os.path.join(out_dir, f"{k}.pdb")).read() for k in seqs}
+                log(f"[cli-fold] {where}: {n} PDBs in {seconds:.1f} s, K6 launched {launches} times")
+                if n != len(seqs) or (where == "cuda") != (launches > 0):
+                    raise AssertionError(f"cli.fold on {where}: {n} PDBs, K6 x {launches}")
+        finally:
+            if prev_cache is None:
+                os.environ.pop("ESM_TPU_CACHE", None)
+            else:
+                os.environ["ESM_TPU_CACHE"] = prev_cache
+    worst = 0.0
+    for k in seqs:
+        a, b = outs["cuda"][k].splitlines(), outs["cpu"][k].splitlines()
+        if len(a) != len(b) or any(x[:30] != y[:30] for x, y in zip(a, b)):
+            raise AssertionError(f"cli.fold {k}: card and CPU PDBs differ in their records")
+        for x, y in zip(a, b):
+            if x.startswith("ATOM"):
+                worst = max(worst, max(abs(float(x[i:i + 8]) - float(y[i:i + 8]))
+                                       for i in (30, 38, 46)))
+    # fp32 on both (K6's fp32 kernel against the plain version), one pass:
+    # sums in another order through 2 blocks and the structure module, and
+    # the last printed digit. (With recycles, a CB distance at a distogram
+    # bin edge can fall into another bin on the two machines and move the
+    # next pass by ~0.01 A.)
+    if not worst <= CLI_FOLD_TOL:
+        raise AssertionError(f"cli.fold card vs CPU coordinates differ by {worst} A > "
+                             f"{CLI_FOLD_TOL}")
+    log(f"[cli-fold] {len(seqs)} sequences (lengths 40, 120, 257 and a 60:50 dimer), esm2_t6_8M "
+        f"LM and a 2-block trunk at ESMFold's widths, fp32, one pass, --fused-triangle: card vs "
+        f"CPU coordinates within {worst:.4f} A <= {CLI_FOLD_TOL} A, same atoms and records")
+
+
 def main():
     import torch
 
@@ -790,9 +1268,12 @@ def main():
     backward = measure_backward(counts)
     phase_cli()
     phase_cli_pretrain()
+    k6 = measure_k6(phase_fold(card))
+    trimul = phase_trimul()
+    phase_cli_fold()
     log(f"[summary] all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(smi)
-    log(json.dumps({"kernels": [k1] + backward}))
+    log(json.dumps({"kernels": [k1] + backward + [k6] + trimul}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,
                                            "count": torch.cuda.device_count()}}))
     return 0

@@ -1,4 +1,4 @@
-"""Write the port's ESM-2 in the reference's released checkpoint layout.
+"""Write the port's models in the reference's released checkpoint layouts.
 
 Port of esm_tpu/io/export.py's ``save_esm2`` (reference loader:
 esm/pretrained.py:164-219): ``<name>.pt`` holds ``{"cfg": {"model":
@@ -6,13 +6,15 @@ Namespace}, "model": state}`` with the released ``encoder.sentence_encoder.``
 / ``encoder.`` key prefixes, and the contact regression goes to the
 co-located ``<name>-contact-regression.pt``. The file stem must start with
 ``esm2``: that is how the loaders route a file to the ESM-2 path.
+``save_esmfold`` writes ESMFold's trunk and heads in the reference's
+esmfold format.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -46,3 +48,62 @@ def save_esm2(model, path) -> Tuple[str, str]:
     reg_path = os.path.splitext(path)[0] + "-contact-regression.pt"
     torch.save({"model": regression}, reg_path)
     return path, reg_path
+
+
+# The LM registry name of an ESM-2 size by depth (reference
+# esm/esmfold/v1/esmfold.py:35-47).
+_ESM_TYPE_BY_LAYERS = {6: "esm2_8M", 12: "esm2_35M", 30: "esm2_150M", 33: "esm2_650M",
+                       36: "esm2_3B", 48: "esm2_15B"}
+
+
+def _namespace(d):
+    return argparse.Namespace(**{k: _namespace(v) if isinstance(v, dict) else v
+                                 for k, v in d.items()})
+
+
+def save_esmfold(model, path, esm_type: Optional[str] = None) -> str:
+    """Write the port's ``ESMFold`` to ``path`` in the reference's esmfold
+    checkpoint format (esm_tpu/io/export.py:683-770; reference loader
+    esm/esmfold/v1/pretrained.py:13-38): ``{"cfg": {"model": cfg}, "model":
+    state}`` with the ``esm.*`` LM keys left out (the LM rides its own
+    checkpoint, named by ``cfg.esm_type``) and the cfg as nested
+    ``argparse.Namespace``. Returns the path."""
+    path = os.fspath(path)
+    cfg = model.cfg
+    esm_type = esm_type or cfg.esm_type or _ESM_TYPE_BY_LAYERS.get(cfg.esm.num_layers)
+    if esm_type is None:
+        raise ValueError(f"no reference esm_type for a {cfg.esm.num_layers}-layer LM; pass "
+                         "esm_type= (reference esm/esmfold/v1/esmfold.py:35-47)")
+    tc, smc = cfg.trunk, cfg.trunk.structure_module
+    sm_keys = ("c_s", "c_z", "c_ipa", "c_resnet", "no_heads_ipa", "no_qk_points", "no_v_points",
+               "dropout_rate", "no_blocks", "no_transition_layers", "no_resnet_blocks",
+               "no_angles", "trans_scale_factor", "epsilon", "inf")
+    cfg_dict = {
+        "_name": "ESMFoldConfig",
+        "esm_type": esm_type,
+        "fp16_esm": True,  # the reference default (esmfold.py:62)
+        "use_esm_attn_map": bool(cfg.use_esm_attn_map),
+        "esm_ablate_pairwise": False,
+        "esm_ablate_sequence": False,
+        "esm_input_dropout": 0,
+        "trunk": {
+            "_name": "FoldingTrunkConfig",
+            "num_blocks": tc.num_blocks,
+            "sequence_state_dim": tc.sequence_state_dim,
+            "pairwise_state_dim": tc.pairwise_state_dim,
+            "sequence_head_width": tc.sequence_head_width,
+            "pairwise_head_width": tc.pairwise_head_width,
+            "position_bins": tc.position_bins,
+            "dropout": 0,
+            "layer_drop": 0,
+            "cpu_grad_checkpoint": False,
+            "max_recycles": tc.max_recycles,
+            "chunk_size": tc.chunk_size,
+            "structure_module": {k: getattr(smc, k) for k in sm_keys},
+        },
+        "lddt_head_hid_dim": cfg.lddt_head_hid_dim,
+    }
+    state = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()
+             if not k.startswith("esm.")}
+    torch.save({"cfg": {"model": _namespace(cfg_dict)}, "model": state}, path)
+    return path

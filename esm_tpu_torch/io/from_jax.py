@@ -3,8 +3,9 @@
 ``esm2_state_dict_from_jax`` takes an ESM-2 parameter pytree of esm_tpu's
 layout, as numpy arrays (no JAX needed here), and returns this port's state
 dict: the reference's canonical key layout, so ``ESM2.load_state_dict``
-takes it strictly. It is the port's own copy of the rules in
-esm_tpu/io/export.py:128-169:
+takes it strictly; ``esmfold_state_dict_from_jax`` does the same for
+ESMFold. They are the port's own copy of the rules in
+esm_tpu/io/export.py:128-169 and :572-676:
   * ``kernel`` (in, out) -> Linear ``weight`` (out, in), transposed;
   * LN ``scale``/``bias`` -> LayerNorm ``weight``/``bias``;
   * the stacked layer axis -> per-layer ``layers.{i}.*`` keys;
@@ -75,4 +76,99 @@ def esm2_state_dict_from_jax(params, cfg) -> Dict[str, torch.Tensor]:
     sd["lm_head.weight"] = emb  # tied projection (reference esm/modules.py:303-308)
     sd["lm_head.bias"] = _t(head["bias"])
     _linear(sd, "contact_head.regression", params["contact_head"]["regression"])
+    return sd
+
+
+def esmfold_state_dict_from_jax(params, cfg) -> Dict[str, torch.Tensor]:
+    """An ESMFold parameter pytree of esm_tpu's layout (numpy) -> the port's
+    ``ESMFold`` state dict: the reference checkpoint's keys (the port's own
+    copy of esm_tpu/io/export.py:572-676, ``export_esmfold_state_dict``), plus
+    the LM under ``esm.*`` (:func:`esm2_state_dict_from_jax` on
+    ``params["esm"]``). ``cfg`` is the ESMFold config (its ``esm`` part sizes
+    the LM's rotary buffers)."""
+    sd: Dict[str, torch.Tensor] = {
+        f"esm.{k}": v for k, v in esm2_state_dict_from_jax(params["esm"], cfg.esm).items()
+    }
+    sd["esm_s_combine"] = _t(params["esm_s_combine"])
+
+    def mlp3(key: str, p) -> None:  # Sequential(LayerNorm, Linear, ReLU, Linear)
+        _ln(sd, f"{key}.0", p["norm"])
+        _linear(sd, f"{key}.1", p["fc1"])
+        _linear(sd, f"{key}.3", p["fc2"])
+
+    mlp3("esm_s_mlp", params["esm_s_mlp"])
+    if "esm_z_mlp" in params:
+        mlp3("esm_z_mlp", params["esm_z_mlp"])
+    sd["embedding.weight"] = _t(params["embedding"]["weight"])
+    for name in ("distogram_head", "ptm_head", "lm_head"):
+        _linear(sd, name, params[name])
+    lddt = params["lddt_head"]
+    _ln(sd, "lddt_head.0", lddt["norm"])
+    for i, name in enumerate(("fc1", "fc2", "fc3"), start=1):
+        _linear(sd, f"lddt_head.{i}", lddt[name])
+
+    trunk = params["trunk"]
+    sd["trunk.pairwise_positional_embedding.embedding.weight"] = _t(
+        trunk["pairwise_positional_embedding"]["embedding"]["weight"])
+    _ln(sd, "trunk.recycle_s_norm", trunk["recycle_s_norm"])
+    _ln(sd, "trunk.recycle_z_norm", trunk["recycle_z_norm"])
+    sd["trunk.recycle_disto.weight"] = _t(trunk["recycle_disto"]["weight"])
+    _linear(sd, "trunk.trunk2sm_s", trunk["trunk2sm_s"])
+    _linear(sd, "trunk.trunk2sm_z", trunk["trunk2sm_z"])
+
+    blocks = trunk["blocks"]
+    n_blocks = 0 if blocks is None else int(np.asarray(blocks["layernorm_1"]["scale"]).shape[0])
+    for i in range(n_blocks):
+        p = f"trunk.blocks.{i}"
+        _ln(sd, f"{p}.layernorm_1", blocks["layernorm_1"], i)
+        s2p = blocks["sequence_to_pair"]
+        _ln(sd, f"{p}.sequence_to_pair.layernorm", s2p["layernorm"], i)
+        _linear(sd, f"{p}.sequence_to_pair.proj", s2p["proj"], i)
+        _linear(sd, f"{p}.sequence_to_pair.o_proj", s2p["o_proj"], i)
+        p2s = blocks["pair_to_sequence"]
+        _ln(sd, f"{p}.pair_to_sequence.layernorm", p2s["layernorm"], i)
+        _linear(sd, f"{p}.pair_to_sequence.linear", p2s["linear"], i)
+        for name in ("proj", "o_proj", "g_proj"):
+            _linear(sd, f"{p}.seq_attention.{name}", blocks["seq_attention"][name], i)
+        for tm in ("tri_mul_out", "tri_mul_in"):
+            t = blocks[tm]
+            _ln(sd, f"{p}.{tm}.layer_norm_in", t["layer_norm_in"], i)
+            _ln(sd, f"{p}.{tm}.layer_norm_out", t["layer_norm_out"], i)
+            for name in ("linear_a_p", "linear_a_g", "linear_b_p", "linear_b_g", "linear_g",
+                         "linear_z"):
+                _linear(sd, f"{p}.{tm}.{name}", t[name], i)
+        for ta in ("tri_att_start", "tri_att_end"):
+            t = blocks[ta]
+            _ln(sd, f"{p}.{ta}.layer_norm", t["layer_norm"], i)
+            _linear(sd, f"{p}.{ta}.linear", t["linear"], i)
+            for name in ("linear_q", "linear_k", "linear_v", "linear_o", "linear_g"):
+                _linear(sd, f"{p}.{ta}.mha.{name}", t["mha"][name], i)
+        for mlp in ("mlp_seq", "mlp_pair"):
+            m = blocks[mlp]
+            _ln(sd, f"{p}.{mlp}.mlp.0", m["norm"], i)
+            _linear(sd, f"{p}.{mlp}.mlp.1", m["fc1"], i)
+            _linear(sd, f"{p}.{mlp}.mlp.3", m["fc2"], i)
+
+    sm = trunk["structure_module"]
+    p = "trunk.structure_module"
+    _ln(sd, f"{p}.layer_norm_s", sm["layer_norm_s"])
+    _ln(sd, f"{p}.layer_norm_z", sm["layer_norm_z"])
+    _linear(sd, f"{p}.linear_in", sm["linear_in"])
+    for name in ("linear_q", "linear_kv", "linear_q_points", "linear_kv_points", "linear_b",
+                 "linear_out"):
+        _linear(sd, f"{p}.ipa.{name}", sm["ipa"][name])
+    sd[f"{p}.ipa.head_weights"] = _t(sm["ipa"]["head_weights"])
+    _ln(sd, f"{p}.layer_norm_ipa", sm["layer_norm_ipa"])
+    for i, layer in enumerate(sm["transition"]["layers"]):
+        for name in ("linear_1", "linear_2", "linear_3"):
+            _linear(sd, f"{p}.transition.layers.{i}.{name}", layer[name])
+    _ln(sd, f"{p}.transition.layer_norm", sm["transition"]["layer_norm"])
+    _linear(sd, f"{p}.bb_update.linear", sm["bb_update"]["linear"])
+    ar = sm["angle_resnet"]
+    _linear(sd, f"{p}.angle_resnet.linear_in", ar["linear_in"])
+    _linear(sd, f"{p}.angle_resnet.linear_initial", ar["linear_initial"])
+    for i, layer in enumerate(ar["layers"]):
+        for name in ("linear_1", "linear_2"):
+            _linear(sd, f"{p}.angle_resnet.layers.{i}.{name}", layer[name])
+    _linear(sd, f"{p}.angle_resnet.linear_out", ar["linear_out"])
     return sd

@@ -27,6 +27,14 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+# Every kernel library of the port: name -> its sources under csrc/.
+LIBRARIES = {
+    "esm_flash_attention": ["flash_attention.cu"],          # K1
+    "esm_flash_attention_bwd": ["flash_attention_bwd.cu"],  # K2
+    "esm_triangle_attention": ["triangle_attention.cu"],    # K6
+    "esm_triangle_mul": ["triangle_mul.cu"],                # K7, K8
+}
+
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 # seconds spent in nvcc and its ptxas report, per library built by this process
@@ -92,3 +100,14 @@ def load_libraries(specs: Mapping[str, Sequence[str]]) -> Dict[str, ctypes.CDLL]
         for name, out in outputs.items():
             _libs[name] = ctypes.CDLL(str(out))
         return {name: _libs[name] for name in specs}
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """One library of :data:`LIBRARIES`, built at first use."""
+    return load_libraries({name: LIBRARIES[name]})[name]
+
+
+def build_all() -> Dict[str, ctypes.CDLL]:
+    """Build (or load) every library of :data:`LIBRARIES` now, all ``nvcc``
+    processes at once."""
+    return load_libraries(LIBRARIES)

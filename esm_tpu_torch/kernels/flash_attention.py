@@ -38,8 +38,7 @@ from ..ops.rotary import rotary_tables
 
 NEG_INF = -1e30  # key-padding bias (the TPU kernel's NEG_INF)
 _DTYPES = (torch.float32, torch.bfloat16)
-_FWD = ("esm_flash_attention", ["flash_attention.cu"])
-_BWD = ("esm_flash_attention_bwd", ["flash_attention_bwd.cu"])
+_FWD, _BWD = "esm_flash_attention", "esm_flash_attention_bwd"
 
 
 def _check(q, k, v, key_padding_mask) -> Tuple[int, int, int, int, int]:
@@ -180,10 +179,10 @@ def _device_tables(length: int, d: int, device: torch.device):
 
 
 def _libraries():
-    from ._build import load_libraries
+    from ._build import LIBRARIES, load_libraries
 
-    libs = load_libraries(dict([_FWD, _BWD]))
-    fwd, bwd = libs[_FWD[0]], libs[_BWD[0]]
+    libs = load_libraries({name: LIBRARIES[name] for name in (_FWD, _BWD)})
+    fwd, bwd = libs[_FWD], libs[_BWD]
     if fwd.esm_flash_attention_fwd.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         for fn, n_ptrs in ((fwd.esm_flash_attention_fwd, 9),
@@ -195,12 +194,6 @@ def _libraries():
             lib.esm_cuda_error_string.argtypes = [i32]
             lib.esm_cuda_error_string.restype = ctypes.c_char_p
     return fwd, bwd
-
-
-def build() -> None:
-    """Build (or load) the forward and backward kernel libraries now, both
-    nvcc processes at once, instead of at the first call."""
-    _libraries()
 
 
 def _ptr(x: Optional[torch.Tensor]):

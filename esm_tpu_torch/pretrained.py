@@ -1,12 +1,13 @@
 """Checkpoint loading and model handles.
 
-Port of esm_tpu/pretrained.py for ESM-2 (reference semantics:
-esm/pretrained.py): ``load_model_and_alphabet_local`` reads an ``esm2*.pt``
-file and its co-located ``-contact-regression.pt``, strips the v2 key
-prefixes and loads the state dict into the port's ``ESM2`` module. A
-registry name resolves only from the local cache (``ESM_TPU_CACHE``, default
-``~/.cache/esm_tpu/checkpoints``): downloading, and the ESM-1, MSA, IF and
-ESMFold handles, are not ported yet.
+Port of esm_tpu/pretrained.py for ESM-2 and ESMFold (reference semantics:
+esm/pretrained.py, esm/esmfold/v1/pretrained.py): ``load_model_and_alphabet_local``
+reads an ``esm2*.pt`` file and its co-located ``-contact-regression.pt``,
+strips the v2 key prefixes and loads the state dict into the port's ``ESM2``
+module; ``load_esmfold`` reads an esmfold ``.pt`` and its LM into an
+``ESMFoldHandle``. A registry name resolves only from the local cache
+(``ESM_TPU_CACHE``, default ``~/.cache/esm_tpu/checkpoints``): downloading,
+and the ESM-1, MSA and IF handles, are not ported yet.
 
 Device: every entry point runs on CUDA unless the caller passes
 ``device="cpu"``; with no GPU and no CPU request it raises. Nothing falls
@@ -229,3 +230,193 @@ def _make_constructor(name):
 
 for _name in esm2_mod.ESM2_SIZES:
     globals()[_name] = _make_constructor(_name)
+
+
+# ---------------------------------------------------------------------------
+# ESMFold (reference esm/esmfold/v1/pretrained.py)
+# ---------------------------------------------------------------------------
+
+ESM_REGISTRY_FOR_FOLD = {
+    "esm2_8M": "esm2_t6_8M_UR50D_500K",
+    "esm2_8M_270K": "esm2_t6_8M_UR50D",
+    "esm2_35M": "esm2_t12_35M_UR50D_500K",
+    "esm2_35M_270K": "esm2_t12_35M_UR50D",
+    "esm2_150M": "esm2_t30_150M_UR50D_500K",
+    "esm2_150M_270K": "esm2_t30_150M_UR50D_270K",
+    "esm2_650M": "esm2_t33_650M_UR50D",
+    "esm2_650M_270K": "esm2_t33_650M_270K_UR50D",
+    "esm2_3B": "esm2_t36_3B_UR50D",
+    "esm2_3B_270K": "esm2_t36_3B_UR50D_500K",
+    "esm2_15B": "esm2_t48_15B_UR50D",
+}
+_FOLD_ALIASES = {"esmfold_v0": "esmfold_3B_v0", "esmfold_v1": "esmfold_3B_v1"}
+
+
+def _check_lm_options(esm_cfg) -> None:
+    if esm_cfg.use_flash and esm_cfg.compute_dtype == torch.float16:
+        raise ValueError("the flash-attention kernel (K1) has no float16 path: use "
+                         "lm_dtype=torch.bfloat16 with use_flash, or float16 without it")
+
+
+class ESMFoldHandle:
+    """ESMFold handle with the reference model's API (esm/esmfold/v1/esmfold.py:
+    152, 281, 350, 354: infer / infer_pdb(s) / output_to_pdb / set_chunk_size).
+    Holds the config whose execution options apply, the ``ESMFold`` module
+    and the alphabet; unpacks as ``cfg, model, alphabet = handle``."""
+
+    def __init__(self, cfg, model: torch.nn.Module, alphabet: Alphabet):
+        _check_lm_options(cfg.esm)
+        self.cfg = cfg
+        self.model = model
+        self.alphabet = alphabet
+
+    def __iter__(self):
+        return iter((self.cfg, self.model, self.alphabet))
+
+    @property
+    def device(self) -> torch.device:
+        return self.model.device
+
+    def infer(self, sequences, **kw):
+        from .models.esmfold import esmfold as ef
+
+        return ef.infer(self.model, self.cfg, sequences, **kw)
+
+    def infer_pdbs(self, seqs, **kw):
+        from .models.esmfold import esmfold as ef
+
+        return ef.infer_pdbs(self.model, self.cfg, seqs, **kw)
+
+    def infer_pdb(self, seq, **kw):
+        return self.infer_pdbs([seq], **kw)[0]
+
+    @staticmethod
+    def output_to_pdb(output):
+        from .models.esmfold.protein import output_to_pdb
+
+        return output_to_pdb(output)
+
+    def set_chunk_size(self, chunk_size) -> None:
+        """Chunked triangle attention, in place (reference esmfold.py:354-360):
+        O(L) pair-stage memory at some speed."""
+        self.cfg = dataclasses.replace(
+            self.cfg, trunk=dataclasses.replace(self.cfg.trunk, chunk_size=chunk_size))
+
+    def with_options(self, *, lm_dtype=None, use_flash=None, **trunk_updates) -> "ESMFoldHandle":
+        """A handle on the same weights with execution options changed:
+        ``lm_dtype`` and ``use_flash`` (kernel K1) for the LM, the rest
+        trunk options (compute_dtype, use_flash_tri, chunk_size). float16
+        with flash raises: K1 has no float16 path."""
+        if "pair_spec" in trunk_updates:
+            raise NotImplementedError(
+                "pair_spec: the sharded pair tensor is multi-GPU work, not ported yet "
+                "(ROADMAP Queue 1, item 13)")
+        cfg = self.cfg
+        lm = {k: v for k, v in (("compute_dtype", lm_dtype), ("use_flash", use_flash))
+              if v is not None}
+        if lm:
+            cfg = dataclasses.replace(cfg, esm=dataclasses.replace(cfg.esm, **lm))
+        if trunk_updates:
+            cfg = dataclasses.replace(cfg, trunk=dataclasses.replace(cfg.trunk, **trunk_updates))
+        return ESMFoldHandle(cfg, self.model, self.alphabet)
+
+
+def _fast(cfg):
+    """The serving preset of esm_tpu's ``load_esmfold(fast=True)``: bf16 LM
+    with flash attention (K1), bf16 trunk with fused triangle attention (K6)."""
+    return dataclasses.replace(
+        cfg,
+        esm=dataclasses.replace(cfg.esm, compute_dtype=torch.bfloat16, use_flash=True),
+        trunk=dataclasses.replace(cfg.trunk, compute_dtype=torch.bfloat16, use_flash_tri=True),
+    )
+
+
+def load_esmfold(path_or_name: str, fast: bool = False, device=None) -> ESMFoldHandle:
+    """Load an ESMFold checkpoint and its LM (esm_tpu/pretrained.py:618-701;
+    reference esm/esmfold/v1/pretrained.py:13-38). The esmfold ``.pt`` holds
+    ``{cfg, model}`` without the LM's ``esm.*`` keys; the LM is the checkpoint
+    that ``ESM_REGISTRY_FOR_FOLD[cfg.esm_type]`` names, from the local cache.
+    A name (``esmfold_v1``, ``esmfold_3B_v1``, ...) resolves from the local
+    cache only. ``fast=True``: bf16 LM with K1, bf16 trunk with K6."""
+    from .models.esmfold.esmfold import ESMFold, ESMFoldConfig
+    from .models.esmfold.structure_module import StructureModuleConfig
+    from .models.esmfold.trunk import FoldingTrunkConfig
+
+    device = resolve_device(device)
+    if str(path_or_name).endswith(".pt"):
+        path = Path(path_or_name)
+    else:
+        name = _FOLD_ALIASES.get(path_or_name, path_or_name)
+        path = cache_dir() / f"{name}.pt"
+        if not path.exists():
+            raise FileNotFoundError(f"{name}: {path} is not in the local cache, and "
+                                    "downloading checkpoints is not ported yet")
+    model_data = torch.load(str(path), map_location="cpu", weights_only=False)
+    ck = model_data["cfg"]["model"]
+    lm_handle, alphabet = load_model_and_alphabet_hub(ESM_REGISTRY_FOR_FOLD[ck.esm_type],
+                                                      device=device)
+    tc, smc = ck.trunk, ck.trunk.structure_module
+    sm_keys = ("c_s", "c_z", "c_ipa", "c_resnet", "no_heads_ipa", "no_qk_points", "no_v_points",
+               "no_blocks", "no_transition_layers", "no_resnet_blocks", "no_angles",
+               "trans_scale_factor")
+    cfg = ESMFoldConfig(
+        esm=lm_handle.cfg,
+        trunk=FoldingTrunkConfig(
+            num_blocks=tc.num_blocks,
+            sequence_state_dim=tc.sequence_state_dim,
+            pairwise_state_dim=tc.pairwise_state_dim,
+            sequence_head_width=tc.sequence_head_width,
+            pairwise_head_width=tc.pairwise_head_width,
+            position_bins=tc.position_bins,
+            max_recycles=tc.max_recycles,
+            structure_module=StructureModuleConfig(**{k: getattr(smc, k) for k in sm_keys}),
+        ),
+        use_esm_attn_map=getattr(ck, "use_esm_attn_map", False),
+        lddt_head_hid_dim=getattr(ck, "lddt_head_hid_dim", 128),
+        esm_type=ck.esm_type,
+    )
+    if fast:
+        cfg = _fast(cfg)
+    model = ESMFold(cfg, esm=lm_handle.model, device=device)
+    state = {k: v for k, v in model_data["model"].items() if not k.startswith("esm.")}
+    missing, unexpected = model.load_state_dict(state, strict=False)
+    missing = [k for k in missing if not k.startswith("esm.")]
+    if missing or unexpected:
+        raise RuntimeError(f"{path}: missing keys {missing}, unexpected keys {unexpected}")
+    return ESMFoldHandle(cfg, model, alphabet)
+
+
+def esmfold_v0(fast: bool = False, device=None) -> ESMFoldHandle:
+    return load_esmfold("esmfold_3B_v0", fast=fast, device=device)
+
+
+def esmfold_v1(fast: bool = False, device=None) -> ESMFoldHandle:
+    return load_esmfold("esmfold_3B_v1", fast=fast, device=device)
+
+
+def random_esmfold(name: str = "esmfold_v1", *, seed: int = 0, device=None, fast: bool = False,
+                   **options) -> ESMFoldHandle:
+    """ESMFold v1 (or v0, which adds the LM attention-map features) at its
+    released size, ESM2-3B LM and 48-block trunk, with seeded random
+    weights built on the device (``init_esmfold``). ``fast`` as in
+    :func:`load_esmfold`; ``options`` are execution options, as
+    :meth:`ESMFoldHandle.with_options` takes them."""
+    from .models.esmfold.esmfold import ESMFoldConfig
+    from .models.esmfold.init import init_esmfold
+    from .models.esmfold.trunk import FoldingTrunkConfig
+
+    if name not in _FOLD_ALIASES:
+        raise ValueError(f"unknown ESMFold {name!r}: one of {sorted(_FOLD_ALIASES)}")
+    device = resolve_device(device)
+    alphabet = _esm2_alphabet()
+    cfg = ESMFoldConfig(
+        esm=esm2_mod.ESM2Config.from_alphabet(alphabet, **esm2_mod.ESM2_SIZES["esm2_t36_3B_UR50D"]),
+        trunk=FoldingTrunkConfig(),
+        use_esm_attn_map=name == "esmfold_v0",
+        esm_type="esm2_3B",
+    )
+    if fast:
+        cfg = _fast(cfg)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    handle = ESMFoldHandle(cfg, init_esmfold(cfg, gen, device=device), alphabet)
+    return handle.with_options(**options) if options else handle

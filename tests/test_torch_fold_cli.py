@@ -1,0 +1,151 @@
+"""The port's esm-fold CLI (esm_tpu_torch.cli.fold) and ESMFold loading on
+the CPU, with a reference-layout checkpoint written by the port's
+``save_esmfold`` and its LM (a 2 x 32 ESM-2 under the registry name that
+``esm_type`` "esm2_8M" names) in a local ``ESM_TPU_CACHE``.
+
+The CLI's PDBs must equal, byte for byte, what ``ESMFoldHandle.infer_pdbs``
+gives for the same batch on the same weights: both run the same CPU ops.
+"""
+
+import logging
+
+import numpy as np
+import pytest
+import torch
+
+from esm_tpu_torch import pretrained
+from esm_tpu_torch.cli import fold
+from esm_tpu_torch.data import Alphabet
+from esm_tpu_torch.io.export import save_esm2, save_esmfold
+from esm_tpu_torch.models import esm2
+from esm_tpu_torch.models import esmfold as ef
+
+SEQS = {"short": "MKTVRQERLK", "multi": "MKTAY:RQELSG", "long": "MKTAYIAKQRQISFVKSHFSRQLEE"}
+
+
+def _tiny_cfg():
+    alphabet = Alphabet.from_architecture("ESM-1b")
+    return ef.ESMFoldConfig(
+        esm=esm2.ESM2Config.from_alphabet(alphabet, num_layers=2, embed_dim=32,
+                                          attention_heads=2),
+        trunk=ef.FoldingTrunkConfig(
+            num_blocks=1, sequence_state_dim=64, pairwise_state_dim=32, sequence_head_width=16,
+            pairwise_head_width=16, max_recycles=2,
+            structure_module=ef.StructureModuleConfig(c_s=32, c_z=32, c_ipa=8, c_resnet=16,
+                                                      no_heads_ipa=4, no_blocks=2)),
+        esm_type="esm2_8M",
+    )
+
+
+@pytest.fixture
+def cache(tmp_path, monkeypatch):
+    """An ESM_TPU_CACHE with the LM, and an esmfold checkpoint beside it."""
+    cfg = _tiny_cfg()
+    model = ef.init_esmfold(cfg, torch.Generator().manual_seed(0), device="cpu")
+    with torch.no_grad():  # non-zero residual branches, so every op shows in the output
+        gen = torch.Generator().manual_seed(1)
+        for name, p in model.named_parameters():
+            if not name.startswith("esm.") and not p.any():
+                p.normal_(0, 0.1, generator=gen)
+    cache = tmp_path / "cache"
+    cache.mkdir()
+    save_esm2(model.esm, cache / "esm2_t6_8M_UR50D_500K.pt")
+    path = save_esmfold(model, tmp_path / "esmfold_tiny.pt")
+    monkeypatch.setenv("ESM_TPU_CACHE", str(cache))
+    fasta = tmp_path / "seqs.fasta"
+    fasta.write_text("".join(f">{k}\n{v}\n" for k, v in SEQS.items()))
+    return model, path, fasta
+
+
+def test_save_and_load_esmfold_round_trip(cache):
+    model, path, _ = cache
+    data = torch.load(path, weights_only=False)
+    assert not any(k.startswith("esm.") for k in data["model"])  # the LM rides its own file
+    assert data["cfg"]["model"].esm_type == "esm2_8M"
+    handle = pretrained.load_esmfold(str(path), device="cpu")
+    cfg, loaded, _ = handle
+    assert cfg.trunk.num_blocks == 1 and cfg.esm.num_layers == 2 and not cfg.trunk.use_flash_tri
+    want = model.state_dict()
+    got = loaded.state_dict()
+    assert got.keys() == want.keys()
+    assert all(torch.equal(got[k], want[k]) for k in want)
+    fast, _, _ = pretrained.load_esmfold(str(path), fast=True, device="cpu")
+    assert fast.trunk.use_flash_tri and fast.esm.use_flash
+    assert fast.trunk.compute_dtype == fast.esm.compute_dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("extra", [[], ["--serial"], ["--bucket", "--max-tokens-per-batch", "20"]])
+def test_fold_cli_matches_infer_pdbs(cache, tmp_path, extra):
+    _, path, fasta = cache
+    out = tmp_path / "pdb"
+    args = fold.create_parser().parse_args(
+        ["-i", str(fasta), "-o", str(out), "-m", str(path), "--cpu-only", "--num-recycles", "1",
+         *extra])
+    assert fold.run(args) == len(SEQS)
+    handle = pretrained.load_esmfold(str(path), device="cpu")
+    ordered = sorted(SEQS.items(), key=lambda kv: len(kv[1]))
+    batches = fold.create_batched_sequence_dataset(ordered, args.max_tokens_per_batch)
+    for headers, seqs in batches:
+        pdbs = handle.infer_pdbs(seqs, num_recycles=1,
+                                 pad_to_multiple=ef.FOLD_LENGTH_BUCKET if args.bucket else None)
+        for header, pdb in zip(headers, pdbs):
+            assert (out / f"{header}.pdb").read_text() == pdb
+    assert (out / "multi.pdb").read_text().count("TER") == 2
+
+
+def test_fold_cli_skips_a_batch_that_runs_out_of_memory(cache, tmp_path, monkeypatch, caplog):
+    _, path, fasta = cache
+    real = pretrained.ESMFoldHandle.infer
+
+    def infer(self, sequences, **kw):
+        if "MKTVRQERLK" in sequences:
+            raise torch.cuda.OutOfMemoryError("CUDA out of memory (simulated)")
+        return real(self, sequences, **kw)
+
+    monkeypatch.setattr(pretrained.ESMFoldHandle, "infer", infer)
+    out = tmp_path / "pdb"
+    args = fold.create_parser().parse_args(
+        ["-i", str(fasta), "-o", str(out), "-m", str(path), "--cpu-only", "--num-recycles", "0",
+         "--max-tokens-per-batch", "12"])
+    with caplog.at_level(logging.INFO):
+        assert fold.run(args) == 2
+    assert not (out / "short.pdb").exists() and (out / "long.pdb").exists()
+    assert "Failed (OOM) on sequence short" in caplog.text
+
+
+@pytest.mark.parametrize("flag,item", [("--plan", "item 13"), ("--int8", "item 10")])
+def test_fold_cli_unported_flags_raise(cache, tmp_path, flag, item):
+    _, path, fasta = cache
+    args = fold.create_parser().parse_args(
+        ["-i", str(fasta), "-o", str(tmp_path / "pdb"), "-m", str(path), "--cpu-only", flag])
+    with pytest.raises(NotImplementedError, match=item):
+        fold.run(args)
+
+
+def test_handle_options(cache):
+    _, path, _ = cache
+    handle = pretrained.load_esmfold(str(path), device="cpu")
+    with pytest.raises(ValueError, match="no float16 path"):
+        handle.with_options(lm_dtype=torch.float16, use_flash=True)
+    with pytest.raises(NotImplementedError, match="item 13"):
+        handle.with_options(pair_spec=("tp",))
+    with pytest.raises(NotImplementedError, match="items 6 and 13"):
+        ef.esmfold.apply_sharded()
+    fp16 = handle.with_options(lm_dtype=torch.float16)
+    assert fp16.cfg.esm.compute_dtype == torch.float16 and not fp16.cfg.esm.use_flash
+    handle.set_chunk_size(4)
+    assert handle.cfg.trunk.chunk_size == 4
+    chunked = handle.infer(["MKTVRQERLK"], num_recycles=0)
+    whole = handle.with_options(chunk_size=None).infer(["MKTVRQERLK"], num_recycles=0)
+    np.testing.assert_allclose(chunked["positions"].numpy(), whole["positions"].numpy(),
+                               atol=1e-5, rtol=0)
+
+
+def test_fold_cli_needs_a_gpu_or_cpu_only(cache, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without a GPU")
+    _, path, fasta = cache
+    args = fold.create_parser().parse_args(
+        ["-i", str(fasta), "-o", str(tmp_path / "pdb"), "-m", str(path)])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        fold.run(args)

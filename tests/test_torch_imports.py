@@ -61,11 +61,11 @@ def no_cuda():
 @pytest.mark.parametrize(
     "entry",
     ["resolve_device", "random_model_and_alphabet", "load_model_and_alphabet_local",
-     "extract", "pretrain"],
+     "extract", "pretrain", "random_esmfold", "load_esmfold", "fold"],
 )
 def test_entry_points_without_device_raise_when_cuda_absent(no_cuda, entry, tmp_path):
     from esm_tpu_torch import pretrained
-    from esm_tpu_torch.cli import extract, pretrain
+    from esm_tpu_torch.cli import extract, fold, pretrain
 
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         if entry == "resolve_device":
@@ -74,6 +74,13 @@ def test_entry_points_without_device_raise_when_cuda_absent(no_cuda, entry, tmp_
             pretrained.random_model_and_alphabet("esm2_t6_8M_UR50D")
         elif entry == "load_model_and_alphabet_local":
             pretrained.load_model_and_alphabet_local(tmp_path / "esm2_missing.pt")
+        elif entry == "random_esmfold":
+            pretrained.random_esmfold("esmfold_v1")
+        elif entry == "load_esmfold":
+            pretrained.load_esmfold(str(tmp_path / "esmfold_missing.pt"))
+        elif entry == "fold":
+            fold.run(fold.create_parser().parse_args(
+                ["-i", str(tmp_path / "x.fasta"), "-o", str(tmp_path / "pdb")]))
         elif entry == "pretrain":
             pretrain.run(pretrain.create_parser().parse_args(
                 ["--fasta", str(tmp_path / "x.fasta"), "--steps", "1"]))

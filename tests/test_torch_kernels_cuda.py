@@ -141,3 +141,89 @@ def test_k4_k5_entries_on_cuda(cuda):
     assert _rel_err(parts[0][0] + parts[1][0], full[0]) <= 1e-4
     assert _rel_err(torch.cat([parts[0][1], parts[1][1]], 2), full[1]) <= 1e-4
     assert _rel_err(torch.cat([parts[0][2], parts[1][2]], 2), full[2]) <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# K6 (triangle attention), K7 and K8 (the tri-mul stages). Tolerances: fp32
+# 2e-5 absolute for K6 (fp32 FMA, summation order only) and 5e-5 for K7/K8
+# (the kernels' rsqrtf and expf against PyTorch's, C-term sums in another
+# order); bf16 2e-2 times the result's magnitude (probabilities, normalized
+# rows and outputs are rounded to bf16 from fp32 values that differ from the
+# plain version's in the last bits).
+# ---------------------------------------------------------------------------
+
+from esm_tpu_torch.kernels import triangle_attention as ta  # noqa: E402
+from esm_tpu_torch.kernels import triangle_mul as tm  # noqa: E402
+from esm_tpu_torch.ops.triangle import TriangleMultiplication  # noqa: E402
+
+
+def _k6_inputs(b, i, j, h, d, dtype, device, seed=0):
+    rng = np.random.RandomState(seed)
+    q = torch.from_numpy((rng.randn(b, i, j, h, d) * d ** -0.5).astype(np.float32))
+    k = torch.from_numpy(rng.randn(b, i, j, h, d).astype(np.float32))
+    v = torch.from_numpy(rng.randn(b, i, j, h, d).astype(np.float32))
+    tri_bias = torch.from_numpy(rng.randn(b, h, j, j).astype(np.float32))
+    keep = np.ones((b, i, j), bool)
+    keep[-1, :, j - j // 3:] = False  # ragged keys
+    keep[-1, -1, :] = False           # a padded residue: every key masked
+    mask_bias = torch.from_numpy(np.where(keep, 0.0, ta.NEG_INF).astype(np.float32))
+    return ([x.to(device=device, dtype=dtype) for x in (q, k, v)]
+            + [tri_bias.to(device), mask_bias.to(device)])
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("d", [16, 32, 64])
+@pytest.mark.parametrize("j", [37, 256, 1000, 1100])
+def test_triangle_attention_kernel_matches_plain(cuda, dtype, atol, d, j):
+    args = _k6_inputs(1, 3, j, 4, d, dtype, cuda)
+    before = ta.triangle_attention_fused.launches
+    out = ta.triangle_attention_fused(*args)
+    ref = ta.triangle_attention_reference(*args)
+    torch.cuda.synchronize()
+    assert ta.triangle_attention_fused.launches == before + 1
+    assert out.dtype == dtype and out.shape == args[0].shape
+    assert _rel_err(out, ref) <= atol
+
+
+def _tri_mul_module(c, device, seed):
+    gen = torch.Generator().manual_seed(seed)
+    mod = TriangleMultiplication(c)
+    with torch.no_grad():
+        for name, p in mod.named_parameters():
+            scale = c ** -0.5 if name.endswith("weight") and p.dim() == 2 else 0.1
+            p.normal_(generator=gen).mul_(scale)
+            if name.startswith("layer_norm") and name.endswith("weight"):
+                p.add_(1.0)
+    return mod.to(device)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("c", [32, 128])
+@pytest.mark.parametrize("masked", [False, True])
+def test_tri_mul_kernels_match_plain(cuda, dtype, tol, c, masked):
+    """K7 with and without a mask, and K8, on 7 x 33 = 231 rows (no multiple
+    of the 128-row tile)."""
+    rng = np.random.RandomState(c)
+    z = torch.from_numpy(rng.randn(1, 7, 33, c).astype(np.float32)).to(cuda, dtype)
+    x = torch.from_numpy(rng.randn(1, 7, 33, c).astype(np.float32)).to(cuda, dtype)
+    mask = None
+    if masked:
+        mask = torch.from_numpy((rng.rand(1, 7, 33) > 0.3).astype(np.float32)).to(cuda, dtype)
+    mod = _tri_mul_module(c, cuda, seed=c + 1)
+    rows = 7 * 33
+    w4, b4, ln_s, ln_b = tm.stage1_weights(mod, dtype)
+    n1, n2 = tm.tri_mul_stage1.launches, tm.tri_mul_epilogue.launches
+    a, b = tm.tri_mul_stage1(z, mask, mod)
+    o = tm.tri_mul_epilogue(x, z, mod)
+    ref_a, ref_b = tm.tri_mul_stage1_reference(
+        z.reshape(rows, c), None if mask is None else mask.reshape(rows).to(torch.int8),
+        w4, b4, ln_s, ln_b)
+    ref_o = tm.tri_mul_epilogue_reference(x.reshape(rows, c), z.reshape(rows, c),
+                                          *tm.epilogue_weights(mod, dtype))
+    torch.cuda.synchronize()
+    assert (tm.tri_mul_stage1.launches, tm.tri_mul_epilogue.launches) == (n1 + 1, n2 + 1)
+    for got, ref in ((a, ref_a), (b, ref_b), (o, ref_o)):
+        assert got.dtype == dtype
+        assert _rel_err(got.reshape(rows, c), ref) <= tol
+    if masked:
+        assert not a[mask == 0].any() and not b[mask == 0].any()
