@@ -10,6 +10,8 @@ Phases, each raising on failure (nothing is caught):
                 the flash-attention forward, optionally writing the lse), K2
                 (csrc/flash_attention_bwd.cu, the two-pass backward), K6
                 (csrc/triangle_attention.cu) and K7/K8 (csrc/triangle_mul.cu);
+                prints ptxas's registers, spills and shared memory of K1's and
+                K2's wgmma kernels, and fails on a spill;
   3. kernels  — every kernel against its plain PyTorch version on the card,
                 fp32 (TF32 off) and bf16, d in {16, 32, 64, 128}, T in {37,
                 1000, 1024, 4096} and T != S, a ragged key-padding mask off
@@ -25,7 +27,8 @@ Phases, each raising on failure (nothing is caught):
                 with the flash path at B=32, L=1022 (1024 tokens), as bench.py
                 drives the JAX package: K1 must launch once per layer; logits
                 held against the exact path and an fp32 forward; seq/s of both
-                bf16 paths; then [k1], K1 timed at that shape;
+                bf16 paths; then [k1], K1 timed at that shape (and, like every
+                [k*] line, its ratio to the library call and its TFLOP/s);
   5. train    — the training path: ESM2-650M at full width and depth, fp32
                 master weights, bf16 compute, flash attention and remat
                 "dots", B=8 x 1024 tokens, AdamW (lr TRAIN_LR, warmup 1)
@@ -169,6 +172,29 @@ def phase_device():
     return name, smi
 
 
+# the wgmma/TMA kernels of K1 and K2, by their names in ptxas's report
+HOPPER_KERNELS = re.compile(r"(flash_fwd_bf16|flash_dq_bf16|flash_dkv_bf16)ILi(\d+)E")
+
+
+def ptxas_report(text):
+    """{kernel: (registers, spill bytes, static shared bytes)} of the K1/K2
+    wgmma kernels in one library's ``nvcc -Xptxas -v`` output."""
+    report, current, spill = {}, None, 0
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            m = HOPPER_KERNELS.search(line)
+            current = f"{m.group(1)}<{m.group(2)}>" if m else None
+            spill = 0
+        elif current and "spill stores" in line:
+            spill = sum(int(x) for x in re.findall(r"(\d+) bytes spill", line))
+        elif current and "Used" in line and "registers" in line:
+            regs = int(re.search(r"Used (\d+) registers", line).group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            report[current] = (regs, spill, int(smem.group(1)) if smem else 0)
+            current = None
+    return report
+
+
 def phase_build():
     from esm_tpu_torch.kernels import _build
 
@@ -176,10 +202,19 @@ def phase_build():
     _build.build_all()
     log(f"[build] K1, K2, K6 and K7/K8 built/loaded in {time.perf_counter() - t0:.1f} s (nvcc, "
         + ", ".join(f"{n} {s:.1f} s" for n, s in _build.build_seconds.items()) + ")")
+    spilled = []
     for name, text in _build.build_logs.items():
+        report = ptxas_report(text)
+        for kernel, (regs, spill, smem) in sorted(report.items()):
+            log(f"[build]   {name}: {kernel}: {regs} registers a thread, {spill} bytes spilled, "
+                f"{smem} bytes static shared memory (+ the dynamic tile ring)")
+            if spill:
+                spilled.append(kernel)
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line) and not report:
                 log(f"[build]   {name}: {line.strip()}")
+    if spilled:
+        raise AssertionError(f"ptxas spilled registers in {spilled}")
 
 
 def phase_kernels():
@@ -565,7 +600,7 @@ def measure_k1(launches):
     log(f"[k1] bench shape B={B} H={H} T=S={T} d={d} bf16 rotary: kernel {ms:.4f} ms, "
         f"with the lse {lse_ms:.4f} ms, plain {plain_ms:.4f} ms, scaled_dot_product_attention "
         f"(pre-rotated) {lib_ms:.4f} ms, bound {bound:.4f} ms; {flops / ms / 1e9:.1f} TFLOP/s; "
-        f"max abs err {err:.3e}")
+        f"kernel / library {ms / lib_ms:.3f}; max abs err {err:.3e}")
 
     q32, k32, v32 = q.float(), k.float(), v.float()
     ms32 = cuda_time_ms(lambda: fa.flash_attention(q32, k32, v32, key_padding_mask=mask,
@@ -752,8 +787,9 @@ def measure_backward(counts):
     bound, by = attention_bound_ms(fwd_flops, 4 * act + B * H * T * 4 + small)
     log(f"[k1-lse] B={B} H={H} T=S={T} d={d} bf16 rotary: kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, scaled_dot_product_attention (pre-rotated) {lib_ms:.4f} ms, bound "
-        f"{bound:.4f} ms; {fwd_flops / ms / 1e9:.1f} TFLOP/s; {counts['flash_attention_with_lse']} "
-        f"launches in the training run; err {err:.3e}")
+        f"{bound:.4f} ms; {fwd_flops / ms / 1e9:.1f} TFLOP/s; kernel / library "
+        f"{ms / lib_ms:.3f}; {counts['flash_attention_with_lse']} launches in the training run; "
+        f"err {err:.3e}")
     if not err <= BF16_TOL:
         raise AssertionError(f"K1-lse at the training shape: err {err}")
     entries.append({"name": "flash_attention_with_lse", "route": "cuda",
@@ -763,7 +799,7 @@ def measure_backward(counts):
                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
                     "library_ms": lib_ms})
 
-    # K2 (rotate Q, delta, dq pass, dk/dv pass) on those residuals
+    # K2 (rotate Q, the dq pass with delta, the dk/dv pass) on those residuals
     kernel = lambda: fa.flash_attention_bwd(q, k_main, v, out, lse, do, key_padding_mask=mask,
                                             rotary=True)
     plain = lambda: fa.flash_attention_bwd_reference(q, k_main, v, out, lse, do,
@@ -775,7 +811,9 @@ def measure_backward(counts):
     log(f"[k2] B={B} H={H} T=S={T} d={d} bf16 rotary mask: kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, scaled_dot_product_attention backward (pre-rotated, yardstick) "
         f"{lib_ms:.4f} ms, bound {bound:.4f} ms ({by}); {bwd_flops / ms / 1e9:.1f} TFLOP/s of "
-        f"the 10.B.H.T.S.d needed; {counts['flash_attention_bwd.dq'] / TRAIN_STEPS:.0f} dq and "
+        f"the 10.B.H.T.S.d needed ({1.4 * bwd_flops / ms / 1e9:.1f} of the 14.B.H.T.S.d the two "
+        f"passes run); kernel / library {ms / lib_ms:.3f}; "
+        f"{counts['flash_attention_bwd.dq'] / TRAIN_STEPS:.0f} dq and "
         f"{counts['flash_attention_bwd.dkv'] / TRAIN_STEPS:.0f} dk/dv launches per step; "
         f"err {err:.3e} (relative)")
     if not err <= GRAD_TOL["torch.bfloat16"]:
@@ -797,7 +835,8 @@ def measure_backward(counts):
     bound, by = attention_bound_ms(fwd_flops, 4 * act + B * H * T * 4 + B * T)
     log(f"[k4] flash_attention_with_lse B={B} H={H} T=S={T} d={d} bf16 no rotary: kernel "
         f"{ms:.4f} ms, plain {plain_ms:.4f} ms, scaled_dot_product_attention {lib_ms:.4f} ms, "
-        f"bound {bound:.4f} ms; 0 launches on the paths driven (not on them)")
+        f"bound {bound:.4f} ms; {fwd_flops / ms / 1e9:.1f} TFLOP/s; kernel / library "
+        f"{ms / lib_ms:.3f}; 0 launches on the paths driven (not on them)")
 
     # K5: the backward against a key block, no rotary; timed with the whole key set
     out4, lse4 = fa.flash_attention_with_lse(q, k, v, key_padding_mask=mask)
@@ -810,8 +849,9 @@ def measure_backward(counts):
     bound, by = attention_bound_ms(bwd_flops, 8 * act + B * H * T * 4 + B * T)
     log(f"[k5] flash_attention_block_bwd B={B} H={H} T=S={T} d={d} bf16 no rotary: kernel "
         f"{ms:.4f} ms, plain {plain_ms:.4f} ms, scaled_dot_product_attention backward "
-        f"{lib_ms:.4f} ms, bound {bound:.4f} ms; 0 launches on the paths driven (not on them); "
-        f"err {err:.3e}")
+        f"{lib_ms:.4f} ms, bound {bound:.4f} ms; {bwd_flops / ms / 1e9:.1f} TFLOP/s of the "
+        f"10.B.H.T.S.d needed; kernel / library {ms / lib_ms:.3f}; 0 launches on the paths "
+        f"driven (not on them); err {err:.3e}")
     if not err <= GRAD_TOL["torch.bfloat16"]:
         raise AssertionError(f"K5 at the training shape: err {err}")
     entries.append({"name": "flash_attention_block_bwd", "route": "cuda",
@@ -1273,7 +1313,11 @@ def main():
     phase_cli_fold()
     log(f"[summary] all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(smi)
-    log(json.dumps({"kernels": [k1] + backward + [k6] + trimul}))
+    kernels = [k1] + backward + [k6] + trimul
+    for entry in kernels:
+        lib = entry["library_ms"]
+        entry["vs_library"] = entry["ms"] / lib if lib else None
+    log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,
                                            "count": torch.cuda.device_count()}}))
     return 0

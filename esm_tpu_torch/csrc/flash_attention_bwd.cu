@@ -23,22 +23,23 @@
 //
 // Launches, in order: the rotary prologue of K1 (flash_common.cuh) rotates Q
 // once into scratch the wrapper allocates (K arrives already rotated: the
-// forward saved its rotated copy); row_dot computes delta; the dq pass, one
-// block per (b.h, 64-query tile) walking the key tiles; the dk/dv pass, one
-// block per (b.h, 64-key tile) walking the query tiles. Neither pass writes
-// anything another block reads, so there are no atomics and the result does
-// not depend on the order blocks run in.
+// forward saved its rotated copy); the dq pass, one CTA per (b.h, 128-query
+// tile) walking the key tiles, which also computes delta for its rows and
+// writes it; the dk/dv pass, one CTA per (b.h, 128-key tile) walking the
+// query tiles. Neither pass writes anything another CTA of it reads, so there
+// are no atomics and the result does not depend on the order CTAs run in.
 //
 // What bounds it on an H100: 10.B.H.T.S.d operations of matrix products
 // (the two passes recompute S and dP, 14.B.H.T.S.d in all) over
 // ~9.B.H.T.d.2 bytes at the ESM-2 shapes: far above the card's ~295
 // operations per byte, so the tensor cores bound it. The bf16 kernels keep
-// every (T, S) quantity in registers, feed mma.sync m16n8k16 (bf16 in, fp32
-// accumulate), re-pack P and dS from the accumulators as A fragments without
-// touching shared memory, take the transposed B operands with ldmatrix.trans,
-// and double-buffer the streamed tiles with cp.async. The fp32 kernels (parity
-// runs) use fp32 FMA, not TF32, four threads per row. wgmma, TMA and warp
-// specialisation are later work.
+// every (T, S) quantity in registers and run every product on wgmma: the
+// score-side products (S, dP, or their transposes) with both operands
+// TMA-loaded into swizzled shared memory, the gradient products with P or
+// dS re-packed from the accumulators as the register A operand and the
+// streamed tile read transposed (tnspB); a producer warp keeps the streamed
+// tiles in flight (hopper_common.cuh). The fp32 kernels (parity runs) use
+// fp32 FMA, not TF32, four threads per row, with a row_dot launch for delta.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC; plain C interface, bound with ctypes
@@ -47,6 +48,7 @@
 #include <type_traits>
 
 #include "flash_common.cuh"
+#include "hopper_common.cuh"
 
 namespace {
 
@@ -68,7 +70,8 @@ struct BwdParams {
   int H, T, S, d;
 };
 
-// delta[r] = sum_c a[r, c] b[r, c] in fp32: one warp per row.
+// delta[r] = sum_c a[r, c] b[r, c] in fp32, one warp per row (the fp32 path;
+// the bf16 dq pass computes delta in its prologue).
 template <typename T>
 __global__ void row_dot(const T* __restrict__ a, const T* __restrict__ b,
                         float* __restrict__ out, size_t rows, int d) {
@@ -91,12 +94,12 @@ __global__ void row_dot(const T* __restrict__ a, const T* __restrict__ b,
 // Rows [0, n_rows) of an fp32 tile in shared memory (row stride ld) to the
 // global rows row0 + r < n of out (rows of d elements), pulled back through
 // the rotary (the transpose of rot, position = global row) when tables are
-// given.
+// given; threads tid of n_threads share the work.
 template <typename T>
 __device__ void store_rows(const float* tile, int ld, int n_rows, int row0, int n, T* out,
-                           const float* cos, const float* sin, int d) {
+                           const float* cos, const float* sin, int d, int tid, int n_threads) {
   const int half = d / 2;
-  for (int c = threadIdx.x; c < n_rows * half; c += blockDim.x) {
+  for (int c = tid; c < n_rows * half; c += n_threads) {
     const int r = c / half;
     const int j = c % half;
     const int row = row0 + r;
@@ -115,348 +118,539 @@ __device__ void store_rows(const float* tile, int ld, int n_rows, int row0, int 
   }
 }
 
-// A fragments of columns [16 kk, 16 kk + 16) of a 16 x 64 fp32 tile held as
-// mma accumulators (s[n][e]: row g + 8 (e / 2), column 8 n + 2 t4 + e % 2),
-// rounded to bf16.
-__device__ __forceinline__ void pack_a_frag(uint32_t (&a)[4], const float (&s)[kBN / 8][4],
-                                            int kk) {
-  a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-  a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-  a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-  a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+// ---------------------------------------------------------------------------
+// bf16: warp-specialised wgmma kernels fed by TMA (hopper_common.cuh), one
+// per pass. A CTA is a producer warpgroup, whose first warp loads the
+// resident tiles once and streams the other side's tiles through a ring of
+// kStages stages (full/empty mbarriers), writing the per-column values each
+// stage needs (key bias, or lse and delta) beside them; the consumer
+// warpgroups (two, one for the dk/dv pass at d = 128) each own 64 rows.
+// Each turn issues the score-side products of step i (A and B K-major from
+// shared memory) and the gradient products of step i - 1 (the streamed tile
+// read MN-major, tnspB; dS as the register A operand in the dq pass, P^T and
+// dS^T through shared memory in the dk/dv pass), then forms step i's P and
+// dS while the gradient products run; two consumer warpgroups take turns to
+// issue. The grid is one CTA per (b.h, row tile), head-major.
+// ---------------------------------------------------------------------------
+
+constexpr int kHopperThreads = 384;
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+constexpr float kMaskBias2 = kMaskBias * kLog2e;  // a padded key's bias, times log2(e)
+
+struct BwdArgs {
+  const uint8_t* mask;  // (B, S), nonzero at padding; may be null
+  const float* cos;     // (L, d) tables for the un-rotation; null when off
+  const float* sin;
+  const float* lse;     // (B, H, T)
+  float* delta;         // (B, H, T): written by the dq pass, read by the dk/dv pass
+  const void* o;        // the dq pass reads o and dout for delta
+  const void* dout;
+  void* dq;             // the dq pass writes dq; the dk/dv pass dk and dv
+  void* dk;
+  void* dv;
+  int H, T, S, d;
+  int n_tiles;          // row tiles per (b, h): the grid is n_tiles . B . H
+};
+
+// key_bias times log2(e), with the padding value exactly kMaskBias2.
+__device__ __forceinline__ float key_bias2(const uint8_t* mask, int S, int b, int j) {
+  if (j >= S) return -INFINITY;
+  if (mask != nullptr && mask[(size_t)b * S + j]) return kMaskBias2;
+  return 0.f;
 }
 
-// acc (16 x 64 per warp) += A . B^T over DP columns, where A's fragments come
-// from `a` (16 rows x DP) and B's rows are the 64 rows of a bf16 tile in
-// shared memory (row stride kLd): the tile rows are the output columns.
+// The four A-register fragments of columns [16 kk, 16 kk + 16) of an m64nN
+// accumulator, rounded to bf16.
+template <int N>
+__device__ __forceinline__ void pack_frags(uint32_t (&a)[N / 16][4], const float (&x)[N / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) a[kk][e] = pack_bf16(x[8 * kk + 2 * e], x[8 * kk + 2 * e + 1]);
+  }
+}
+
+// An m64nDP accumulator (rows r0 + warp 16 + lane / 4 (+ 8)) into an fp32
+// tile in shared memory with row stride ld.
 template <int DP>
-__device__ __forceinline__ void mma_abt(float (&acc)[kBN / 8][4], const uint32_t (&a)[DP / 16][4],
-                                        const __nv_bfloat16* tile, int lane) {
-  constexpr int kLd = DP + 8;
-  const int mat = lane >> 3;
-  const __nv_bfloat16* row = tile + ((mat >> 1) * 8 + (lane & 7)) * kLd + (mat & 1) * 8;
+__device__ __forceinline__ void acc_to_smem(float* tile, int ld, const float (&acc)[DP / 2],
+                                            int r0) {
+  const int lane = threadIdx.x & 31;
+  const int row = r0 + ((threadIdx.x & 127) >> 5) * 16 + (lane >> 2);
 #pragma unroll
-  for (int nt = 0; nt < kBN / 8; nt += 2) {
+  for (int c = 0; c < DP / 8; ++c) {
+    const int col = c * 8 + (lane & 3) * 2;
+    *reinterpret_cast<float2*>(tile + row * ld + col) = make_float2(acc[4 * c], acc[4 * c + 1]);
+    *reinterpret_cast<float2*>(tile + (row + 8) * ld + col) =
+        make_float2(acc[4 * c + 2], acc[4 * c + 3]);
+  }
+}
+
+// Stages and shared memory of a pass: resident tiles (two of RES rows),
+// EXTRA bytes of the pass's own, kStages stages of two streamed tiles (ROWS rows) and 1 KB of per-column
+// fp32 values; the epilogue reuses the stage area, at least RES x (DP + 4)
+// floats, for the fp32 gradient tile.
+template <int DP, int RES, int ROWS, int EXTRA = 0>
+struct BwdConfig {
+  using ResTile = hopper::Tile<DP, RES>;
+  using StrTile = hopper::Tile<DP, ROWS>;
+  static constexpr int kStageBytes = 2 * StrTile::kBytes + 1024;
+  static constexpr int kBudget = 220 * 1024 - 2 * ResTile::kBytes - EXTRA;
+  static constexpr int kStages = kBudget / kStageBytes < 4 ? kBudget / kStageBytes : 4;
+  static_assert(kStages >= 2, "two stages at least");
+  static constexpr int kEpilogueBytes = RES * (DP + 4) * 4;
+  static constexpr int kStageArea =
+      kStages * kStageBytes > kEpilogueBytes ? kStages * kStageBytes : kEpilogueBytes;
+  static constexpr int kSmem = 1024 + 2 * ResTile::kBytes + EXTRA + kStageArea;
+};
+
+// Keys per step of the dq pass, queries per step of the dk/dv pass, and the
+// dk/dv pass's consumer warpgroups: the shapes whose accumulators (the
+// step's two score tiles, dS re-packed in the dq pass, the gradient tiles)
+// fit in the registers ptxas allocates, 168 a thread in a 384-thread CTA
+// whatever setmaxnreg grants later; the dk/dv pass passes P and dS through
+// shared memory for that. At d = 128 the dK and dV tiles alone take 128, so
+// that pass runs one consumer warpgroup (256 threads, 232 registers).
+__host__ __device__ constexpr int dq_keys(int dp) { return dp == 128 ? 32 : 64; }
+__host__ __device__ constexpr int dkv_rows(int dp) { return dp == 128 ? 32 : 64; }
+__host__ __device__ constexpr int dkv_warpgroups(int dp) { return dp == 128 ? 1 : 2; }
+
+__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
+  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(raw) + 1023) &
+                                          ~uintptr_t(1023));
+}
+
+// ---------------------------------------------------------------------------
+// dq pass: a CTA owns 128 queries (Q and dO resident), streams dq_keys(DP)-key
+// K and V tiles; delta = rowsum(dO o O) in the prologue, written for the
+// dk/dv pass.
+// ---------------------------------------------------------------------------
+
+template <int DP>
+__global__ void __launch_bounds__(kHopperThreads, 1)
+    flash_dq_bf16(const __grid_constant__ CUtensorMap q_map,
+                  const __grid_constant__ CUtensorMap do_map,
+                  const __grid_constant__ CUtensorMap k_map,
+                  const __grid_constant__ CUtensorMap v_map, const BwdArgs p) {
+  constexpr int kBN = dq_keys(DP);
+  using C = BwdConfig<DP, 128, kBN>;
+  using QTile = typename C::ResTile;
+  using KTile = typename C::StrTile;
+  constexpr int kStages = C::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  unsigned char* sQ = smem;
+  unsigned char* sDo = smem + QTile::kBytes;
+  unsigned char* sStages = smem + 2 * QTile::kBytes;  // [K tile | V tile | bias] per stage
+  __shared__ __align__(8) uint64_t full[kStages], empty[kStages], res_full;
+
+  // warp-uniform (a shuffle from lane 0), as setmaxnreg.sync.aligned requires
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  const int lane = threadIdx.x & 31;
+  const int bh = blockIdx.x / p.n_tiles;
+  const int q0 = (blockIdx.x % p.n_tiles) * 128;
+  const int b = bh / p.H;
+  const int n_kt = (p.S + kBN - 1) / kBN;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&full[s], 32);
+      hopper::mbar_init(&empty[s], 8);
+    }
+    hopper::mbar_init(&res_full, 1);
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    hopper::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x >= 32) return;
+    if (lane == 0) {
+      hopper::mbar_arrive_expect_tx(&res_full, 2 * QTile::kBytes);
+      QTile::load(sQ, &q_map, &res_full, q0, bh);
+      QTile::load(sDo, &do_map, &res_full, q0, bh);
+    }
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int j = 0; j < n_kt; ++j) {
+      unsigned char* st = sStages + stage * C::kStageBytes;
+      float* bias = reinterpret_cast<float*>(st + 2 * KTile::kBytes);
+      hopper::mbar_wait(&empty[stage], phase ^ 1);
+      for (int i = lane; i < kBN; i += 32) bias[i] = key_bias2(p.mask, p.S, b, j * kBN + i);
+      if (lane == 0) {
+        hopper::mbar_arrive_expect_tx(&full[stage], 2 * KTile::kBytes);
+        KTile::load(st, &k_map, &full[stage], j * kBN, bh);
+        KTile::load(st + KTile::kBytes, &v_map, &full[stage], j * kBN, bh);
+      } else {
+        hopper::mbar_arrive(&full[stage]);
+      }
+      if (++stage == kStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    return;
+  }
+
+  hopper::setmaxnreg_inc<kConsumerRegs>();
+  const int cw = wg - 1;
+  const int t4 = lane & 3;
+  const int r_in = cw * 64 + ((threadIdx.x & 127) >> 5) * 16 + (lane >> 2);
+  // delta and lse (times log2 e) of rows r_in and r_in + 8; rows past T get
+  // P = exp2(x - inf) = 0 and delta 0, so they add nothing
+  float dlt[2], lse2[2];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nt][e] = acc[nt + 1][e] = 0.f;
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + r_in + 8 * i;
+    float acc = 0.f;
+    if (row < p.T) {
+      const size_t base = ((size_t)bh * p.T + row) * p.d;
+      for (int c = t4 * 8; c < p.d; c += 32) {
+        const uint4 x = *reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(p.dout) +
+                                                        base + c);
+        const uint4 y =
+            *reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(p.o) + base + c);
+        const __nv_bfloat162* xh = reinterpret_cast<const __nv_bfloat162*>(&x);
+        const __nv_bfloat162* yh = reinterpret_cast<const __nv_bfloat162*>(&y);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 a = __bfloat1622float2(xh[e]);
+          const float2 bb = __bfloat1622float2(yh[e]);
+          acc = fmaf(a.x, bb.x, acc);
+          acc = fmaf(a.y, bb.y, acc);
+        }
+      }
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+    dlt[i] = acc;
+    lse2[i] = row < p.T ? p.lse[(size_t)bh * p.T + row] * kLog2e : INFINITY;
+    if (row < p.T && t4 == 0) p.delta[(size_t)bh * p.T + row] = acc;
+  }
+
+  float dq[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) dq[i] = 0.f;
+  float s[kBN / 2], dp[kBN / 2];
+  uint32_t da[kBN / 16][4];
+  const uint32_t q_base = hopper::smem_u32(sQ);
+  const uint32_t do_base = hopper::smem_u32(sDo);
+  hopper::mbar_wait(&res_full, 0);
+
+  hopper::TakeTurns turns(cw, 2);
+  auto issue_scores = [&](int stg) {  // S = Q K^T, dP = dO V^T
+    const uint32_t k_base = hopper::smem_u32(sStages + stg * C::kStageBytes);
+    hopper::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < DP / 16; ++kk) {
-      uint32_t b[4];
-      ldmatrix_x4(b, row + nt * 8 * kLd + kk * 16);
-      mma_16816(acc[nt], a[kk], b[0], b[1]);
-      mma_16816(acc[nt + 1], a[kk], b[2], b[3]);
+      hopper::Wgmma<kBN>::ss(s, QTile::kmajor(q_base, cw * 64, kk), KTile::kmajor(k_base, 0, kk),
+                             kk > 0);
+      hopper::Wgmma<kBN>::ss(dp, QTile::kmajor(do_base, cw * 64, kk),
+                             KTile::kmajor(k_base + KTile::kBytes, 0, kk), kk > 0);
     }
-  }
-}
-
-// acc (16 x DP per warp) += X . tile, where X is 16 x 64 held as mma
-// accumulators (rounded to bf16 here) and the tile is 64 x DP bf16 in shared
-// memory (row stride kLd): the tile rows are the reduction axis.
-template <int DP>
-__device__ __forceinline__ void mma_xb(float (&acc)[DP / 8][4], const float (&x)[kBN / 8][4],
-                                       const __nv_bfloat16* tile, int lane) {
-  constexpr int kLd = DP + 8;
-  const int mat = lane >> 3;
+    hopper::wgmma_commit();
+  };
+  auto issue_dq = [&](int stg) {  // dQ += dS K
+    const uint32_t k_base = hopper::smem_u32(sStages + stg * C::kStageBytes);
+    hopper::wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < kBN / 16; ++kk) {
-    uint32_t a[4];
-    pack_a_frag(a, x, kk);
-    const __nv_bfloat16* row = tile + (kk * 16 + (mat & 1) * 8 + (lane & 7)) * kLd + (mat >> 1) * 8;
-#pragma unroll
-    for (int dn = 0; dn < DP / 8; dn += 2) {
-      uint32_t b[4];
-      ldmatrix_x4_trans(b, row + dn * 8);
-      mma_16816(acc[dn], a, b[0], b[1]);
-      mma_16816(acc[dn + 1], a, b[2], b[3]);
+    for (int kk = 0; kk < kBN / 16; ++kk) {
+      hopper::Wgmma<DP>::template rs<1>(dq, da[kk], KTile::mnmajor(k_base, kk), 1);
     }
-  }
-}
-
-// Write a warp's 16 x DP accumulators to rows [r0, r0 + 16) of an fp32 tile
-// in shared memory (row stride ld).
-template <int DP>
-__device__ __forceinline__ void acc_to_smem(float* tile, int ld, const float (&acc)[DP / 8][4],
-                                            int r0, int lane) {
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
+    hopper::wgmma_commit();
+  };
+  // dS = P (dP - delta), P = exp2(S log2 e + bias - lse log2 e), in place of S
+  auto grads = [&](int stg) {
+    const float* bias =
+        reinterpret_cast<const float*>(sStages + stg * C::kStageBytes + 2 * KTile::kBytes);
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int dn = 0; dn < DP / 8; ++dn) {
-      *reinterpret_cast<float2*>(tile + (r0 + g + 8 * i) * ld + dn * 8 + t4 * 2) =
-          make_float2(acc[dn][2 * i], acc[dn][2 * i + 1]);
-    }
-  }
-}
-
-template <int DP>
-constexpr size_t bwd_smem_bytes(int resident_tiles) {
-  // two stages of two streamed bf16 tiles, resident tiles, (DP + 8)-element
-  // rows, and two stages of two fp32 rows (bias, or lse and delta)
-  return (4 + resident_tiles) * kBN * (DP + 8) * sizeof(__nv_bfloat16) +
-         4 * kBN * sizeof(float);
-}
-
-// ---------------------------------------------------------------------------
-// bf16 dq pass: block (b.h, 64 queries); 16 queries per warp.
-// ---------------------------------------------------------------------------
-
-template <int DP>
-__global__ void __launch_bounds__(kThreads) flash_dq_bf16(BwdParams p) {
-  constexpr int kLd = DP + 8;
-  constexpr int kTile = kBN * kLd;
-  static_assert(kBM == kBN, "a K/V stage buffer also stages the Q/dO tile");
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem);  // [2][kTile]
-  __nv_bfloat16* sV = sK + 2 * kTile;                           // [2][kTile]
-  float* sBias = reinterpret_cast<float*>(sV + 2 * kTile);      // [2][kBN], times log2(e)
-
-  const int bh = blockIdx.x;
-  const int b = bh / p.H;
-  const int q0 = blockIdx.y * kBM;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
-  const int r0 = warp * 16;
-  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(p.q) + (size_t)bh * p.T * p.d;
-  const __nv_bfloat16* dout = static_cast<const __nv_bfloat16*>(p.dout) + (size_t)bh * p.T * p.d;
-  const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(p.k) + (size_t)bh * p.S * p.d;
-  const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(p.v) + (size_t)bh * p.S * p.d;
-  const int n_tiles = (p.S + kBN - 1) / kBN;
-
-  // key tile 0 into stage 0; the Q and dO tiles through stage 1
-  copy_rows_async<DP>(sK, kLd, k, 0, p.S, p.d);
-  copy_rows_async<DP>(sV, kLd, v, 0, p.S, p.d);
-  copy_rows_async<DP>(sK + kTile, kLd, q, q0, p.T, p.d);
-  copy_rows_async<DP>(sV + kTile, kLd, dout, q0, p.T, p.d);
-  cp_async_commit();
-  if (threadIdx.x < kBN) sBias[threadIdx.x] = key_bias(p.mask, p.S, b, threadIdx.x) * kLog2e;
-  float lse2[2], dlt[2];  // rows g and g + 8: lse times log2(e), and delta
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = q0 + r0 + g + 8 * i;
-    const bool in = row < p.T;
-    lse2[i] = in ? p.lse[(size_t)bh * p.T + row] * kLog2e : INFINITY;
-    dlt[i] = in ? p.delta[(size_t)bh * p.T + row] : 0.f;
-  }
-  cp_async_wait<0>();
-  __syncthreads();
-  uint32_t qa[DP / 16][4], da[DP / 16][4];
-  load_a_frags<DP>(qa, sK + kTile, kLd, r0, lane);
-  load_a_frags<DP>(da, sV + kTile, kLd, r0, lane);
-  __syncthreads();  // stage 1 is free
-
-  float acc[DP / 8][4];
-#pragma unroll
-  for (int dn = 0; dn < DP / 8; ++dn) acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
-
-  for (int it = 0; it < n_tiles; ++it) {
-    const int cur = it & 1;
-    float bias_next = 0.f;
-    if (it + 1 < n_tiles) {
-      const int n1 = (it + 1) * kBN;
-      copy_rows_async<DP>(sK + (cur ^ 1) * kTile, kLd, k, n1, p.S, p.d);
-      copy_rows_async<DP>(sV + (cur ^ 1) * kTile, kLd, v, n1, p.S, p.d);
-      cp_async_commit();
-      if (threadIdx.x < kBN) bias_next = key_bias(p.mask, p.S, b, n1 + threadIdx.x) * kLog2e;
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const __nv_bfloat16* tK = sK + cur * kTile;
-    const __nv_bfloat16* tV = sV + cur * kTile;
-    const float* tBias = sBias + cur * kBN;
-
-    float s[kBN / 8][4], dp[kBN / 8][4];
-    mma_abt<DP>(s, qa, tK, lane);   // S = Q . K^T
-    mma_abt<DP>(dp, da, tV, lane);  // dP = dO . V^T
-    // dS = P (dP - delta), P = exp(S + bias - lse), in place of S
-#pragma unroll
-    for (int nt = 0; nt < kBN / 8; ++nt) {
-      const float2 bias = *reinterpret_cast<const float2*>(tBias + nt * 8 + t4 * 2);
+    for (int c = 0; c < kBN / 8; ++c) {
+      const float2 bb = *reinterpret_cast<const float2*>(bias + c * 8 + t4 * 2);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int i = e >> 1;
-        const float pr = exp2f(fmaf(s[nt][e], kLog2e, (e & 1) ? bias.y : bias.x) - lse2[i]);
-        s[nt][e] = pr * (dp[nt][e] - dlt[i]);
+        const float x = fmaf(s[4 * c + e], kLog2e, (e & 1) ? bb.y : bb.x);
+        const float pr = hopper::exp2_approx(x - lse2[i]);
+        s[4 * c + e] = pr * (dp[4 * c + e] - dlt[i]);
       }
     }
-    mma_xb<DP>(acc, s, tK, lane);  // dQ += dS . K
-    if (it + 1 < n_tiles && threadIdx.x < kBN) sBias[(cur ^ 1) * kBN + threadIdx.x] = bias_next;
-    __syncthreads();  // this stage is free for the copy issued next iteration
-  }
+  };
 
-  // un-rotate and store through shared memory (the stages are free now)
+  // as in K1: each turn issues the scores of key tile j and the dQ product
+  // of tile j - 1, and tile j's dS is formed while the second runs
+  int stage = 0;
+  uint32_t phase = 0;
+  hopper::mbar_wait(&full[stage], phase);
+  turns.wait();
+  issue_scores(stage);
+  turns.pass();
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(s);
+  hopper::fence_regs(dp);
+  grads(stage);
+  pack_frags<kBN>(da, s);
+  int prev = stage;
+  if (++stage == kStages) {
+    stage = 0;
+    phase ^= 1;
+  }
+  for (int j = 1; j < n_kt; ++j) {
+    hopper::mbar_wait(&full[stage], phase);
+    turns.wait();
+    issue_scores(stage);
+    issue_dq(prev);
+    turns.pass();
+    hopper::wgmma_wait<1>();
+    hopper::fence_regs(s);
+    hopper::fence_regs(dp);
+    grads(stage);
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(dq);
+    hopper::fence_regs(da);
+    hopper::warp_arrive(&empty[prev]);
+    pack_frags<kBN>(da, s);
+    prev = stage;
+    if (++stage == kStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+  turns.wait();
+  issue_dq(prev);
+  turns.pass_unless_last();
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(dq);
+
+  // every stage is consumed and the producer is done: un-rotate and store
+  // through the stage area
+  hopper::named_sync(1, 256);
   constexpr int kAccLd = DP + 4;
-  float* sAcc = reinterpret_cast<float*>(smem);  // [kBM][kAccLd]
-  acc_to_smem<DP>(sAcc, kAccLd, acc, r0, lane);
-  __syncthreads();
-  store_rows(sAcc, kAccLd, kBM, q0, p.T,
-             static_cast<__nv_bfloat16*>(p.dq) + (size_t)bh * p.T * p.d, p.cos, p.sin, p.d);
+  float* sAcc = reinterpret_cast<float*>(sStages);
+  acc_to_smem<DP>(sAcc, kAccLd, dq, cw * 64);
+  hopper::named_sync(1, 256);
+  store_rows(sAcc, kAccLd, 128, q0, p.T,
+             static_cast<__nv_bfloat16*>(p.dq) + (size_t)bh * p.T * p.d, p.cos, p.sin, p.d,
+             threadIdx.x - 128, 256);
 }
 
 // ---------------------------------------------------------------------------
-// bf16 dk/dv pass: block (b.h, 64 keys); 16 keys per warp. K and V stay in
-// shared memory and give their A fragments at each use, which keeps the
-// registers for the two accumulators.
+// dk/dv pass: a CTA owns 64 keys per consumer warpgroup (K and V resident),
+// streams dkv_rows(DP)-query Q and dO tiles with their lse (times log2 e)
+// and delta.
 // ---------------------------------------------------------------------------
 
 template <int DP>
-__global__ void __launch_bounds__(kThreads) flash_dkv_bf16(BwdParams p) {
-  constexpr int kLd = DP + 8;
-  constexpr int kTile = kBN * kLd;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);  // [2][kTile]
-  __nv_bfloat16* sD = sQ + 2 * kTile;                           // [2][kTile], dO
-  __nv_bfloat16* sK = sD + 2 * kTile;                           // [kTile]
-  __nv_bfloat16* sV = sK + kTile;                               // [kTile]
-  float* sL = reinterpret_cast<float*>(sV + kTile);             // [2][kBM], lse times log2(e)
-  float* sDl = sL + 2 * kBM;                                    // [2][kBM], delta
+__global__ void __launch_bounds__(128 * (1 + dkv_warpgroups(DP)), 1)
+    flash_dkv_bf16(const __grid_constant__ CUtensorMap k_map,
+                   const __grid_constant__ CUtensorMap v_map,
+                   const __grid_constant__ CUtensorMap q_map,
+                   const __grid_constant__ CUtensorMap do_map, const BwdArgs p) {
+  constexpr int kBM = dkv_rows(DP);
+  constexpr int kNW = dkv_warpgroups(DP);  // consumer warpgroups, 64 keys each
+  constexpr int kRows = 64 * kNW;          // keys per CTA
+  using PTile = hopper::Tile<kBM, 64>;     // P^T or dS^T of a warpgroup: 64 keys x kBM queries
+  using C = BwdConfig<DP, kRows, kBM, 4 * kNW * PTile::kBytes>;
+  using KTile = typename C::ResTile;
+  using QTile = typename C::StrTile;
+  constexpr int kStages = C::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  unsigned char* sK = smem;
+  unsigned char* sV = smem + KTile::kBytes;
+  unsigned char* sP = smem + 2 * KTile::kBytes;  // [warpgroup][buffer][P^T | dS^T]
+  unsigned char* sStages = sP + 4 * kNW * PTile::kBytes;  // [Q tile | dO tile | lse2 | delta]
+  __shared__ __align__(8) uint64_t full[kStages], empty[kStages], res_full;
 
-  const int bh = blockIdx.x;
-  const int b = bh / p.H;
-  const int k0 = blockIdx.y * kBN;
-  const int warp = threadIdx.x >> 5;
+  // warp-uniform (a shuffle from lane 0), as setmaxnreg.sync.aligned requires
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
   const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t4 = lane & 3;
-  const int r0 = warp * 16;
-  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(p.q) + (size_t)bh * p.T * p.d;
-  const __nv_bfloat16* dout = static_cast<const __nv_bfloat16*>(p.dout) + (size_t)bh * p.T * p.d;
-  const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(p.k) + (size_t)bh * p.S * p.d;
-  const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(p.v) + (size_t)bh * p.S * p.d;
-  const float* lse = p.lse + (size_t)bh * p.T;
-  const float* delta = p.delta + (size_t)bh * p.T;
-  const int n_tiles = (p.T + kBM - 1) / kBM;
-
-  copy_rows_async<DP>(sK, kLd, k, k0, p.S, p.d);
-  copy_rows_async<DP>(sV, kLd, v, k0, p.S, p.d);
-  copy_rows_async<DP>(sQ, kLd, q, 0, p.T, p.d);
-  copy_rows_async<DP>(sD, kLd, dout, 0, p.T, p.d);
-  cp_async_commit();
-  // rows past T: P = exp(... - inf) = 0 and delta = 0, so they add nothing
-  if (threadIdx.x < kBM) {
-    const bool in = (int)threadIdx.x < p.T;
-    sL[threadIdx.x] = in ? lse[threadIdx.x] * kLog2e : INFINITY;
-    sDl[threadIdx.x] = in ? delta[threadIdx.x] : 0.f;
+  const int bh = blockIdx.x / p.n_tiles;
+  const int k0 = (blockIdx.x % p.n_tiles) * kRows;
+  const int b = bh / p.H;
+  const int n_qt = (p.T + kBM - 1) / kBM;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(&full[s], 32);
+      hopper::mbar_init(&empty[s], 4 * kNW);
+    }
+    hopper::mbar_init(&res_full, 1);
+    hopper::fence_barrier_init();
   }
-  float bias2[2];  // key rows g and g + 8, times log2(e)
-#pragma unroll
-  for (int i = 0; i < 2; ++i) bias2[i] = key_bias(p.mask, p.S, b, k0 + r0 + g + 8 * i) * kLog2e;
+  __syncthreads();
 
-  float dk[DP / 8][4], dv[DP / 8][4];
-#pragma unroll
-  for (int dn = 0; dn < DP / 8; ++dn) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[dn][e] = dv[dn][e] = 0.f;
-  }
-  const int mat = lane >> 3;
-
-  for (int it = 0; it < n_tiles; ++it) {
-    const int cur = it & 1;
-    float l_next = 0.f, d_next = 0.f;
-    if (it + 1 < n_tiles) {
-      const int m1 = (it + 1) * kBM;
-      copy_rows_async<DP>(sQ + (cur ^ 1) * kTile, kLd, q, m1, p.T, p.d);
-      copy_rows_async<DP>(sD + (cur ^ 1) * kTile, kLd, dout, m1, p.T, p.d);
-      cp_async_commit();
-      if (threadIdx.x < kBM) {
-        const int row = m1 + threadIdx.x;
+  if (wg == 0) {
+    hopper::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x >= 32) return;
+    if (lane == 0) {
+      hopper::mbar_arrive_expect_tx(&res_full, 2 * KTile::kBytes);
+      KTile::load(sK, &k_map, &res_full, k0, bh);
+      KTile::load(sV, &v_map, &res_full, k0, bh);
+    }
+    const float* lse = p.lse + (size_t)bh * p.T;
+    const float* delta = p.delta + (size_t)bh * p.T;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int i0 = 0; i0 < n_qt; ++i0) {
+      unsigned char* st = sStages + stage * C::kStageBytes;
+      float* sl = reinterpret_cast<float*>(st + 2 * QTile::kBytes);
+      hopper::mbar_wait(&empty[stage], phase ^ 1);
+      for (int i = lane; i < kBM; i += 32) {
+        const int row = i0 * kBM + i;
         const bool in = row < p.T;
-        l_next = in ? lse[row] * kLog2e : INFINITY;
-        d_next = in ? delta[row] : 0.f;
+        sl[i] = in ? lse[row] * kLog2e : INFINITY;  // rows past T: P = 0
+        sl[kBM + i] = in ? delta[row] : 0.f;
       }
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const __nv_bfloat16* tQ = sQ + cur * kTile;
-    const __nv_bfloat16* tD = sD + cur * kTile;
-    const float* tL = sL + cur * kBM;
-    const float* tDl = sDl + cur * kBM;
-
-    // S^T = K . Q^T (rows: this warp's keys, columns: the tile's queries)
-    float st[kBM / 8][4], dpt[kBM / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kBM / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) st[nt][e] = dpt[nt][e] = 0.f;
-    }
-    const __nv_bfloat16* qrow = tQ + ((mat >> 1) * 8 + (lane & 7)) * kLd + (mat & 1) * 8;
-    const __nv_bfloat16* drow = tD + ((mat >> 1) * 8 + (lane & 7)) * kLd + (mat & 1) * 8;
-#pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk) {
-      uint32_t a[4];
-      load_a_frag(a, sK, kLd, r0, kk * 16, lane);
-#pragma unroll
-      for (int nt = 0; nt < kBM / 8; nt += 2) {
-        uint32_t bq[4];
-        ldmatrix_x4(bq, qrow + nt * 8 * kLd + kk * 16);
-        mma_16816(st[nt], a, bq[0], bq[1]);
-        mma_16816(st[nt + 1], a, bq[2], bq[3]);
+      if (lane == 0) {
+        hopper::mbar_arrive_expect_tx(&full[stage], 2 * QTile::kBytes);
+        QTile::load(st, &q_map, &full[stage], i0 * kBM, bh);
+        QTile::load(st + QTile::kBytes, &do_map, &full[stage], i0 * kBM, bh);
+      } else {
+        hopper::mbar_arrive(&full[stage]);
+      }
+      if (++stage == kStages) {
+        stage = 0;
+        phase ^= 1;
       }
     }
-    // P^T = exp(S^T + bias - lse)
-#pragma unroll
-    for (int nt = 0; nt < kBM / 8; ++nt) {
-      const float2 l2 = *reinterpret_cast<const float2*>(tL + nt * 8 + t4 * 2);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        st[nt][e] = exp2f(fmaf(st[nt][e], kLog2e, bias2[e >> 1]) - ((e & 1) ? l2.y : l2.x));
-      }
-    }
-    mma_xb<DP>(dv, st, tD, lane);  // dV += P^T . dO
-    // dP^T = V . dO^T
-#pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk) {
-      uint32_t a[4];
-      load_a_frag(a, sV, kLd, r0, kk * 16, lane);
-#pragma unroll
-      for (int nt = 0; nt < kBM / 8; nt += 2) {
-        uint32_t bd[4];
-        ldmatrix_x4(bd, drow + nt * 8 * kLd + kk * 16);
-        mma_16816(dpt[nt], a, bd[0], bd[1]);
-        mma_16816(dpt[nt + 1], a, bd[2], bd[3]);
-      }
-    }
-    // dS^T = P^T (dP^T - delta), in place of P^T
-#pragma unroll
-    for (int nt = 0; nt < kBM / 8; ++nt) {
-      const float2 d2 = *reinterpret_cast<const float2*>(tDl + nt * 8 + t4 * 2);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) st[nt][e] *= dpt[nt][e] - ((e & 1) ? d2.y : d2.x);
-    }
-    mma_xb<DP>(dk, st, tQ, lane);  // dK += dS^T . Q
-    if (it + 1 < n_tiles && threadIdx.x < kBM) {
-      sL[(cur ^ 1) * kBM + threadIdx.x] = l_next;
-      sDl[(cur ^ 1) * kBM + threadIdx.x] = d_next;
-    }
-    __syncthreads();
+    return;
   }
+
+  hopper::setmaxnreg_inc<kConsumerRegs>();
+  const int cw = wg - 1;
+  const int t4 = lane & 3;
+  const int r_in = cw * 64 + ((threadIdx.x & 127) >> 5) * 16 + (lane >> 2);
+  float bias2[2];  // key rows r_in and r_in + 8
+#pragma unroll
+  for (int i = 0; i < 2; ++i) bias2[i] = key_bias2(p.mask, p.S, b, k0 + r_in + 8 * i);
+
+  float dk[DP / 2], dv[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) dk[i] = dv[i] = 0.f;
+  float st_[kBM / 2], dpt[kBM / 2];
+  const uint32_t k_base = hopper::smem_u32(sK);
+  const uint32_t v_base = hopper::smem_u32(sV);
+  unsigned char* my_p = sP + cw * 4 * PTile::kBytes;  // this warpgroup's two P^T/dS^T buffers
+  hopper::mbar_wait(&res_full, 0);
+  hopper::TakeTurns turns(cw, kNW);
+  auto issue_scores = [&](int stg) {  // S^T = K Q^T, dP^T = V dO^T
+    const uint32_t q_base = hopper::smem_u32(sStages + stg * C::kStageBytes);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      hopper::Wgmma<kBM>::ss(st_, KTile::kmajor(k_base, cw * 64, kk),
+                             QTile::kmajor(q_base, 0, kk), kk > 0);
+      hopper::Wgmma<kBM>::ss(dpt, KTile::kmajor(v_base, cw * 64, kk),
+                             QTile::kmajor(q_base + QTile::kBytes, 0, kk), kk > 0);
+    }
+    hopper::wgmma_commit();
+  };
+  // dV += P^T dO, dK += dS^T Q, with P^T and dS^T from buffer buf
+  auto issue_grads = [&](int stg, int buf) {
+    const uint32_t q_base = hopper::smem_u32(sStages + stg * C::kStageBytes);
+    const uint32_t p_base = hopper::smem_u32(my_p + buf * 2 * PTile::kBytes);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBM / 16; ++kk) {
+      hopper::Wgmma<DP>::template ss<1>(dv, PTile::kmajor(p_base, 0, kk),
+                                        QTile::mnmajor(q_base + QTile::kBytes, kk), 1);
+      hopper::Wgmma<DP>::template ss<1>(dk, PTile::kmajor(p_base + PTile::kBytes, 0, kk),
+                                        QTile::mnmajor(q_base, kk), 1);
+    }
+    hopper::wgmma_commit();
+  };
+  // P^T = exp2(S^T log2 e + bias - lse log2 e) and dS^T = P^T (dP^T - delta),
+  // rounded to bf16 into buffer buf for the gradient products
+  auto probs = [&](int stg, int buf) {
+    const float* sl =
+        reinterpret_cast<const float*>(sStages + stg * C::kStageBytes + 2 * QTile::kBytes);
+    unsigned char* pt = my_p + buf * 2 * PTile::kBytes;
+    const int row = (r_in & 63);
+#pragma unroll
+    for (int c = 0; c < kBM / 8; ++c) {
+      const float2 l2 = *reinterpret_cast<const float2*>(sl + c * 8 + t4 * 2);
+      const float2 d2 = *reinterpret_cast<const float2*>(sl + kBM + c * 8 + t4 * 2);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {  // rows row and row + 8
+        const int e = 4 * c + 2 * h;
+        const float p0 = hopper::exp2_approx(fmaf(st_[e], kLog2e, bias2[h]) - l2.x);
+        const float p1 = hopper::exp2_approx(fmaf(st_[e + 1], kLog2e, bias2[h]) - l2.y);
+        const int off = PTile::offset(row + 8 * h, c * 8 + t4 * 2);
+        *reinterpret_cast<uint32_t*>(pt + off) = pack_bf16(p0, p1);
+        *reinterpret_cast<uint32_t*>(pt + PTile::kBytes + off) =
+            pack_bf16(p0 * (dpt[e] - d2.x), p1 * (dpt[e + 1] - d2.y));
+      }
+    }
+    hopper::fence_proxy_async();  // the wgmma of the next turn reads them
+    hopper::named_sync(5 + cw, 128);
+  };
+
+  // as in the dq pass: each turn issues the scores of query tile i and the
+  // gradient products of tile i - 1, and tile i's P and dS are formed (into
+  // the other buffer) while the second runs
+  int stage = 0;
+  uint32_t phase = 0;
+  hopper::mbar_wait(&full[stage], phase);
+  turns.wait();
+  issue_scores(stage);
+  turns.pass();
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(st_);
+  hopper::fence_regs(dpt);
+  probs(stage, 0);
+  int prev = stage;
+  if (++stage == kStages) {
+    stage = 0;
+    phase ^= 1;
+  }
+  for (int i0 = 1; i0 < n_qt; ++i0) {
+    hopper::mbar_wait(&full[stage], phase);
+    turns.wait();
+    issue_scores(stage);
+    issue_grads(prev, (i0 - 1) & 1);
+    turns.pass();
+    hopper::wgmma_wait<1>();
+    hopper::fence_regs(st_);
+    hopper::fence_regs(dpt);
+    probs(stage, i0 & 1);
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(dk);
+    hopper::fence_regs(dv);
+    hopper::warp_arrive(&empty[prev]);
+    prev = stage;
+    if (++stage == kStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+  turns.wait();
+  issue_grads(prev, (n_qt - 1) & 1);
+  turns.pass_unless_last();
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(dk);
+  hopper::fence_regs(dv);
 
   __nv_bfloat16* dvo = static_cast<__nv_bfloat16*>(p.dv) + (size_t)bh * p.S * p.d;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int row = k0 + r0 + g + 8 * i;
+    const int row = k0 + r_in + 8 * i;
     if (row >= p.S) continue;
 #pragma unroll
-    for (int dn = 0; dn < DP / 8; ++dn) {
-      const int col = dn * 8 + t4 * 2;
+    for (int c = 0; c < DP / 8; ++c) {
+      const int col = c * 8 + t4 * 2;
       if (col < p.d) {
         *reinterpret_cast<__nv_bfloat162*>(dvo + (size_t)row * p.d + col) =
-            __floats2bfloat162_rn(dv[dn][2 * i], dv[dn][2 * i + 1]);
+            __floats2bfloat162_rn(dv[4 * c + 2 * i], dv[4 * c + 2 * i + 1]);
       }
     }
   }
+  hopper::named_sync(1, 128 * kNW);
   constexpr int kAccLd = DP + 4;
-  float* sAcc = reinterpret_cast<float*>(smem);  // [kBN][kAccLd], over the Q/dO stages
-  acc_to_smem<DP>(sAcc, kAccLd, dk, r0, lane);
-  __syncthreads();
-  store_rows(sAcc, kAccLd, kBN, k0, p.S,
-             static_cast<__nv_bfloat16*>(p.dk) + (size_t)bh * p.S * p.d, p.cos, p.sin, p.d);
+  float* sAcc = reinterpret_cast<float*>(sStages);
+  acc_to_smem<DP>(sAcc, kAccLd, dk, cw * 64);
+  hopper::named_sync(1, 128 * kNW);
+  store_rows(sAcc, kAccLd, kRows, k0, p.S,
+             static_cast<__nv_bfloat16*>(p.dk) + (size_t)bh * p.S * p.d, p.cos, p.sin, p.d,
+             threadIdx.x - 128, 128 * kNW);
 }
 
 // ---------------------------------------------------------------------------
@@ -528,7 +722,7 @@ __global__ void __launch_bounds__(128) flash_dq_f32(BwdParams p) {
   for (int i = 0; i < kPer; ++i) sK[row][part + 4 * i] = acc[i];
   __syncthreads();
   store_rows(&sK[0][0], DP, kFB, blockIdx.y * kFB, p.T,
-             static_cast<float*>(p.dq) + (size_t)bh * p.T * p.d, p.cos, p.sin, p.d);
+             static_cast<float*>(p.dq) + (size_t)bh * p.T * p.d, p.cos, p.sin, p.d, threadIdx.x, blockDim.x);
 }
 
 template <int DP>
@@ -610,7 +804,7 @@ __global__ void __launch_bounds__(128) flash_dkv_f32(BwdParams p) {
   for (int i = 0; i < kPer; ++i) sQ[row][part + 4 * i] = dk[i];
   __syncthreads();
   store_rows(&sQ[0][0], DP, kFB, blockIdx.y * kFB, p.S,
-             static_cast<float*>(p.dk) + (size_t)bh * p.S * p.d, p.cos, p.sin, p.d);
+             static_cast<float*>(p.dk) + (size_t)bh * p.S * p.d, p.cos, p.sin, p.d, threadIdx.x, blockDim.x);
 }
 
 template <typename F>
@@ -628,15 +822,36 @@ cudaError_t by_width(int d, F&& f) {
   }
 }
 
-template <typename K>
-cudaError_t launch_bf16(K kernel, size_t smem, dim3 grid, const BwdParams& p, cudaStream_t st) {
-  if (smem > 48 * 1024) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  kernel<<<grid, kThreads, smem, st>>>(p);
+// bf16 tiles: d padded to a power of two >= 16 (TMA zero-fills the rest).
+template <typename F>
+cudaError_t by_tile_width(int d, F&& f) {
+  if (d <= 16) return f(std::integral_constant<int, 16>());
+  if (d <= 32) return f(std::integral_constant<int, 32>());
+  if (d <= 64) return f(std::integral_constant<int, 64>());
+  return f(std::integral_constant<int, 128>());
+}
+
+template <typename Kernel>
+cudaError_t launch_hopper(Kernel kernel, int threads, int smem, int blocks,
+                          const CUtensorMap& m0, const CUtensorMap& m1, const CUtensorMap& m2,
+                          const CUtensorMap& m3, const BwdArgs& a, cudaStream_t st) {
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<blocks, threads, smem, st>>>(m0, m1, m2, m3, a);
   return cudaGetLastError();
+}
+
+// The tensor maps of the resident (128-row boxes) and streamed tiles of a
+// pass: r0, r1 over `res_rows` rows, s0, s1 over `str_rows`.
+template <typename C>
+cudaError_t pass_maps(CUtensorMap (&m)[4], const void* r0, const void* r1, int res_rows,
+                      const void* s0, const void* s1, int str_rows, int d, int bh) {
+  cudaError_t e = hopper::make_map<typename C::ResTile>(&m[0], r0, d, res_rows, bh);
+  if (e == cudaSuccess) e = hopper::make_map<typename C::ResTile>(&m[1], r1, d, res_rows, bh);
+  if (e == cudaSuccess) e = hopper::make_map<typename C::StrTile>(&m[2], s0, d, str_rows, bh);
+  if (e == cudaSuccess) e = hopper::make_map<typename C::StrTile>(&m[3], s1, d, str_rows, bh);
+  return e;
 }
 
 bool bad_shape(int B, int H, int T, int S, int d, const void* cos, const void* sin) {
@@ -677,16 +892,24 @@ int esm_flash_attention_bwd_dq(const void* q, void* q_rot, const void* k, const 
     if (e != cudaSuccess) return (int)e;
     qr = q_rot;
   }
-  const unsigned blocks = (unsigned)((rows + 7) / 8);
+  const int bh = B * H;
   if (bf16) {
-    row_dot<__nv_bfloat16><<<blocks, 256, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(dout), static_cast<const __nv_bfloat16*>(o),
-        static_cast<float*>(delta), rows, d);
-  } else {
-    row_dot<float><<<blocks, 256, 0, st>>>(static_cast<const float*>(dout),
-                                           static_cast<const float*>(o),
-                                           static_cast<float*>(delta), rows, d);
+    BwdArgs a{static_cast<const uint8_t*>(mask), c, s, static_cast<const float*>(lse),
+              static_cast<float*>(delta), o, dout, dq, nullptr, nullptr, H, T, S, d,
+              (T + 127) / 128};
+    return (int)by_tile_width(d, [&](auto w) -> cudaError_t {
+      constexpr int DP = decltype(w)::value;
+      using C = BwdConfig<DP, 128, dq_keys(DP)>;
+      CUtensorMap m[4];
+      const cudaError_t e = pass_maps<C>(m, qr, dout, T, k, v, S, d, bh);
+      if (e != cudaSuccess) return e;
+      return launch_hopper(flash_dq_bf16<DP>, kHopperThreads, C::kSmem, bh * a.n_tiles, m[0], m[1],
+                           m[2], m[3], a, st);
+    });
   }
+  row_dot<float><<<(unsigned)((rows + 7) / 8), 256, 0, st>>>(
+      static_cast<const float*>(dout), static_cast<const float*>(o), static_cast<float*>(delta),
+      rows, d);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const BwdParams p{qr, k, v, dout, static_cast<const uint8_t*>(mask), c, s,
@@ -694,10 +917,6 @@ int esm_flash_attention_bwd_dq(const void* q, void* q_rot, const void* k, const 
                     dq, nullptr, nullptr, H, T, S, d};
   e = by_width(d, [&](auto w) -> cudaError_t {
     constexpr int DP = decltype(w)::value;
-    if (bf16) {
-      return launch_bf16(flash_dq_bf16<DP>, bwd_smem_bytes<DP>(0),
-                         dim3(B * H, (T + kBM - 1) / kBM), p, st);
-    }
     flash_dq_f32<DP><<<dim3(B * H, (T + kFB - 1) / kFB), 128, 0, st>>>(p);
     return cudaGetLastError();
   });
@@ -716,16 +935,31 @@ int esm_flash_attention_bwd_dkv(const void* q_rot, const void* k, const void* v,
   if (bad_shape(B, H, T, S, d, cos, sin)) return (int)cudaErrorInvalidValue;
   const bool bf16 = is_bf16 != 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bf16) {
+    const int bh = B * H;
+    BwdArgs a{static_cast<const uint8_t*>(mask), static_cast<const float*>(cos),
+              static_cast<const float*>(sin), static_cast<const float*>(lse),
+              static_cast<float*>(const_cast<void*>(delta)), nullptr, dout, nullptr, dk, dv,
+              H, T, S, d, 0};
+    return (int)by_tile_width(d, [&](auto w) -> cudaError_t {
+      constexpr int DP = decltype(w)::value;
+      constexpr int kRows = 64 * dkv_warpgroups(DP);
+      using C = BwdConfig<DP, kRows, dkv_rows(DP),
+                          4 * dkv_warpgroups(DP) * hopper::Tile<dkv_rows(DP), 64>::kBytes>;
+      a.n_tiles = (S + kRows - 1) / kRows;
+      CUtensorMap m[4];
+      const cudaError_t e = pass_maps<C>(m, k, v, S, q_rot, dout, T, d, bh);
+      if (e != cudaSuccess) return e;
+      return launch_hopper(flash_dkv_bf16<DP>, 128 * (1 + dkv_warpgroups(DP)), C::kSmem,
+                           bh * a.n_tiles, m[0], m[1], m[2], m[3], a, st);
+    });
+  }
   const BwdParams p{q_rot, k, v, dout, static_cast<const uint8_t*>(mask),
                     static_cast<const float*>(cos), static_cast<const float*>(sin),
                     static_cast<const float*>(lse), static_cast<const float*>(delta),
                     nullptr, dk, dv, H, T, S, d};
   const cudaError_t e = by_width(d, [&](auto w) -> cudaError_t {
     constexpr int DP = decltype(w)::value;
-    if (bf16) {
-      return launch_bf16(flash_dkv_bf16<DP>, bwd_smem_bytes<DP>(2),
-                         dim3(B * H, (S + kBN - 1) / kBN), p, st);
-    }
     flash_dkv_f32<DP><<<dim3(B * H, (S + kFB - 1) / kFB), 128, 0, st>>>(p);
     return cudaGetLastError();
   });

@@ -185,7 +185,7 @@ def _libraries():
     fwd, bwd = libs[_FWD], libs[_BWD]
     if fwd.esm_flash_attention_fwd.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        for fn, n_ptrs in ((fwd.esm_flash_attention_fwd, 9),
+        for fn, n_ptrs in ((fwd.esm_flash_attention_fwd, 10),
                            (bwd.esm_flash_attention_bwd_dq, 12),
                            (bwd.esm_flash_attention_bwd_dkv, 11)):
             fn.argtypes = [ptr] * n_ptrs + [i32] * 6 + [ptr]
@@ -241,16 +241,18 @@ def _forward(q, k, v, key_padding_mask, rotary: bool, with_lse: bool):
     fwd, _ = _libraries()
     out = torch.empty_like(q)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device) if with_lse else None
-    cos = sin = k_rot = None
+    cos = sin = k_rot = q_rot = None
     if rotary:
         cos, sin = _device_tables(max(t, s), d, q.device)
         k_rot = torch.empty_like(k)  # scratch: the kernel's prologue writes rot(k) here
+        if q.dtype == torch.bfloat16:
+            q_rot = torch.empty_like(q)  # and rot(q) (the fp32 kernel rotates q as it loads it)
     mask = _mask_bytes(key_padding_mask)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fwd.esm_flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(mask), _ptr(cos), _ptr(sin),
-            _ptr(k_rot), out.data_ptr(), _ptr(lse), b, h, t, s, d,
+            _ptr(k_rot), _ptr(q_rot), out.data_ptr(), _ptr(lse), b, h, t, s, d,
             int(q.dtype == torch.bfloat16), stream,
         )
     _raise_on(rc, fwd, "flash_attention")

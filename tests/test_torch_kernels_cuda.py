@@ -34,13 +34,15 @@ def cuda():
     torch.backends.cuda.matmul.allow_tf32 = prev
 
 
-def _inputs(b, h, t, s, d, dtype, device, seed=0):
+def _inputs(b, h, t, s, d, dtype, device, seed=0, all_padding_row=True):
     rng = np.random.RandomState(seed)
     q = torch.from_numpy((rng.randn(b, h, t, d) * d ** -0.5).astype(np.float32))
     k = torch.from_numpy(rng.randn(b, h, s, d).astype(np.float32))
     v = torch.from_numpy(rng.randn(b, h, s, d).astype(np.float32))
     mask = torch.zeros(b, s, dtype=torch.bool)
-    mask[-1, s - s // 3:] = True
+    mask[-1, s - s // 3:] = True  # ragged
+    if all_padding_row:           # every key padding: the row averages v over the S keys
+        mask[0, :] = True
     return [x.to(device=device, dtype=dtype) for x in (q, k, v)] + [mask.to(device)]
 
 
@@ -48,9 +50,17 @@ def _rel_err(got, ref):
     return (got.float() - ref.float()).abs().max().item() / max(1.0, ref.float().abs().max().item())
 
 
+# head widths: every multiple of 8 class the bf16 kernels pad differently
+# (16-, 32-, 64- and 128-column tiles, two TMA boxes at 128); lengths around
+# the 64- and 128-row tiles, T != S both ways
+WIDTHS = [8, 16, 24, 32, 64, 96, 128]
+LENGTHS = [(1, 1), (63, 65), (65, 63), (64, 64), (127, 129), (129, 127), (128, 128), (37, 37),
+           (70, 300), (300, 70), (1000, 2100), (2100, 1000), (1024, 1024)]
+
+
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("d", [8, 16, 24, 64, 128])
-@pytest.mark.parametrize("t,s", [(37, 37), (1024, 1024), (2100, 2100), (70, 300)])
+@pytest.mark.parametrize("d", WIDTHS)
+@pytest.mark.parametrize("t,s", LENGTHS + [(2100, 2100)])
 def test_flash_attention_kernel_matches_plain(cuda, dtype, atol, d, t, s):
     q, k, v, mask = _inputs(2, 2, t, s, d, dtype, cuda)
     for rotary in (False, True):
@@ -72,8 +82,8 @@ def test_flash_attention_kernel_rejects_strided_input(cuda):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [16, 24, 64, 128])
-@pytest.mark.parametrize("t,s", [(37, 37), (1024, 1024), (300, 70), (70, 300)])
+@pytest.mark.parametrize("d", WIDTHS)
+@pytest.mark.parametrize("t,s", LENGTHS)
 def test_flash_backward_kernel_matches_plain(cuda, dtype, d, t, s):
     """K1 with the lse, then K2 (dq, dk, dv), against the plain versions on
     the same inputs, rotary off and on, mask off and ragged."""
@@ -108,7 +118,10 @@ def test_flash_backward_kernel_matches_plain(cuda, dtype, d, t, s):
 def test_flash_attention_is_differentiable_on_cuda(cuda, dtype):
     """Outputs of inputs that require grad carry a grad_fn, and the gradients
     match autograd through the plain version."""
-    q, k, v, mask = _inputs(2, 4, 200, 200, 64, dtype, cuda, seed=3)
+    # no all-padding row: there the kernels, like the TPU kernel and the plain
+    # versions, recompute P = exp(s - lse) = 1 from an lse of -1e30 (the
+    # log(S) term is lost in fp32), where autograd's softmax has 1 / S
+    q, k, v, mask = _inputs(2, 4, 200, 200, 64, dtype, cuda, seed=3, all_padding_row=False)
     q, k, v = (x.requires_grad_() for x in (q, k, v))
     w = torch.randn(q.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(4))
     out = fa.flash_attention(q, k, v, key_padding_mask=mask, rotary=True)
@@ -120,6 +133,48 @@ def test_flash_attention_is_differentiable_on_cuda(cuda, dtype):
         assert _rel_err(a, r) <= GRAD_TOL[dtype], name
     with torch.no_grad():
         assert fa.flash_attention(q, k, v, key_padding_mask=mask).grad_fn is None
+
+
+def test_flash_kernels_wrap_the_persistent_grid(cuda):
+    """B.H = 80 heads of 8 query tiles: K1's persistent grid (one CTA per SM)
+    walks 640 work tiles, more than twice round 132 SMs; K1 with and without
+    the lse, and K2, against the plain versions."""
+    dtype = torch.bfloat16
+    q, k, v, mask = _inputs(4, 20, 1000, 1000, 64, dtype, cuda, seed=7)
+    do = torch.randn(q.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(8))
+    do = do.to(dtype)
+    out = fa.flash_attention(q, k, v, key_padding_mask=mask, rotary=True)
+    ref = fa.flash_attention_reference(q, k, v, key_padding_mask=mask, rotary=True)
+    torch.cuda.synchronize()
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+    out, lse, k_main = fa._forward(q, k, v, mask, True, with_lse=True)
+    ref, ref_lse = fa.flash_attention_reference(q, k, v, key_padding_mask=mask, rotary=True,
+                                                return_lse=True)
+    assert _rel_err(out, ref) <= 2e-2 and _rel_err(lse, ref_lse) <= 1e-4
+    got = fa.flash_attention_bwd(q, k_main, v, out, lse, do, key_padding_mask=mask, rotary=True)
+    want = fa.flash_attention_bwd_reference(q, k_main, v, out, lse, do, key_padding_mask=mask,
+                                            rotary=True)
+    for name, a, r in zip(("dq", "dk", "dv"), got, want):
+        assert _rel_err(a, r) <= GRAD_TOL[dtype], name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_are_deterministic(cuda, dtype):
+    """The same call twice gives bitwise-equal K1 out and lse and K2 dq, dk
+    and dv: no atomics, no dependence on the order blocks run in."""
+    q, k, v, mask = _inputs(3, 20, 1000, 900, 64, dtype, cuda, seed=9)
+    do = torch.randn(q.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(10))
+    do = do.to(dtype)
+    runs = []
+    for _ in range(2):
+        out, lse, k_main = fa._forward(q, k, v, mask, True, with_lse=True)
+        grads = fa.flash_attention_bwd(q, k_main, v, out, lse, do, key_padding_mask=mask,
+                                       rotary=True)
+        runs.append((fa.flash_attention(q, k, v, key_padding_mask=mask, rotary=True), out, lse)
+                    + tuple(grads))
+    torch.cuda.synchronize()
+    for name, a, b in zip(("out", "out (with lse)", "lse", "dq", "dk", "dv"), *runs):
+        assert torch.equal(a, b), name
 
 
 def test_k4_k5_entries_on_cuda(cuda):
