@@ -10,8 +10,9 @@ Phases, each raising on failure (nothing is caught):
                 the flash-attention forward, optionally writing the lse), K2
                 (csrc/flash_attention_bwd.cu, the two-pass backward), K6
                 (csrc/triangle_attention.cu) and K7/K8 (csrc/triangle_mul.cu);
-                prints ptxas's registers, spills and shared memory of K1's and
-                K2's wgmma kernels, and fails on a spill;
+                prints ptxas's registers, spills and shared memory of K1's,
+                K2's and K6's wgmma kernels, and fails on a spill or a
+                serialized wgmma;
   3. kernels  — every kernel against its plain PyTorch version on the card,
                 fp32 (TF32 off) and bf16, d in {16, 32, 64, 128}, T in {37,
                 1000, 1024, 4096} and T != S, a ragged key-padding mask off
@@ -19,9 +20,10 @@ Phases, each raising on failure (nothing is caught):
                 (output and lse), K2 (dq, dk, dv); then the K4 and K5 entries
                 (a forward with the lse, and two key blocks' backward partials
                 that add up to the whole); K6, fp32 and bf16, d in {16, 32,
-                64}, J in {37, 256, 1000, 1100}, H=4, a ragged key mask, on
-                real rows; K7 (mask off and on) and K8, C in {32, 128}, row
-                counts no multiple of the tile;
+                64}, J in {37, 256, 1000, 1100}, H=4, a ragged key mask, B=1
+                and B=2 with I no multiple of the rows a CTA takes, on real
+                rows; K7 (mask off and on) and K8, C in {32, 128}, row counts
+                no multiple of the tile;
   4. main     — the inference path: ESM2-650M (esm2_t33_650M_UR50D, 33 x
                 1280, 20 heads; seeded random weights) in bf16 through LMHandle
                 with the flash path at B=32, L=1022 (1024 tokens), as bench.py
@@ -54,7 +56,10 @@ Phases, each raising on failure (nothing is caught):
                 attention and against an fp32 fold; folds/s at L=512 and
                 L=1000, peak memory, a profile of one L=1000 fold; then [k6],
                 K6 timed at B=1, I=J=1000, H=4, d=32 beside its bound and
-                scaled_dot_product_attention;
+                scaled_dot_product_attention, with its tiling and the bytes
+                it stages, and [k6-variants], its other shapes and its
+                measurement modes (loads alone, no exponentials, no bias
+                loads) at that shape;
   8. trimul   — triangle_multiplicative_update_fused (K7 + einsum + K8)
                 against z + triangle_multiplicative_update at B=1, L=1000,
                 C=128, bf16, with the trunk's mask: agreement and both times;
@@ -172,18 +177,27 @@ def phase_device():
     return name, smi
 
 
-# the wgmma/TMA kernels of K1 and K2, by their names in ptxas's report
-HOPPER_KERNELS = re.compile(r"(flash_fwd_bf16|flash_dq_bf16|flash_dkv_bf16)ILi(\d+)E")
+# the wgmma/TMA kernels of K1, K2 and K6, by their names in ptxas's report
+# (template arguments: K1/K2 the tile width; K6 the tile width, the rows i a
+# CTA takes, the rows a step takes and the mode, 0 the kernel and 1-3 the
+# measurement variants of [k6])
+HOPPER_KERNELS = re.compile(r"(flash_fwd_bf16|flash_dq_bf16|flash_dkv_bf16|tri_attn_bf16)I"
+                            r"((?:Li\d+E)+)")
+SERIALIZED = re.compile(r"wgmma\.mma_async instructions are serialized.*?function '([^']+)'")
+
+
+def kernel_name(mangled):
+    m = HOPPER_KERNELS.search(mangled)
+    return f"{m.group(1)}<{','.join(re.findall(r'Li(\d+)E', m.group(2)))}>" if m else None
 
 
 def ptxas_report(text):
-    """{kernel: (registers, spill bytes, static shared bytes)} of the K1/K2
-    wgmma kernels in one library's ``nvcc -Xptxas -v`` output."""
+    """{kernel: (registers, spill bytes, static shared bytes)} of the K1, K2
+    and K6 wgmma kernels in one library's ``nvcc -Xptxas -v`` output."""
     report, current, spill = {}, None, 0
     for line in text.splitlines():
         if "Compiling entry function" in line:
-            m = HOPPER_KERNELS.search(line)
-            current = f"{m.group(1)}<{m.group(2)}>" if m else None
+            current = kernel_name(line)
             spill = 0
         elif current and "spill stores" in line:
             spill = sum(int(x) for x in re.findall(r"(\d+) bytes spill", line))
@@ -202,7 +216,7 @@ def phase_build():
     _build.build_all()
     log(f"[build] K1, K2, K6 and K7/K8 built/loaded in {time.perf_counter() - t0:.1f} s (nvcc, "
         + ", ".join(f"{n} {s:.1f} s" for n, s in _build.build_seconds.items()) + ")")
-    spilled = []
+    spilled, serialized = [], []
     for name, text in _build.build_logs.items():
         report = ptxas_report(text)
         for kernel, (regs, spill, smem) in sorted(report.items()):
@@ -213,8 +227,13 @@ def phase_build():
         for line in text.splitlines():
             if ("registers" in line or "spill" in line) and not report:
                 log(f"[build]   {name}: {line.strip()}")
-    if spilled:
-        raise AssertionError(f"ptxas spilled registers in {spilled}")
+            m = SERIALIZED.search(line)
+            if m and kernel_name(m.group(1)):
+                serialized.append(kernel_name(m.group(1)))
+    if spilled or serialized:
+        raise AssertionError(f"ptxas spilled registers in {spilled}, serialized wgmma in "
+                             f"{serialized}")
+    log("[build]   no spills and no serialized wgmma in the K1, K2 and K6 wgmma kernels")
 
 
 def phase_kernels():
@@ -363,8 +382,9 @@ def tri_mul_module(c, seed):
 
 def triangle_check(gen):
     """K6 (fp32 and bf16, d in {16, 32, 64}, J in {37, 256, 1000, 1100}, H=4,
-    ragged mask, real rows), K7 (mask off and on) and K8 (C in {32, 128},
-    row counts no multiple of the tile) against their plain versions."""
+    ragged mask, real rows; B=1 and B=2 with I no multiple of the rows a CTA
+    takes), K7 (mask off and on) and K8 (C in {32, 128}, row counts no
+    multiple of the tile) against their plain versions."""
     import torch
     from esm_tpu_torch.kernels import triangle_attention as ta
     from esm_tpu_torch.kernels import triangle_mul as tm
@@ -375,18 +395,21 @@ def triangle_check(gen):
         for d in (16, 32, 64):
             worst = {}
             for j in (37, 256, 1000, 1100):
-                i = 8 if j <= 256 else 2
-                args, real = tri_inputs(1, i, j, 4, d, dtype, gen)
-                out = ta.triangle_attention_fused(*args)
-                ref = ta.triangle_attention_reference(*args)
-                torch.cuda.synchronize()
-                e = (rel_err(out[real], ref[real]) if dtype == torch.bfloat16
-                     else (out[real] - ref[real]).abs().max().item())
-                if not e <= tol:
-                    raise AssertionError(f"K6 {dtype} d={d} J={j} I={i}: err {e} > {tol}")
-                worst[j] = e
-                cases += 1
-            log(f"[kernels] K6 {str(dtype):14s} d={d:2d} H=4 ragged mask, real rows: "
+                # I=5 and 3 leave a partial row group at every R the kernel uses
+                for b, i in ((1, 8 if j <= 256 else 2), (2, 5 if j <= 256 else 3)):
+                    args, real = tri_inputs(b, i, j, 4, d, dtype, gen)
+                    out = ta.triangle_attention_fused(*args)
+                    ref = ta.triangle_attention_reference(*args)
+                    torch.cuda.synchronize()
+                    e = (rel_err(out[real], ref[real]) if dtype == torch.bfloat16
+                         else (out[real] - ref[real]).abs().max().item())
+                    if not e <= tol:
+                        raise AssertionError(f"K6 {dtype} d={d} J={j} B={b} I={i}: err {e} > "
+                                             f"{tol}")
+                    worst[j] = max(worst.get(j, 0.0), e)
+                    cases += 1
+            log(f"[kernels] K6 {str(dtype):14s} d={d:2d} H=4 ragged mask, B=1 and B=2 (I no "
+                f"multiple of the row group), real rows: "
                 + ", ".join(f"J={j} {e:.2e}" for j, e in worst.items()) + f" <= {tol}")
     for dtype in (torch.float32, torch.bfloat16):
         tol = TRIMUL_TOL[str(dtype)]
@@ -1099,8 +1122,16 @@ def phase_fold(card):
     return counts
 
 
+# esm_triangle_attention_variant's shapes and modes, measured beside the kernel
+K6_VARIANTS = ("one row a CTA (R=1, bias not shared)", "R=2, one row a step",
+               "the loads alone", "no exponentials", "no bias loads from shared memory")
+
+
 def measure_k6(counts):
-    """K6 at the trunk's shape at L=1000: B=1, I=J=1000, H=4, d=32, bf16."""
+    """K6 at the trunk's shape at L=1000: B=1, I=J=1000, H=4, d=32, bf16; then
+    the kernel's other shapes and its measurement modes at that shape."""
+    import ctypes
+
     import torch
     import torch.nn.functional as F
     from esm_tpu_torch.kernels import triangle_attention as ta
@@ -1133,8 +1164,33 @@ def measure_k6(counts):
         f"operations, {nbytes / H100_BYTES * 1e3:.4f} ms of bytes; {exps:.2e} exponentials would "
         f"take {exps / (132 * 16 * 1.98e9) * 1e3:.4f} ms at 16 per SM-clock, 1.98 GHz); "
         f"{counts['triangle_attention_fused']} launches per fold; err {err:.3e} (relative)")
+    lib = ta._library()
+    lib.esm_triangle_attention_staged_bytes.restype = ctypes.c_longlong
+    rows = ctypes.c_int(0)
+    staged = lib.esm_triangle_attention_staged_bytes(B, I, J, H, d, ctypes.byref(rows))
+    log(f"[k6] tiling: {rows.value} rows i and 128 queries a CTA, 64-key tiles; "
+        f"{staged / 1e9:.3f} GB staged per call ({staged / (B * I * H * J * J):.3f} bytes a "
+        f"score), {staged / ms / 1e9:.1f} TB/s from L2 at the kernel's time")
     if not err <= TRI_TOL["torch.bfloat16"]:
         raise AssertionError(f"K6 at the fold's shape: err {err}")
+    fn = lib.esm_triangle_attention_variant
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = torch.empty_like(q)
+    times = []
+    for variant, what in enumerate(K6_VARIANTS):
+        call = lambda: fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), tri.data_ptr(),
+                          mask_bias.data_ptr(), out.data_ptr(), B, I, J, H, d, J, variant,
+                          torch.cuda.current_stream().cuda_stream)
+        rc = call()
+        torch.cuda.synchronize()
+        if rc != 0:
+            raise RuntimeError(f"K6 variant {variant}: CUDA error {rc}")
+        v_ms = cuda_time_ms(call)
+        times.append(f"{what} {v_ms:.4f} ms" + (f" (err {rel_err(out, kernel()):.2e})"
+                                                if variant < 2 else ""))
+    log(f"[k6-variants] at that shape, the kernel {cuda_time_ms(kernel):.4f} ms; "
+        + "; ".join(times))
     return {"name": "triangle_attention_fused", "route": "cuda",
             "source": "esm_tpu_torch/csrc/triangle_attention.cu",
             "replaces": "esm_tpu/kernels/triangle_attention.py:96",

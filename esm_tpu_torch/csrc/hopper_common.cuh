@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the flash-attention forward (K1,
-// flash_attention.cu) and backward (K2, flash_attention_bwd.cu): mbarriers,
-// TMA tile loads, wgmma descriptors and instructions, register reallocation,
+// flash_attention.cu), its backward (K2, flash_attention_bwd.cu) and the
+// triangle attention (K6, triangle_attention.cu): mbarriers, TMA tile loads,
+// wgmma descriptors and instructions, register reallocation,
 // the swizzled tile layout TMA writes and wgmma reads, and the host-side
 // tensor-map encoder. Raw PTX, no CuTe or CUTLASS headers, so each library
 // still builds in seconds.
@@ -134,6 +135,16 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// The same for a 4-D tensor map.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
 }
 

@@ -96,7 +96,7 @@ def _library():
     lib = load_library(_LIB)
     if lib.esm_triangle_attention_fwd.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.esm_triangle_attention_fwd.argtypes = [ptr] * 6 + [i32] * 6 + [ptr]
+        lib.esm_triangle_attention_fwd.argtypes = [ptr] * 6 + [i32] * 7 + [ptr]
         lib.esm_triangle_attention_fwd.restype = i32
         lib.esm_cuda_error_string.argtypes = [i32]
         lib.esm_cuda_error_string.restype = ctypes.c_char_p
@@ -124,13 +124,19 @@ def triangle_attention_fused(
         if not x.is_contiguous() or x.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
     lib = _library()
+    bf16 = q.dtype == torch.bfloat16
+    if bf16 and j % 4:
+        # the bf16 kernel reads the bias by TMA, which needs 16-byte row
+        # strides: rows padded to a multiple of 4 floats (one pass over the
+        # bias, B.H.J.J fp32; the padding is never read as a key)
+        tri_bias = torch.nn.functional.pad(tri_bias, (0, 4 - j % 4))
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.esm_triangle_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), tri_bias.data_ptr(),
-            mask_bias.data_ptr(), out.data_ptr(), b, i, j, h, d,
-            int(q.dtype == torch.bfloat16), stream,
+            mask_bias.data_ptr(), out.data_ptr(), b, i, j, h, d, tri_bias.shape[-1], int(bf16),
+            stream,
         )
     if rc != 0:
         raise RuntimeError(f"triangle_attention kernel failed: CUDA error {rc} "

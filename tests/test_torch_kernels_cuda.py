@@ -240,6 +240,62 @@ def test_triangle_attention_kernel_matches_plain(cuda, dtype, atol, d, j):
     assert _rel_err(out, ref) <= atol
 
 
+# The bf16 K6 kernel gives a CTA a group of rows i (2 at d = 32, 4 at d = 16,
+# 1 at d = 128) and one 128-query tile, reads the bias by TMA (rows padded to
+# a multiple of 4 floats when J is not) and takes 64-key tiles: J around those
+# tiles and J % 4 != 0, every head-width class, B = 2 with the ragged mask on
+# the last batch, and I that leaves the last group of each batch partial.
+K6_WIDTHS = [8, 16, 32, 64, 128]
+K6_LENGTHS = [1, 37, 63, 64, 65, 256, 1000, 1100]
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("d", K6_WIDTHS)
+@pytest.mark.parametrize("j", K6_LENGTHS)
+def test_triangle_attention_kernel_shapes(cuda, dtype, atol, d, j):
+    args = _k6_inputs(2, 5, j, 4, d, dtype, cuda, seed=j + d)
+    out = ta.triangle_attention_fused(*args)
+    ref = ta.triangle_attention_reference(*args)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == args[0].shape
+    assert _rel_err(out, ref) <= atol
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("d", [16, 32])
+@pytest.mark.parametrize("i", [1, 3, 5, 9])
+@pytest.mark.parametrize("b", [1, 2])
+def test_triangle_attention_kernel_row_groups(cuda, dtype, atol, d, i, b):
+    """I not a multiple of the rows a CTA takes, so the last group of every
+    batch is partial; with B = 2 a group never reaches into the next batch."""
+    args = _k6_inputs(b, i, 65, 4, d, dtype, cuda, seed=10 * i + b)
+    out = ta.triangle_attention_fused(*args)
+    ref = ta.triangle_attention_reference(*args)
+    torch.cuda.synchronize()
+    assert _rel_err(out, ref) <= atol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_triangle_attention_kernel_all_masked_row(cuda, dtype):
+    """A row i whose keys are all masked averages v over the J real keys."""
+    q, k, v, tri, mask_bias = _k6_inputs(2, 5, 100, 4, 32, dtype, cuda, seed=3)
+    out = ta.triangle_attention_fused(q, k, v, tri, mask_bias)
+    torch.cuda.synchronize()
+    want = v[-1, -1].float().mean(0, keepdim=True).expand(100, 4, 32)
+    assert (out[-1, -1].float() - want).abs().max().item() <= 2e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_triangle_attention_kernel_is_deterministic(cuda, dtype):
+    """Two calls give bitwise-equal outputs: no atomics, no dependence on the
+    order the CTAs run in."""
+    args = _k6_inputs(2, 5, 1000, 4, 32, dtype, cuda, seed=4)
+    a = ta.triangle_attention_fused(*args)
+    b = ta.triangle_attention_fused(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
 def _tri_mul_module(c, device, seed):
     gen = torch.Generator().manual_seed(seed)
     mod = TriangleMultiplication(c)
