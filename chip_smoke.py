@@ -11,8 +11,8 @@ Phases, each raising on failure (nothing is caught):
                 (csrc/flash_attention_bwd.cu, the two-pass backward), K6
                 (csrc/triangle_attention.cu) and K7/K8 (csrc/triangle_mul.cu);
                 prints ptxas's registers, spills and shared memory of K1's,
-                K2's and K6's wgmma kernels, and fails on a spill or a
-                serialized wgmma;
+                K2's, K6's, K7's and K8's wgmma kernels, and fails on a spill
+                or a serialized wgmma;
   3. kernels  — every kernel against its plain PyTorch version on the card,
                 fp32 (TF32 off) and bf16, d in {16, 32, 64, 128}, T in {37,
                 1000, 1024, 4096} and T != S, a ragged key-padding mask off
@@ -22,8 +22,11 @@ Phases, each raising on failure (nothing is caught):
                 that add up to the whole); K6, fp32 and bf16, d in {16, 32,
                 64}, J in {37, 256, 1000, 1100}, H=4, a ragged key mask, B=1
                 and B=2 with I no multiple of the rows a CTA takes, on real
-                rows; K7 (mask off and on) and K8, C in {32, 128}, row counts
-                no multiple of the tile;
+                rows; K7 (mask none, ragged and all zero) and K8, fp32 and
+                bf16, C in {32, 64, 128}, 1 to 16,901 rows (around the 64-row
+                tile, and past one pass of the persistent grid); then K6, K7
+                and K8 refusing gradients: each raises under grad with an
+                input or weight that requires it;
   4. main     — the inference path: ESM2-650M (esm2_t33_650M_UR50D, 33 x
                 1280, 20 heads; seeded random weights) in bf16 through LMHandle
                 with the flash path at B=32, L=1022 (1024 tokens), as bench.py
@@ -62,8 +65,11 @@ Phases, each raising on failure (nothing is caught):
                 loads) at that shape;
   8. trimul   — triangle_multiplicative_update_fused (K7 + einsum + K8)
                 against z + triangle_multiplicative_update at B=1, L=1000,
-                C=128, bf16, with the trunk's mask: agreement and both times;
-                then [k7] and [k8] timed beside their bounds;
+                C=128, bf16, with the trunk's mask, under torch.no_grad():
+                agreement and both times; then [k7] and [k8] timed beside
+                their bounds and the earlier mma.sync kernels' times, and
+                [k7-variants] and [k8-variants], their measurement modes
+                (loads alone, no stores, no sigmoids) at that shape;
   9. cli-fold — esm_tpu_torch.cli.fold on the card over a seeded FASTA with a
                 reference-layout checkpoint (an esm2_t6_8M-shaped LM, a
                 2-block trunk at ESMFold's widths), --fused-triangle, its PDBs
@@ -177,12 +183,14 @@ def phase_device():
     return name, smi
 
 
-# the wgmma/TMA kernels of K1, K2 and K6, by their names in ptxas's report
-# (template arguments: K1/K2 the tile width; K6 the tile width, the rows i a
-# CTA takes, the rows a step takes and the mode, 0 the kernel and 1-3 the
-# measurement variants of [k6])
-HOPPER_KERNELS = re.compile(r"(flash_fwd_bf16|flash_dq_bf16|flash_dkv_bf16|tri_attn_bf16)I"
-                            r"((?:Li\d+E)+)")
+# the wgmma/TMA kernels of K1, K2, K6, K7 and K8, by their names in ptxas's
+# report (template arguments: K1/K2 the tile width; K6 the tile width, the
+# rows i a CTA takes, the rows a step takes and the mode, 0 the kernel and
+# 1-3 the measurement variants of [k6]; K7 the channels, the mask flag and
+# the mode, K8 the channels and the mode, 0 the kernel and 1-3 the
+# measurement variants of [k7-variants] and [k8-variants])
+HOPPER_KERNELS = re.compile(r"(flash_fwd_bf16|flash_dq_bf16|flash_dkv_bf16|tri_attn_bf16|"
+                            r"tri_mul_stage1_bf16|tri_mul_epilogue_bf16)I((?:Li\d+E)+)")
 SERIALIZED = re.compile(r"wgmma\.mma_async instructions are serialized.*?function '([^']+)'")
 
 
@@ -192,8 +200,8 @@ def kernel_name(mangled):
 
 
 def ptxas_report(text):
-    """{kernel: (registers, spill bytes, static shared bytes)} of the K1, K2
-    and K6 wgmma kernels in one library's ``nvcc -Xptxas -v`` output."""
+    """{kernel: (registers, spill bytes, static shared bytes)} of the K1, K2,
+    K6, K7 and K8 wgmma kernels in one library's ``nvcc -Xptxas -v`` output."""
     report, current, spill = {}, None, 0
     for line in text.splitlines():
         if "Compiling entry function" in line:
@@ -233,7 +241,7 @@ def phase_build():
     if spilled or serialized:
         raise AssertionError(f"ptxas spilled registers in {spilled}, serialized wgmma in "
                              f"{serialized}")
-    log("[build]   no spills and no serialized wgmma in the K1, K2 and K6 wgmma kernels")
+    log("[build]   no spills and no serialized wgmma in the K1, K2, K6, K7 and K8 wgmma kernels")
 
 
 def phase_kernels():
@@ -380,11 +388,18 @@ def tri_mul_module(c, seed):
     return mod.cuda()
 
 
+# K7/K8 card checks: every channel count the kernels take, row counts around
+# the 64-row tile and one that wraps the persistent grid (> 132 x 2 x 64).
+TRIMUL_CHANNELS = (32, 64, 128)
+TRIMUL_ROWS = (1, 63, 64, 65, 127, 129, 231, 7474, 16901)
+
+
 def triangle_check(gen):
     """K6 (fp32 and bf16, d in {16, 32, 64}, J in {37, 256, 1000, 1100}, H=4,
     ragged mask, real rows; B=1 and B=2 with I no multiple of the rows a CTA
-    takes), K7 (mask off and on) and K8 (C in {32, 128}, row counts no
-    multiple of the tile) against their plain versions."""
+    takes), K7 (mask off, ragged and all zero) and K8 (C in TRIMUL_CHANNELS,
+    TRIMUL_ROWS rows) against their plain versions; then the three CUDA
+    routes refusing gradients."""
     import torch
     from esm_tpu_torch.kernels import triangle_attention as ta
     from esm_tpu_torch.kernels import triangle_mul as tm
@@ -411,36 +426,75 @@ def triangle_check(gen):
             log(f"[kernels] K6 {str(dtype):14s} d={d:2d} H=4 ragged mask, B=1 and B=2 (I no "
                 f"multiple of the row group), real rows: "
                 + ", ".join(f"J={j} {e:.2e}" for j, e in worst.items()) + f" <= {tol}")
-    for dtype in (torch.float32, torch.bfloat16):
-        tol = TRIMUL_TOL[str(dtype)]
-        for c in (32, 128):
-            mod = tri_mul_module(c, seed=c)
-            w4, b4, ln_s, ln_b = tm.stage1_weights(mod, dtype)
-            errs = []
-            for shape in ((1, 7, 33), (2, 37, 101)):  # 231 and 7474 rows
-                rows = int(np.prod(shape))
-                z = torch.randn(*shape, c, device="cuda", generator=gen).to(dtype)
-                x = torch.randn(*shape, c, device="cuda", generator=gen).to(dtype)
-                for masked in (False, True):
-                    mask = ((torch.rand(*shape, device="cuda", generator=gen) > 0.3).to(dtype)
-                            if masked else None)
-                    a, b = tm.tri_mul_stage1(z, mask, mod)
-                    ref_a, ref_b = tm.tri_mul_stage1_reference(
-                        z.reshape(rows, c), None if mask is None else mask.reshape(rows).to(
-                            torch.int8), w4, b4, ln_s, ln_b)
-                    errs += [rel_err(a.reshape(rows, c), ref_a), rel_err(b.reshape(rows, c), ref_b)]
+    with torch.no_grad():  # the module's weights require grad; the kernels have no backward
+        for dtype in (torch.float32, torch.bfloat16):
+            tol = TRIMUL_TOL[str(dtype)]
+            for c in TRIMUL_CHANNELS:
+                mod = tri_mul_module(c, seed=c)
+                w = tm.stage1_weights(mod, dtype)
+                ew = tm.epilogue_weights(mod, dtype)
+                errs = []
+                for rows in TRIMUL_ROWS:
+                    z = torch.randn(1, rows, 1, c, device="cuda", generator=gen).to(dtype)
+                    x = torch.randn(1, rows, 1, c, device="cuda", generator=gen).to(dtype)
+                    zf = z.reshape(rows, c)
+                    masks = {"none": None,
+                             "ragged": (torch.rand(1, rows, 1, device="cuda", generator=gen)
+                                        > 0.3).to(dtype),
+                             "zero": torch.zeros(1, rows, 1, device="cuda", dtype=dtype)}
+                    for kind, mask in masks.items():
+                        a, b = tm.tri_mul_stage1(z, mask, mod)
+                        mf = None if mask is None else mask.reshape(rows).to(torch.int8)
+                        ref_a, ref_b = tm.tri_mul_stage1_reference(zf, mf, *w)
+                        torch.cuda.synchronize()
+                        errs += [rel_err(a.reshape(rows, c), ref_a),
+                                 rel_err(b.reshape(rows, c), ref_b)]
+                        if kind == "zero" and (a.any() or b.any()):
+                            raise AssertionError(f"K7 {dtype} C={c} rows={rows}: a or b not 0 "
+                                                 f"under an all-zero mask")
+                        cases += 1
+                    o = tm.tri_mul_epilogue(x, z, mod)
+                    ref_o = tm.tri_mul_epilogue_reference(x.reshape(rows, c), zf, *ew)
+                    torch.cuda.synchronize()
+                    errs.append(rel_err(o.reshape(rows, c), ref_o))
                     cases += 1
-                o = tm.tri_mul_epilogue(x, z, mod)
-                ref_o = tm.tri_mul_epilogue_reference(x.reshape(rows, c), z.reshape(rows, c),
-                                                      *tm.epilogue_weights(mod, dtype))
-                torch.cuda.synchronize()
-                errs.append(rel_err(o.reshape(rows, c), ref_o))
-                cases += 1
-            if not max(errs) <= tol:
-                raise AssertionError(f"K7/K8 {dtype} C={c}: errors {errs} > {tol}")
-            log(f"[kernels] K7 (mask off/on) and K8 {str(dtype):14s} C={c:3d}, 231 and 7474 rows: "
-                f"max err {max(errs):.2e} <= {tol} (relative)")
+                if not max(errs) <= tol:
+                    raise AssertionError(f"K7/K8 {dtype} C={c}: errors {errs} > {tol}")
+                log(f"[kernels] K7 (mask none, ragged, all zero) and K8 {str(dtype):14s} "
+                    f"C={c:3d}, rows {', '.join(map(str, TRIMUL_ROWS))}: max err "
+                    f"{max(errs):.2e} <= {tol} (relative)")
+    grad_refusal_check(gen)
     return cases
+
+
+def grad_refusal_check(gen):
+    """K6, K7 and K8 have no backward: on the card each raises under grad when
+    an input (K6's q) or a weight (the tri-mul module's) requires grad, and
+    runs under torch.no_grad()."""
+    import torch
+    from esm_tpu_torch.kernels import triangle_attention as ta
+    from esm_tpu_torch.kernels import triangle_mul as tm
+
+    args, _ = tri_inputs(1, 2, 64, 4, 32, torch.bfloat16, gen)
+    q = args[0].clone().requires_grad_()
+    mod = tri_mul_module(32, seed=5)  # its parameters require grad
+    z = torch.randn(1, 8, 8, 32, device="cuda", generator=gen).bfloat16()
+    calls = {"K6": lambda: ta.triangle_attention_fused(q, *args[1:]),
+             "K7": lambda: tm.tri_mul_stage1(z, None, mod),
+             "K8": lambda: tm.tri_mul_epilogue(z, z, mod)}
+    for name, call in calls.items():
+        try:
+            call()
+        except RuntimeError as e:
+            if f"({name})" not in str(e) or "no backward" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"{name} ran under grad with an input or weight requiring it")
+        with torch.no_grad():
+            call()
+    torch.cuda.synchronize()
+    log("[kernels] K6, K7 and K8 raise under grad with an input or weight that requires it, "
+        "and run under torch.no_grad()")
 
 
 def bench_tokens(alphabet, b, length, seed=0):
@@ -1198,10 +1252,27 @@ def measure_k6(counts):
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
 
 
+# K7's and K8's times at 10^6 rows, C=128, bf16, before the Hopper redesign
+# (the earlier mma.sync kernels; chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W).
+TRIMUL_MMA_SYNC_MS = {"tri_mul_stage1": 1.6851, "tri_mul_epilogue": 2.0394}
+# esm_tri_mul_variant's measurement modes, timed beside each kernel
+TRIMUL_VARIANTS = ("loads alone", "no stores", "no sigmoids")
+
+
 def phase_trimul():
     """The A/B left open at esm_tpu/models/esmfold/blocks.py:127-130, on the
     card: the fused tri-mul (K7 + einsum + K8) against z + the unfused op at
-    the trunk's width; then K7 and K8 timed."""
+    the trunk's width; then K7 and K8 timed, and their measurement modes.
+    Under torch.no_grad(), as the fold runs: the kernels have no backward."""
+    import torch
+
+    with torch.no_grad():
+        return trimul_measure()
+
+
+def trimul_measure():
+    import ctypes
+
     import torch
     from esm_tpu_torch.kernels import triangle_mul as tm
     from esm_tpu_torch.ops import triangle as tri
@@ -1229,8 +1300,8 @@ def phase_trimul():
                         mod, z, outgoing=o, mask=mask), iters=10))
     del fused, unfused
     for o in (True, False):
-        log(f"[trimul] {'outgoing' if o else 'incoming'} B=1 L={L} C={C} bf16, trunk mask: fused "
-            f"(K7 + einsum + K8) {times[o][0]:.4f} ms, z + unfused {times[o][1]:.4f} ms "
+        log(f"[trimul] {'outgoing' if o else 'incoming'} B=1 L={L} C={C} bf16, trunk mask: "
+            f"fused (K7 + einsum + K8) {times[o][0]:.4f} ms, z + unfused {times[o][1]:.4f} ms "
             f"(fused / unfused {times[o][0] / times[o][1]:.3f}); agreement {errs[o]:.3e} <= "
             f"{TRIMUL_AB_TOL} (relative)")
     if not max(errs.values()) <= TRIMUL_AB_TOL:
@@ -1241,17 +1312,24 @@ def phase_trimul():
     w = tm.stage1_weights(mod, z.dtype)
     zf, mf = z.reshape(rows, C), mask.reshape(rows).to(torch.int8)
     x = torch.randn(1, L, L, C, device="cuda", generator=gen).bfloat16()
+    xf = x.reshape(rows, C)
     ew = tm.epilogue_weights(mod, z.dtype)
-    for name, kernel, plain, ops, nbytes, line, launches in (
+    lib = tm._library()
+    variant = lib.esm_tri_mul_variant
+    variant.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_void_p),
+                        ctypes.c_longlong, ctypes.c_void_p]
+    variant.restype = ctypes.c_int
+    outs = [torch.empty_like(zf) for _ in range(2)]
+    for index, (name, kernel, plain, ops, nbytes, line, launches, ptrs) in enumerate((
         ("tri_mul_stage1", lambda: tm.tri_mul_stage1(z, mask, mod),
          lambda: tm.tri_mul_stage1_reference(zf, mf, *w),
          2 * rows * C * 4 * C, 3 * rows * C * 2 + rows + 4 * C * C * 2, 147,
-         counts["tri_mul_stage1"]),
+         counts["tri_mul_stage1"], [zf, mf, *w, *outs]),
         ("tri_mul_epilogue", lambda: tm.tri_mul_epilogue(x, z, mod),
-         lambda: tm.tri_mul_epilogue_reference(x.reshape(rows, C), zf, *ew),
+         lambda: tm.tri_mul_epilogue_reference(xf, zf, *ew),
          2 * 2 * rows * C * C, 3 * rows * C * 2 + 2 * C * C * 2, 186,
-         counts["tri_mul_epilogue"]),
-    ):
+         counts["tri_mul_epilogue"], [xf, zf, *ew, outs[0]]),
+    )):
         got, ref = kernel(), plain()
         got = got if isinstance(got, tuple) else (got,)
         ref = ref if isinstance(ref, tuple) else (ref,)
@@ -1260,14 +1338,30 @@ def phase_trimul():
         bound, by = attention_bound_ms(ops, nbytes)
         tag = "k7" if name == "tri_mul_stage1" else "k8"
         log(f"[{tag}] {name} B=1 L={L} ({rows} rows) C={C} bf16: kernel {ms:.4f} ms "
-            f"({nbytes / ms / 1e6:.1f} GB/s), plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
+            f"({nbytes / ms / 1e6:.1f} GB/s, {bound / ms:.3f} of the bound; the mma.sync "
+            f"kernel's {TRIMUL_MMA_SYNC_MS[name]:.4f} ms), plain {plain_ms:.4f} ms, bound "
+            f"{bound:.4f} ms "
             f"({by}); {launches} launches in the [trimul] run; err {err:.3e} (relative)")
         if not err <= TRIMUL_TOL["torch.bfloat16"]:
             raise AssertionError(f"{name} at the trunk's width: err {err}")
-        entries.append({"name": name, "route": "cuda", "source": "esm_tpu_torch/csrc/triangle_mul.cu",
-                        "replaces": f"esm_tpu/kernels/triangle_mul.py:{line}", "launches": launches,
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                        "bound_by": by, "library_ms": None})
+        args = (ctypes.c_void_p * len(ptrs))(*[t.data_ptr() for t in ptrs])
+        stream = torch.cuda.current_stream().cuda_stream
+        parts = []
+        for mode, what in enumerate(TRIMUL_VARIANTS, start=1):
+            call = lambda: variant(index, mode, args, rows, stream)
+            rc = call()
+            torch.cuda.synchronize()
+            if rc != 0:
+                raise RuntimeError(f"{name} variant {mode}: CUDA error {rc}")
+            parts.append(f"{what} {cuda_time_ms(call):.4f} ms")
+        log(f"[{tag}-variants] at that shape, the kernel {cuda_time_ms(kernel):.4f} ms; "
+            + "; ".join(parts))
+        entries.append({"name": name, "route": "cuda",
+                        "source": "esm_tpu_torch/csrc/triangle_mul.cu",
+                        "replaces": f"esm_tpu/kernels/triangle_mul.py:{line}",
+                        "launches": launches, "max_abs_err": err, "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                        "library_ms": None})
     return entries
 
 

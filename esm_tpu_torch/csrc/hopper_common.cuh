@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the flash-attention forward (K1,
-// flash_attention.cu), its backward (K2, flash_attention_bwd.cu) and the
-// triangle attention (K6, triangle_attention.cu): mbarriers, TMA tile loads,
+// flash_attention.cu), its backward (K2, flash_attention_bwd.cu), the
+// triangle attention (K6, triangle_attention.cu) and the tri-mul stages (K7,
+// K8, triangle_mul.cu): mbarriers, TMA tile loads and stores,
 // wgmma descriptors and instructions, register reallocation,
 // the swizzled tile layout TMA writes and wgmma reads, and the host-side
 // tensor-map encoder. Raw PTX, no CuTe or CUTLASS headers, so each library
@@ -146,6 +147,37 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// The reverse of tma_load_3d: one box from shared memory into a 3-D tensor
+// map, in a bulk async-group of the issuing thread; the parts of the box past
+// the tensor's bounds are not written. Every thread that wrote the box runs
+// fence_proxy_async() and the writers synchronise before one thread issues
+// it and commits (bulk_commit); that thread waits with bulk_wait_read()
+// before the box is written again and with bulk_wait() before it exits.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Until at most N of this thread's bulk groups still read shared memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// Until at most N of this thread's bulk groups are still in flight.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {

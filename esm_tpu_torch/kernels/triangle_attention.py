@@ -19,7 +19,9 @@ padded keys too in the TPU strip path (ROADMAP Queue 3).
 CUDA tensors launch the kernel and count the launch
 (``triangle_attention_fused.launches``); CPU tensors run
 :func:`triangle_attention_reference`. Nothing falls back from the card to
-the plain version: a build or launch error raises.
+the plain version: a build or launch error raises. The kernel has no
+backward: on the card the entry raises when grad mode is on and an input
+requires grad (:func:`._grad.refuse_grad`).
 """
 
 from __future__ import annotations
@@ -28,6 +30,8 @@ import ctypes
 from typing import Tuple
 
 import torch
+
+from ._grad import refuse_grad
 
 NEG_INF = -1e30  # the key-mask bias of the fused path (the TPU kernel's NEG_INF)
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -119,6 +123,7 @@ def triangle_attention_fused(
         return triangle_attention_reference(q, k, v, tri_bias, mask_bias)
     if q.device.type != "cuda":
         raise ValueError(f"triangle attention runs on cuda or cpu tensors, not {q.device}")
+    refuse_grad("triangle_attention_fused (K6)", q, k, v, tri_bias, mask_bias)
     for name, x in (("q", q), ("k", k), ("v", v), ("tri_bias", tri_bias),
                     ("mask_bias", mask_bias)):
         if not x.is_contiguous() or x.data_ptr() % 16:

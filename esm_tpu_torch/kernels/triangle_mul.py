@@ -19,6 +19,9 @@ rows (B·I·J, C):
 CUDA tensors launch the kernels and count the launches
 (``tri_mul_stage1.launches``, ``tri_mul_epilogue.launches``); CPU tensors run
 the plain versions. Nothing falls back from the card to the plain versions.
+The kernels have no backward: on the card both entries raise when grad mode
+is on and an input or one of the module's weights requires grad
+(:func:`._grad.refuse_grad`); the plain versions on the CPU differentiate.
 The weights come from the port's ``TriangleMultiplication`` module (torch
 ``Linear`` layout, (out, in)).
 """
@@ -29,6 +32,8 @@ import ctypes
 from typing import Optional, Tuple
 
 import torch
+
+from ._grad import refuse_grad
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _CHANNELS = (32, 64, 128)
@@ -137,6 +142,7 @@ def tri_mul_stage1(z: torch.Tensor, mask: Optional[torch.Tensor], mod):
     if z.device.type == "cpu":
         a, b = tri_mul_stage1_reference(zf, mf, w4, b4, ln_s, ln_b)
         return a.reshape(z.shape), b.reshape(z.shape)
+    refuse_grad("tri_mul_stage1 (K7)", z, mask, w4, b4, ln_s, ln_b)
     lib = _library()
     zf = zf.contiguous()
     a, b = torch.empty_like(zf), torch.empty_like(zf)
@@ -156,6 +162,7 @@ def tri_mul_epilogue(x: torch.Tensor, z: torch.Tensor, mod) -> torch.Tensor:
     zf = z.reshape(rows, c)
     if z.device.type == "cpu":
         return tri_mul_epilogue_reference(xf, zf, *weights).reshape(z.shape)
+    refuse_grad("tri_mul_epilogue (K8)", x, z, *weights)
     lib = _library()
     xf, zf = xf.contiguous(), zf.contiguous()
     out = torch.empty_like(zf)

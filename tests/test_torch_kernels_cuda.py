@@ -308,33 +308,84 @@ def _tri_mul_module(c, device, seed):
     return mod.to(device)
 
 
+# K7 and K8 take C in {32, 64, 128}, read 64-row tiles (TMA zero-fills the
+# rows past the end and clips the stores) on a persistent grid of one CTA per
+# SM, two tiles at a time: row counts around the tile, and 16,901 rows, past
+# one pass of the grid (132 x 2 x 64 = 16,896).
+TRIMUL_ROWS = [1, 63, 64, 65, 127, 129, 231, 7474, 16901]
+
+
+def _tri_mul_inputs(rows, c, dtype, mask, device, seed):
+    rng = np.random.RandomState(seed)
+    z = torch.from_numpy(rng.randn(1, rows, 1, c).astype(np.float32)).to(device, dtype)
+    x = torch.from_numpy(rng.randn(1, rows, 1, c).astype(np.float32)).to(device, dtype)
+    m = {"none": None,
+         "ragged": (rng.rand(1, rows, 1) > 0.3).astype(np.float32),
+         "zero": np.zeros((1, rows, 1), np.float32)}[mask]
+    return z, x, None if m is None else torch.from_numpy(m).to(device, dtype)
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-5), (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("c", [32, 128])
-@pytest.mark.parametrize("masked", [False, True])
-def test_tri_mul_kernels_match_plain(cuda, dtype, tol, c, masked):
-    """K7 with and without a mask, and K8, on 7 x 33 = 231 rows (no multiple
-    of the 128-row tile)."""
-    rng = np.random.RandomState(c)
-    z = torch.from_numpy(rng.randn(1, 7, 33, c).astype(np.float32)).to(cuda, dtype)
-    x = torch.from_numpy(rng.randn(1, 7, 33, c).astype(np.float32)).to(cuda, dtype)
-    mask = None
-    if masked:
-        mask = torch.from_numpy((rng.rand(1, 7, 33) > 0.3).astype(np.float32)).to(cuda, dtype)
+@pytest.mark.parametrize("c", [32, 64, 128])
+@pytest.mark.parametrize("rows", TRIMUL_ROWS)
+@pytest.mark.parametrize("masked", ["none", "ragged", "zero"])
+def test_tri_mul_kernels_match_plain(cuda, dtype, tol, c, rows, masked):
+    """K7 with no mask, a ragged mask and an all-zero one (a and b exactly 0),
+    and K8, against their plain versions. The module's weights require grad
+    and the kernels have no backward, so the calls run under no_grad."""
+    z, x, mask = _tri_mul_inputs(rows, c, dtype, masked, cuda, seed=c + rows)
     mod = _tri_mul_module(c, cuda, seed=c + 1)
-    rows = 7 * 33
     w4, b4, ln_s, ln_b = tm.stage1_weights(mod, dtype)
     n1, n2 = tm.tri_mul_stage1.launches, tm.tri_mul_epilogue.launches
-    a, b = tm.tri_mul_stage1(z, mask, mod)
-    o = tm.tri_mul_epilogue(x, z, mod)
-    ref_a, ref_b = tm.tri_mul_stage1_reference(
-        z.reshape(rows, c), None if mask is None else mask.reshape(rows).to(torch.int8),
-        w4, b4, ln_s, ln_b)
-    ref_o = tm.tri_mul_epilogue_reference(x.reshape(rows, c), z.reshape(rows, c),
-                                          *tm.epilogue_weights(mod, dtype))
+    with torch.no_grad():
+        a, b = tm.tri_mul_stage1(z, mask, mod)
+        o = tm.tri_mul_epilogue(x, z, mod)
+        ref_a, ref_b = tm.tri_mul_stage1_reference(
+            z.reshape(rows, c), None if mask is None else mask.reshape(rows).to(torch.int8),
+            w4, b4, ln_s, ln_b)
+        ref_o = tm.tri_mul_epilogue_reference(x.reshape(rows, c), z.reshape(rows, c),
+                                              *tm.epilogue_weights(mod, dtype))
     torch.cuda.synchronize()
     assert (tm.tri_mul_stage1.launches, tm.tri_mul_epilogue.launches) == (n1 + 1, n2 + 1)
     for got, ref in ((a, ref_a), (b, ref_b), (o, ref_o)):
-        assert got.dtype == dtype
+        assert got.dtype == dtype and got.shape == z.shape
         assert _rel_err(got.reshape(rows, c), ref) <= tol
-    if masked:
+    if mask is not None:
         assert not a[mask == 0].any() and not b[mask == 0].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tri_mul_kernels_are_deterministic(cuda, dtype):
+    """Two calls give bitwise-equal outputs: every element is written once."""
+    z, x, mask = _tri_mul_inputs(16901, 128, dtype, "ragged", cuda, seed=9)
+    mod = _tri_mul_module(128, cuda, seed=10)
+    with torch.no_grad():
+        first = (*tm.tri_mul_stage1(z, mask, mod), tm.tri_mul_epilogue(x, z, mod))
+        second = (*tm.tri_mul_stage1(z, mask, mod), tm.tri_mul_epilogue(x, z, mod))
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_triangle_kernels_refuse_gradients(cuda):
+    """K6, K7 and K8 have no backward: on the card each raises, naming the
+    kernel, when grad mode is on and an input or a weight requires grad, and
+    runs under no_grad."""
+    q, k, v, tri, mask_bias = _k6_inputs(1, 2, 64, 4, 32, torch.bfloat16, cuda)
+    mod = _tri_mul_module(32, cuda, seed=3)  # its parameters require grad
+    z, x, _ = _tri_mul_inputs(100, 32, torch.bfloat16, "none", cuda, seed=4)
+    q_grad = q.clone().requires_grad_()
+    z_grad = z.clone().requires_grad_()
+    calls = [
+        ("K6", lambda: ta.triangle_attention_fused(q_grad, k, v, tri, mask_bias)),
+        ("K7", lambda: tm.tri_mul_stage1(z, None, mod)),        # a weight requires grad
+        ("K7", lambda: tm.tri_mul_stage1(z_grad, None, mod)),   # and an input too
+        ("K8", lambda: tm.tri_mul_epilogue(x, z, mod)),
+        ("K8", lambda: tm.tri_mul_epilogue(x, z_grad, mod)),
+    ]
+    for name, call in calls:
+        with pytest.raises(RuntimeError, match=rf"\({name}\).*no backward"):
+            call()
+        with torch.no_grad():
+            call()
+    torch.cuda.synchronize()
