@@ -26,7 +26,9 @@ Phases, each raising on failure (nothing is caught):
                 bf16, C in {32, 64, 128}, 1 to 16,901 rows (around the 64-row
                 tile, and past one pass of the persistent grid); then K6, K7
                 and K8 refusing gradients: each raises under grad with an
-                input or weight that requires it;
+                input or weight that requires it; and K1 without the lse at
+                ESM-1's shape (T=1023 queries, S=1024 keys with the bias_kv
+                key last, d=64, no rotary);
   4. main     — the inference path: ESM2-650M (esm2_t33_650M_UR50D, 33 x
                 1280, 20 heads; seeded random weights) in bf16 through LMHandle
                 with the flash path at B=32, L=1022 (1024 tokens), as bench.py
@@ -46,7 +48,10 @@ Phases, each raising on failure (nothing is caught):
                 [k4] and [k5], the kernels timed at that shape;
   6. cli      — esm-extract (esm_tpu_torch.cli.extract.run) on the card over a
                 seeded FASTA with an esm2_t6_8M-shaped checkpoint written in
-                the reference layout, its files checked against a CPU run; and
+                the reference layout, its files checked against a CPU
+                forward, and with an ESM-1b-shaped one (1280 wide, 6 layers,
+                save_esm1b) with --bucket against the same command on the
+                CPU; and
                 a short esm_tpu_torch.cli.pretrain run on the card at the
                 esm2_t6_8M shape (its defaults) with evaluation;
   7. fold     — the ESMFold inference path: ESMFold v1 at full width and
@@ -74,8 +79,30 @@ Phases, each raising on failure (nothing is caught):
                 reference-layout checkpoint (an esm2_t6_8M-shaped LM, a
                 2-block trunk at ESMFold's widths), --fused-triangle, its PDBs
                 held against a CPU run of the same command;
- 10. summary  — the nvidia-smi line, a JSON line of the ported kernels, and
-                as the last line {"ok": true, "device": {...}}.
+ 10. esm1     — the ESM-1 family at its released sizes, seeded random
+                weights, bf16, through LMHandle: ESM-1b (esm1b_t33_650M_UR50S,
+                33 x 1280) and ESM-1v (token dropout, <mask> tokens in the
+                batch) at B=32, L=1022, K1 once a layer at S=T; ESM-1
+                (esm1_t34_670M_UR50S, 34 x 1280, bias_kv) at T=1023, K1 once
+                a layer at S=T+1; flash held against exact (and, for
+                ESM-1b, an fp32 forward) as the main phase holds ESM-2, seq/s
+                of both paths, ESM-1's streaming contacts against the
+                stacked ones; then [k1-esm1b] and [k1-esm1], K1 timed at
+                those shapes;
+ 11. msa      — the MSA Transformer (esm_msa1b_t12_100M_UR50S, 12 x 768) on a
+                seeded MSA of 400 rows x 257 tokens: the chunked axial
+                attentions (R*C > 2^14) against the unchunked forward in fp32,
+                bf16 against fp32, time and peak memory of the forward;
+ 12. cli-variants — esm_tpu_torch.cli.predict_variants on the card against
+                --nogpu runs of the same command: a seeded 250-residue
+                sequence and 40-mutant DMS, an ESM-1v-shaped checkpoint
+                (1280 wide, 6 layers) with wt-marginals, masked-marginals and
+                pseudo-ppl, an MSA-1b-shaped one (768 wide, 2 layers) with
+                masked-marginals over a seeded 64-row a3m with insertions,
+                the two as an ensemble with --eval-column;
+ 13. summary  — the nvidia-smi line, a JSON line of the ported kernels (K1
+                also at the ESM-1b and ESM-1 shapes), and as the last line
+                {"ok": true, "device": {...}}.
 
 Exits non-zero, with no result line, when there is no GPU or when the port's
 package is not beside this file. Imports nothing of JAX or esm_tpu.
@@ -307,6 +334,7 @@ def phase_kernels():
                         f"{LSE_TOL}; K2 dq {err['dq']:.2e} dk {err['dk']:.2e} "
                         f"dv {err['dv']:.2e} <= {gtol} (relative)")
         entries_check(gen)
+        esm1_shape_check(gen)
         tri_cases = triangle_check(gen)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
@@ -351,6 +379,30 @@ def entries_check(gen):
         log(f"[kernels] K4 {str(dtype):14s} B=2 H=4 T=1000 S=1024 d=64 ragged mask: out "
             f"{e_out:.2e} <= {tol}, lse {e_lse:.2e} <= {LSE_TOL}; K5 vs plain and two "
             f"blocks (320 + 704 keys) vs whole: {worst:.2e} <= {gtol} (relative)")
+
+
+def esm1_shape_check(gen):
+    """K1 without the lse at ESM-1's shape: T = 1023 queries, S = T + 1 keys
+    (the bias_kv row last, never masked), d = 64, no rotary; mask off and
+    ragged, fp32 and bf16, against the plain version."""
+    import torch
+    from esm_tpu_torch.kernels import flash_attention as fa
+
+    for dtype, tol in ((torch.float32, FP32_TOL), (torch.bfloat16, BF16_TOL)):
+        worst = 0.0
+        for masked in (False, True):
+            q, k, v, mask = attention_inputs(2, 20, 1023, 64, dtype, masked, gen, s=1024)
+            if mask is not None:
+                mask[:, -1] = False
+            out = fa.flash_attention(q, k, v, key_padding_mask=mask)
+            ref = fa.flash_attention_reference(q, k, v, key_padding_mask=mask)
+            torch.cuda.synchronize()
+            e = (out.float() - ref.float()).abs().max().item()
+            if not e <= tol:
+                raise AssertionError(f"K1 at the ESM-1 shape {dtype} masked={masked}: err {e}")
+            worst = max(worst, e)
+        log(f"[kernels] K1 at the ESM-1 shape {str(dtype):14s} B=2 H=20 T=1023 S=1024 d=64 no "
+            f"rotary (mask off/ragged, bias_kv key unmasked): max abs err {worst:.2e} <= {tol}")
 
 
 def tri_inputs(b, i, j, h, d, dtype, gen):
@@ -498,11 +550,15 @@ def grad_refusal_check(gen):
 
 
 def bench_tokens(alphabet, b, length, seed=0):
+    """(B, 1 + length (+ 1 with an eos)) tokens: bos, random residues, eos
+    where the alphabet appends one (ESM-1's does not)."""
     rng = np.random.RandomState(seed)
-    toks = np.full((b, length + 2), alphabet.padding_idx, dtype=np.int64)
+    toks = np.full((b, length + 1 + int(alphabet.append_eos)), alphabet.padding_idx,
+                   dtype=np.int64)
     toks[:, 0] = alphabet.cls_idx
     toks[:, 1:length + 1] = rng.randint(4, 24, size=(b, length))
-    toks[:, length + 1] = alphabet.eos_idx
+    if alphabet.append_eos:
+        toks[:, length + 1] = alphabet.eos_idx
     return toks
 
 
@@ -556,50 +612,73 @@ def phase_main(card):
     if launches != handle.num_layers or sum(counts.values()) != launches:
         raise AssertionError(f"launches {counts}, expected K1 x {handle.num_layers} only")
 
-    logits_exact = exact(tokens)["logits"]
+    hold_flash("main", logits_flash, exact(tokens)["logits"], f32_logits(handle, tokens))
+    seq_rates("main", f"ESM2-650M bf16, B={B}, L={L}; {card}", flash, exact, tokens)
+    profile("one flash forward", lambda: flash(tokens))
+    del handle, flash, exact, logits_flash
+    torch.cuda.empty_cache()
+    return launches
+
+
+def f32_logits(handle, tokens):
+    """The fp32 exact forward's logits, TF32 off."""
+    import torch
+
     prev = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
-    logits_f32 = handle(tokens)["logits"]
-    torch.backends.cuda.matmul.allow_tf32 = prev
-    scale = logits_f32.abs().max().item()
+    try:
+        return handle.with_options(compute_dtype=torch.float32, use_flash=False)(tokens)["logits"]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def hold_flash(tag, logits_flash, logits_exact, logits_f32=None):
+    """The bf16 flash logits against the bf16 exact ones (and an fp32 forward's).
+    Stated bf16 tolerances: the two routes differ only in how attention
+    rounds (exact rounds the scores to bf16, flash keeps them fp32), so the
+    flash route must stay within 5% of the logit range of the exact one,
+    pick the same token at >= 98% of positions, and be no further from fp32
+    than 1.5x the exact route's distance."""
+    import torch
+
+    if not torch.isfinite(logits_flash).all():
+        raise AssertionError(f"[{tag}] non-finite logits")
+    scale = (logits_exact if logits_f32 is None else logits_f32).abs().max().item()
     diff = (logits_flash - logits_exact).abs().max().item()
     agree = (logits_flash.argmax(-1) == logits_exact.argmax(-1)).float().mean().item()
-    err_flash = (logits_flash - logits_f32).abs().max().item()
-    err_exact = (logits_exact - logits_f32).abs().max().item()
-    log(f"[main] logits flash vs exact (bf16): max abs err {diff:.4f} (max |logit| {scale:.2f}), "
-        f"argmax agreement {agree:.5f}")
-    log(f"[main] against an fp32 exact forward: flash max abs err {err_flash:.4f}, "
-        f"exact {err_exact:.4f}")
-    # stated bf16 tolerances: the two routes differ only in how attention
-    # rounds (exact rounds the scores to bf16, flash keeps them fp32), so the
-    # flash route must stay within 5% of the logit range of the exact one,
-    # pick the same token at >= 98% of positions, and be no further from fp32
-    # than 1.5x the exact route's distance
+    log(f"[{tag}] logits flash vs exact (bf16): max abs err {diff:.4f} (max |logit| "
+        f"{scale:.2f}), argmax agreement {agree:.5f}")
     if not diff <= 0.05 * scale:
-        raise AssertionError(f"flash vs exact logits differ by {diff} > {0.05 * scale}")
+        raise AssertionError(f"[{tag}] flash vs exact logits differ by {diff} > {0.05 * scale}")
     if not agree >= 0.98:
-        raise AssertionError(f"argmax agreement {agree} < 0.98")
-    if not err_flash <= 1.5 * err_exact:
-        raise AssertionError(f"flash route error {err_flash} > 1.5 x exact's {err_exact}")
-    if not torch.isfinite(logits_flash).all():
-        raise AssertionError("non-finite logits")
+        raise AssertionError(f"[{tag}] argmax agreement {agree} < 0.98")
+    if logits_f32 is not None:
+        err_flash = (logits_flash - logits_f32).abs().max().item()
+        err_exact = (logits_exact - logits_f32).abs().max().item()
+        log(f"[{tag}] against an fp32 exact forward: flash max abs err {err_flash:.4f}, "
+            f"exact {err_exact:.4f}")
+        if not err_flash <= 1.5 * err_exact:
+            raise AssertionError(f"[{tag}] flash route error {err_flash} > 1.5 x exact's "
+                                 f"{err_exact}")
+
+
+def seq_rates(tag, what, flash, exact, tokens, iters=3):
+    """seq/s of the flash and exact handles on ``tokens`` (host clock,
+    synchronised, after a warm-up call)."""
+    import torch
 
     rates = {}
     for name, h in (("flash", flash), ("exact", exact)):
         h(tokens)
         torch.cuda.synchronize()
-        iters = 3
         t0 = time.perf_counter()
         for _ in range(iters):
             h(tokens)["logits"]
         torch.cuda.synchronize()
-        rates[name] = B * iters / (time.perf_counter() - t0)
-        log(f"[main] {name} path: {rates[name]:.3f} seq/s (ESM2-650M bf16, B={B}, L={L}; {card})")
-    log(f"[main] flash / exact = {rates['flash'] / rates['exact']:.3f}")
-    profile("one flash forward", lambda: flash(tokens))
-    del handle, flash, exact, logits_flash, logits_exact, logits_f32
-    torch.cuda.empty_cache()
-    return launches
+        rates[name] = tokens.shape[0] * iters / (time.perf_counter() - t0)
+        log(f"[{tag}] {name} path: {rates[name]:.3f} seq/s ({what})")
+    log(f"[{tag}] flash / exact = {rates['flash'] / rates['exact']:.3f}")
+    return rates
 
 
 def profile(label, fn, top=8, by_op=False):
@@ -999,6 +1078,41 @@ def phase_cli():
             raise AssertionError(f"extract on the card vs CPU: max abs err {worst} > 2e-4")
         log(f"[cli] esm-extract wrote {len(seqs)} files (lengths {lengths}); "
             f"vs a CPU forward: max abs err {worst:.2e} <= 2e-4")
+
+        # ESM-1b: full width, 6 of its 33 layers, --bucket (the 1022-residue
+        # sequence takes 1024 tokens, the learned positions' last rows), on
+        # the card against the same command on the CPU
+        ckpt = seeded_lm_checkpoint(tmp, "esm1b_t6_seeded.pt", "esm1b_t33_650M_UR50S", 6, seed=44)
+        outs = {}
+        for where in ("cuda", "cpu"):
+            argv = [ckpt, fasta, os.path.join(tmp, f"esm1b_{where}"), "--include", "mean",
+                    "per_tok", "bos", "contacts", "--repr_layers", "0", "-1", "--bucket",
+                    "--fp32-precision"]
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                extract.run(extract.create_parser().parse_args(
+                    argv + (["--nogpu"] if where == "cpu" else [])))
+            log(f"[cli] esm-extract, ESM-1b-shaped checkpoint (1280 wide, 6 layers), --bucket, "
+                f"{where}: {time.perf_counter() - t0:.1f} s")
+            outs[where] = {label: torch.load(os.path.join(tmp, f"esm1b_{where}", f"{label}.pt"),
+                                             weights_only=False) for label in seqs}
+        worst = 0.0
+        for label, s in seqs.items():
+            got, ref = outs["cuda"][label], outs["cpu"][label]
+            if tuple(got["contacts"].shape) != (len(s), len(s)):
+                raise AssertionError(f"ESM-1b extract {label}: contacts {got['contacts'].shape}")
+            worst = max(worst, (got["contacts"] - ref["contacts"]).abs().max().item())
+            for key in ("representations", "mean_representations", "bos_representations"):
+                if len(got[key]) != 2 or sorted(got[key]) != sorted(ref[key]):
+                    raise AssertionError(f"ESM-1b extract {label}: {key} {sorted(got[key])}")
+                for layer, t in got[key].items():
+                    if not torch.isfinite(t).all():
+                        raise AssertionError(f"ESM-1b extract {label}: non-finite {key}")
+                    worst = max(worst, (t - ref[key][layer]).abs().max().item())
+        if not worst <= 2e-4:
+            raise AssertionError(f"ESM-1b extract on the card vs CPU: max abs err {worst} > 2e-4")
+        log(f"[cli] esm-extract with the ESM-1b-shaped checkpoint, {len(seqs)} files: card vs "
+            f"CPU max abs err {worst:.2e} <= 2e-4 (representations, means, bos, contacts)")
 
 
 def phase_cli_pretrain():
@@ -1440,6 +1554,385 @@ def phase_cli_fold():
         f"CPU coordinates within {worst:.4f} A <= {CLI_FOLD_TOL} A, same atoms and records")
 
 
+@contextlib.contextmanager
+def k1_shapes():
+    """Records (T, S, rotary) of every K1 launch made inside the block (the
+    query and key lengths K1's wrapper is handed)."""
+    from esm_tpu_torch.kernels import flash_attention as fa
+
+    shapes, forward = [], fa._forward
+
+    def recording(q, k, v, key_padding_mask, rotary, with_lse):
+        shapes.append((q.shape[2], k.shape[2], rotary))
+        return forward(q, k, v, key_padding_mask, rotary, with_lse)
+
+    fa._forward = recording
+    try:
+        yield shapes
+    finally:
+        fa._forward = forward
+
+
+def drive_k1(tag, what, flash, tokens, n_layers, want_s):
+    """One flash forward with the counts zeroed just before and read just
+    after: K1 must launch once a layer, at S = ``want_s`` keys and no rotary,
+    and nothing else may launch. Returns (logits, launches)."""
+    import torch
+
+    zero_counts()
+    with k1_shapes() as shapes:
+        logits = flash(tokens)["logits"]
+        torch.cuda.synchronize()
+    counts = read_counts()
+    launches = counts["flash_attention"]
+    t = tokens.shape[1]
+    log(f"[{tag}] {what} bf16 flash forward B={tokens.shape[0]} T={t}: K1 launched {launches} "
+        f"times ({n_layers} layers) at (T, S, rotary) {sorted(set(shapes))}; all counts {counts}")
+    if launches != n_layers or sum(counts.values()) != launches:
+        raise AssertionError(f"[{tag}] launches {counts}, expected K1 x {n_layers} only")
+    if set(shapes) != {(t, want_s, False)}:
+        raise AssertionError(f"[{tag}] K1 shapes {set(shapes)}, expected {(t, want_s, False)}")
+    return logits, launches
+
+
+def phase_esm1(card):
+    """The ESM-1 family at its released sizes, seeded random weights, bf16,
+    through LMHandle: ESM-1b (esm1b_t33_650M_UR50S) and ESM-1v
+    (esm1v_t33_650M_UR90S_1, token dropout, <mask> tokens in the batch) at
+    B=32, L=1022 (1024 tokens), K1 once a layer at S = T; ESM-1
+    (esm1_t34_670M_UR50S) at T = 1023 (no eos), K1 once a layer at S = T + 1.
+    Flash against exact (and, for ESM-1b, an fp32 forward), seq/s of both
+    paths; ESM-1's streaming contacts against the stacked ones. Returns the
+    K1 launches of the ESM-1b and ESM-1 forwards."""
+    import torch
+    from esm_tpu_torch import pretrained
+
+    B, L = 32, 1022
+    bf16 = dict(compute_dtype=torch.bfloat16)
+    launches = {}
+
+    handle, alphabet = pretrained.random_model_and_alphabet("esm1b_t33_650M_UR50S", seed=20,
+                                                            device="cuda")
+    flash, exact = handle.with_options(use_flash=True, **bf16), handle.with_options(**bf16)
+    tokens = torch.from_numpy(bench_tokens(alphabet, B, L, seed=21)).cuda()
+    logits, launches["esm1b"] = drive_k1("esm1", "ESM-1b 650M", flash, tokens,
+                                         handle.num_layers, tokens.shape[1])
+    hold_flash("esm1", logits, exact(tokens)["logits"], f32_logits(handle, tokens))
+    seq_rates("esm1", f"ESM-1b 650M bf16, B={B}, L={L}; {card}", flash, exact, tokens)
+    del handle, flash, exact, logits
+
+    handle, alphabet = pretrained.random_model_and_alphabet("esm1v_t33_650M_UR90S_1", seed=22,
+                                                            device="cuda")
+    flash, exact = handle.with_options(use_flash=True, **bf16), handle.with_options(**bf16)
+    toks = bench_tokens(alphabet, B, L, seed=23)
+    masked = np.random.RandomState(24).rand(B, L) < 0.15
+    toks[:, 1:L + 1][masked] = alphabet.mask_idx
+    tokens = torch.from_numpy(toks).cuda()
+    logits, _ = drive_k1("esm1", f"ESM-1v 650M ({int(masked.sum())} <mask> tokens)", flash,
+                         tokens, handle.num_layers, tokens.shape[1])
+    hold_flash("esm1", logits, exact(tokens)["logits"])
+    del handle, flash, exact, logits
+
+    handle, alphabet = pretrained.random_model_and_alphabet("esm1_t34_670M_UR50S", seed=25,
+                                                            device="cuda")
+    flash, exact = handle.with_options(use_flash=True, **bf16), handle.with_options(**bf16)
+    tokens = torch.from_numpy(bench_tokens(alphabet, B, L, seed=26)).cuda()
+    logits, launches["esm1"] = drive_k1("esm1", "ESM-1 670M (bias_kv)", flash, tokens,
+                                        handle.num_layers, tokens.shape[1] + 1)
+    hold_flash("esm1", logits, exact(tokens)["logits"])
+    seq_rates("esm1", f"ESM-1 670M bf16, B={B}, L={L}; {card}", flash, exact, tokens)
+    del flash, exact, logits
+    torch.cuda.empty_cache()
+
+    # streaming contacts (one layer's maps at a time, the bias_kv column
+    # stripped in the loop) against the stacked ones, fp32 with TF32 off:
+    # the same maps summed in another order, 1e-4 on the probabilities
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    with torch.no_grad():
+        reg = handle.model.contact_head.regression
+        reg.weight.normal_(generator=gen).mul_(0.1)
+        reg.bias.fill_(-1.0)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        small = tokens[:2]
+        streamed = handle(small, return_contacts=True)["contacts"]
+        stacked = handle(small, need_head_weights=True, return_contacts=True)["contacts"]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    err = (streamed - stacked).abs().max().item()
+    log(f"[esm1] ESM-1 contacts, fp32, B=2 T={small.shape[1]}: streaming vs stacked max abs err "
+        f"{err:.2e} <= 1e-4; shape {tuple(streamed.shape)}")
+    if not (err <= 1e-4 and streamed.shape == (2, L, L) and torch.isfinite(streamed).all()):
+        raise AssertionError(f"[esm1] streaming contacts err {err}, shape {streamed.shape}")
+    del handle, streamed, stacked
+    torch.cuda.empty_cache()
+    return launches
+
+
+def measure_k1_esm1(launches):
+    """K1 at the ESM-1 family's shapes, no rotary: ESM-1b's B=32 H=20 T=S=1024
+    and ESM-1's T=1023, S=1024 (the bias_kv key), d=64, bf16, with an
+    all-False key-padding mask as those paths pass it."""
+    import torch
+    import torch.nn.functional as F
+    from esm_tpu_torch.kernels import flash_attention as fa
+
+    entries = []
+    gen = torch.Generator(device="cuda").manual_seed(28)
+    for path, t, s in (("esm1b", 1024, 1024), ("esm1", 1023, 1024)):
+        B, H, d = 32, 20, 64
+        q, k, v, _ = attention_inputs(B, H, t, d, torch.bfloat16, False, gen, s=s)
+        mask = torch.zeros(B, s, dtype=torch.bool, device="cuda")
+        kernel = lambda: fa.flash_attention(q, k, v, key_padding_mask=mask)
+        plain = lambda: fa.flash_attention_reference(q, k, v, key_padding_mask=mask)
+        library = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=~mask[:, None, None],
+                                                         scale=1.0)
+        err = (kernel().float() - plain().float()).abs().max().item()
+        ms, plain_ms, lib_ms = cuda_time_ms(kernel), cuda_time_ms(plain), cuda_time_ms(library)
+        flops = 4 * B * H * t * s * d
+        bound, by = attention_bound_ms(flops, 2 * B * H * (t + s) * d * 2 + B * s)
+        log(f"[k1-{path}] B={B} H={H} T={t} S={s} d={d} bf16 no rotary: kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, scaled_dot_product_attention {lib_ms:.4f} ms, bound "
+            f"{bound:.4f} ms; {flops / ms / 1e9:.1f} TFLOP/s; kernel / library {ms / lib_ms:.3f}; "
+            f"{launches[path]} launches a forward; max abs err {err:.3e}")
+        if not err <= BF16_TOL:
+            raise AssertionError(f"K1 at the {path} shape: max abs err {err} > {BF16_TOL}")
+        entries.append({"name": f"flash_attention/{path}", "route": "cuda",
+                        "source": "esm_tpu_torch/csrc/flash_attention.cu",
+                        "replaces": "esm_tpu/kernels/flash_attention.py:394",
+                        "launches": launches[path], "max_abs_err": err, "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                        "library_ms": lib_ms})
+    return entries
+
+
+def seeded_msa(rows, length, seed, first=None):
+    """An aligned MSA: a query row (``first`` or random residues) and rows that
+    differ from it at ~30% of the columns (residues and gaps)."""
+    rng = np.random.RandomState(seed)
+    aas = list("ACDEFGHIKLMNPQRSTVWY")
+    query = np.array(list(first)) if first else rng.choice(aas, length)
+    msa = [("query", "".join(query))]
+    for i in range(1, rows):
+        row = query.copy()
+        sub = rng.rand(length) < 0.3
+        row[sub] = rng.choice(aas + ["-"], int(sub.sum()))
+        msa.append((f"r{i}", "".join(row)))
+    return msa
+
+
+def phase_msa(card):
+    """The MSA Transformer (esm_msa1b_t12_100M_UR50S, 12 x 768, 12 heads,
+    seeded random weights) on a seeded MSA of R=400 rows x C=257 tokens: R*C
+    is past max_tokens_per_msa (2^14), so the row logits are summed over
+    63-row chunks and the columns run 40 at a time; held against the
+    unchunked forward in fp32 (TF32 off), and the bf16 forward against fp32.
+    Time and peak memory of the forward. No kernel of the port is on this
+    path (the JAX package has none for it)."""
+    import torch
+    from esm_tpu_torch import pretrained
+
+    R, C = 400, 256
+    handle, alphabet = pretrained.random_model_and_alphabet("esm_msa1b_t12_100M_UR50S", seed=30,
+                                                            device="cuda")
+    tokens = alphabet.get_batch_converter()([seeded_msa(R, C, seed=31)])[2].cuda()
+    whole = handle.with_options(max_tokens_per_msa=tokens.numel())
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    zero_counts()
+    try:
+        chunked = handle(tokens, repr_layers=[-1])
+        unchunked = whole(tokens, repr_layers=[-1])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    scale = unchunked["logits"].abs().max().item()
+    err = max((chunked["logits"] - unchunked["logits"]).abs().max().item() / scale,
+              rel_err(chunked["representations"][handle.num_layers],
+                      unchunked["representations"][handle.num_layers]))
+    log(f"[msa] MSA-1b fp32 (TF32 off), B=1 R={R} C={C + 1}: chunked (rows "
+        f"{2 ** 14 // (C + 1)}, columns {2 ** 14 // R}) vs unchunked logits and last representation: max err {err:.2e} <= 1e-4 of the largest "
+        f"value (max |logit| {scale:.2f})")
+    if not err <= 1e-4:
+        raise AssertionError(f"[msa] chunked vs unchunked: err {err}")
+
+    bf16 = handle.with_options(compute_dtype=torch.bfloat16)
+    logits16 = bf16(tokens)["logits"]
+    f32 = chunked["logits"]
+    diff = (logits16 - f32).abs().max().item()
+    agree = (logits16.argmax(-1) == f32.argmax(-1)).float().mean().item()
+    log(f"[msa] bf16 vs fp32 logits: max abs err {diff:.4f} (max |logit| {scale:.2f}), argmax "
+        f"agreement {agree:.5f}")
+    # bf16 rounds every product and activation (~0.4% each) through 12
+    # layers: within 5% of the logit range, the same token at >= 95% of
+    # the positions
+    if not (torch.isfinite(logits16).all() and diff <= 0.05 * scale and agree >= 0.95):
+        raise AssertionError(f"[msa] bf16 vs fp32: err {diff}, agreement {agree}")
+    del chunked, unchunked, logits16, f32
+    for name, h in (("bf16", bf16), ("fp32", handle)):
+        h(tokens)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            h(tokens)["logits"]
+        torch.cuda.synchronize()
+        sec = (time.perf_counter() - t0) / 3
+        log(f"[msa] {name} forward B=1 R={R} C={C + 1}: {sec * 1e3:.1f} ms, "
+            f"{R * (C + 1) / sec:.0f} tokens/s, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB (torch.cuda.max_memory_allocated; "
+            f"{card})")
+    profile("one MSA-1b bf16 forward (R=400, C=257)", lambda: bf16(tokens), top=10, by_op=True)
+    counts = read_counts()
+    if any(counts.values()):
+        raise AssertionError(f"[msa] a kernel launched on the MSA path: {counts}")
+    del handle, bf16, whole
+    torch.cuda.empty_cache()
+
+
+# esm-predict-variants card vs CPU (fp32 on both, TF32 off), absolute bounds
+# on the scores: a marginal score is a difference of two log-probs, each
+# within ~2e-4 of fp64 on the CPU at this shape (the seeded 6-layer ESM-1v
+# puts log-probs near -70 to -230); a pseudo-ppl score sums ~248 of them
+VARIANT_TOL = 2e-3
+PPPL_TOL = 1e-2
+PPPL_CPU_ROWS = 1  # pseudo-ppl runs ~15 TFLOP a mutant, ~41 s on the CPU: the first row
+
+
+def seeded_lm_checkpoint(tmp, name, size, layers, seed):
+    """A full-width ESM-1b-family checkpoint cut to ``layers`` layers, seeded
+    random weights (the <mask> row zero, as the v1 loader makes it; a random
+    contact regression), written by save_esm1b. Returns its path."""
+    import torch
+    from esm_tpu_torch.data import Alphabet
+    from esm_tpu_torch.io.export import save_esm1b
+    from esm_tpu_torch.models import esm1
+
+    cfg = esm1.ESM1Config.from_alphabet(Alphabet.from_architecture("ESM-1b"),
+                                        **dict(esm1.ESM1_SIZES[size], num_layers=layers))
+    model = esm1.init(cfg, torch.Generator(device="cuda").manual_seed(seed), device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    with torch.no_grad():
+        model.embed_tokens.weight[cfg.mask_idx] = 0
+        model.contact_head.regression.weight.normal_(generator=gen).mul_(0.1)
+        model.contact_head.regression.bias.fill_(-1.0)
+    path = os.path.join(tmp, name)
+    save_esm1b(model, path)
+    return path
+
+
+def run_variants(argv, where):
+    """esm_tpu_torch.cli.predict_variants on the card or (--nogpu) the CPU, TF32
+    off. Returns (header, rows, printed lines, seconds)."""
+    import csv
+
+    import torch
+    from esm_tpu_torch.cli import predict_variants
+
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            predict_variants.run(predict_variants.create_parser().parse_args(
+                argv + (["--nogpu"] if where == "cpu" else [])))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    seconds = time.perf_counter() - t0
+    out = argv[argv.index("--dms-output") + 1]
+    with open(out, newline="") as f:
+        table = list(csv.reader(f))
+    return table[0], table[1:], buf.getvalue().splitlines(), seconds
+
+
+def phase_cli_variants():
+    """esm-predict-variants (esm_tpu_torch.cli.predict_variants) on the card
+    against --nogpu runs of the same command: a seeded 250-residue sequence,
+    a seeded DMS of 40 single mutants (two at each of 20 sites) with a
+    measurement column; an ESM-1v-shaped checkpoint (full width, 6 of its 33
+    layers) for wt-marginals, masked-marginals and pseudo-ppl; an MSA-1b-shaped
+    one (full width, 2 of its 12 layers, save_msa) with masked-marginals over a
+    seeded a3m of 64 rows with lower-case insertions and '.' characters, both
+    models in one run with --eval-column (the ensemble). No pandas."""
+    import csv
+
+    import torch
+    from esm_tpu_torch.data import Alphabet
+    from esm_tpu_torch.io.export import save_msa
+    from esm_tpu_torch.models import msa_transformer as msa
+
+    if "pandas" in sys.modules:
+        raise AssertionError("pandas is imported")
+    L, n_sites = 250, 20
+    rng = np.random.RandomState(40)
+    aas = list("ACDEFGHIKLMNPQRSTVWY")
+    seq = "".join(rng.choice(aas, L))
+    sites = sorted(rng.choice(np.arange(1, L + 1), n_sites, replace=False))
+    mutants = [f"{seq[site - 1]}{site}{mt}" for site in sites
+               for mt in rng.choice([a for a in aas if a != seq[site - 1]], 2, replace=False)]
+    with tempfile.TemporaryDirectory() as tmp:
+        dms = os.path.join(tmp, "dms.csv")
+        with open(dms, "w", newline="") as f:
+            w = csv.writer(f)
+            w.writerow(["mutant", "DMS_score"])
+            w.writerows([m, f"{rng.randn():.5f}"] for m in mutants)
+        dms_head = os.path.join(tmp, "dms_head.csv")
+        with open(dms, newline="") as f, open(dms_head, "w", newline="") as g:
+            g.writelines(f.readlines()[:1 + PPPL_CPU_ROWS])
+        esm1v = seeded_lm_checkpoint(tmp, "esm1v_t6_seeded.pt", "esm1v_t33_650M_UR90S_1", 6,
+                                     seed=41)
+        mcfg = msa.MSATransformerConfig.from_alphabet(
+            Alphabet.from_architecture("msa_transformer"),
+            **dict(msa.MSA_SIZES["esm_msa1b_t12_100M_UR50S"], num_layers=2))
+        msa_ckpt, _ = save_msa(msa.init(mcfg, torch.Generator(device="cuda").manual_seed(42),
+                                        device="cuda"), os.path.join(tmp, "esm_msa1b_t2_seeded.pt"))
+        a3m = os.path.join(tmp, "seeded.a3m")
+        with open(a3m, "w") as f:
+            for i, (label, row) in enumerate(seeded_msa(64, L, seed=43, first=seq)):
+                if i:  # insertions relative to the query: lower case and '.'
+                    cut = 20 + 3 * i
+                    row = row[:cut] + "gak" + row[cut:cut + 50] + ".." + row[cut + 50:]
+                f.write(f">{label}\n{row}\n")
+
+        def argv(models, strategy, out, dms_in, *extra):
+            return ["--model-location", *models, "--sequence", seq, "--dms-input", dms_in,
+                    "--dms-output", os.path.join(tmp, out), "--offset-idx", "1",
+                    "--scoring-strategy", strategy, *extra]
+
+        ensemble = ["--msa-path", a3m, "--eval-column", "DMS_score"]
+        runs = [  # (what, models, strategy, extra flags, the CPU run's DMS, bound)
+            ("masked-marginals, ESM-1v + MSA-1b ensemble", [esm1v, msa_ckpt], "masked-marginals",
+             ensemble, dms, VARIANT_TOL),
+            ("wt-marginals, ESM-1v", [esm1v], "wt-marginals", [], dms, VARIANT_TOL),
+            ("pseudo-ppl, ESM-1v", [esm1v], "pseudo-ppl", [], dms_head, PPPL_TOL),
+        ]
+        for i, (what, models, strategy, extra, cpu_dms, tol) in enumerate(runs):
+            header, rows, printed, sec = run_variants(
+                argv(models, strategy, f"card{i}.csv", dms, *extra), "cuda")
+            cheader, crows, cprinted, csec = run_variants(
+                argv(models, strategy, f"cpu{i}.csv", cpu_dms, *extra), "cpu")
+            scores = np.asarray([[float(x) for x in r[3:]] for r in rows])
+            cscores = np.asarray([[float(x) for x in r[3:]] for r in crows])
+            err = np.abs(scores[:len(crows)] - cscores).max()
+            for line in printed:
+                log(f"[cli-variants] card: {line}")
+            log(f"[cli-variants] {what}: {len(rows)} mutants on the card in {sec:.1f} s, "
+                f"{len(crows)} on the CPU in {csec:.1f} s; columns {header}; card vs CPU max abs "
+                f"err {err:.2e} <= {tol}")
+            if not (header == cheader == ["", "mutant", "DMS_score", *models]
+                    and len(rows) == len(mutants)
+                    and [r[:3] for r in rows[:len(crows)]] == [r[:3] for r in crows]
+                    and np.isfinite(scores).all() and err <= tol):
+                raise AssertionError(f"[cli-variants] {what}: card and CPU runs disagree "
+                                     f"(err {err}, header {header} / {cheader})")
+            if extra:  # |rho| of each model and of the ensemble, card against CPU
+                rho = [float(x) for x in re.findall(r"= ([0-9.]+)$", "\n".join(printed), re.M)]
+                crho = [float(x) for x in re.findall(r"= ([0-9.]+)$", "\n".join(cprinted), re.M)]
+                if not (len(rho) == len(crho) == 3 and np.allclose(rho, crho, atol=1e-3)):
+                    raise AssertionError(f"[cli-variants] {what}: |rho| {rho} vs CPU {crho}")
+
+
 def main():
     import torch
 
@@ -1461,9 +1954,12 @@ def main():
     k6 = measure_k6(phase_fold(card))
     trimul = phase_trimul()
     phase_cli_fold()
+    k1_esm1 = measure_k1_esm1(phase_esm1(card))
+    phase_msa(card)
+    phase_cli_variants()
     log(f"[summary] all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(smi)
-    kernels = [k1] + backward + [k6] + trimul
+    kernels = [k1] + k1_esm1 + backward + [k6] + trimul
     for entry in kernels:
         lib = entry["library_ms"]
         entry["vs_library"] = entry["ms"] / lib if lib else None

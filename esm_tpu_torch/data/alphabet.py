@@ -4,13 +4,14 @@ Port of esm_tpu/data/alphabet.py (reference semantics: esm/data.py:91-297,
 esm/constants.py:7-9). Token tables match the reference exactly: checkpoint
 embedding rows are indexed by these ids. ``BatchConverter`` returns an int64
 token tensor, as the reference does, and can pad the sequence axis up to a
-multiple (``pad_to_multiple``). The MSA batch converter is not ported yet.
+multiple (``pad_to_multiple``). ``MSABatchConverter`` turns MSAs into
+(B, R, C) token tensors for the MSA Transformer.
 """
 
 from __future__ import annotations
 
 import re
-from typing import List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -21,6 +22,8 @@ PROTEIN_TOKS: Tuple[str, ...] = (
     "L", "A", "G", "V", "S", "E", "R", "T", "I", "D", "P", "K", "Q", "N", "F",
     "Y", "M", "H", "W", "C", "X", "B", "U", "Z", "O", ".", "-",
 )
+
+RawMSA = Sequence[Tuple[str, str]]
 
 
 class Alphabet:
@@ -140,7 +143,7 @@ class Alphabet:
         self, truncation_seq_length: Optional[int] = None, pad_to_multiple: int = 1
     ) -> "BatchConverter":
         if self.use_msa:
-            raise NotImplementedError("the MSA batch converter is not ported yet")
+            return MSABatchConverter(self, truncation_seq_length, pad_to_multiple)
         return BatchConverter(self, truncation_seq_length, pad_to_multiple)
 
 
@@ -184,3 +187,31 @@ class BatchConverter:
             if self.alphabet.append_eos:
                 tokens[i, offset + len(seq_encoded)] = self.alphabet.eos_idx
         return list(batch_labels), list(seq_str_list), tokens
+
+
+class MSABatchConverter(BatchConverter):
+    """One MSA or a batch of MSAs -> (labels, strs, (B, R, C) int64 token
+    tensor), padded to the deepest and longest MSA; the rows of an MSA must
+    all have one length (reference esm/data.py:300-336)."""
+
+    def __call__(self, inputs: Union[Sequence[RawMSA], RawMSA]):
+        raw_batch = [inputs] if isinstance(inputs[0][0], str) else inputs
+        max_alignments = max(len(msa) for msa in raw_batch)
+        max_seqlen = max(len(msa[0][1]) for msa in raw_batch)
+        total = max_seqlen + int(self.alphabet.prepend_bos) + int(self.alphabet.append_eos)
+        if self.pad_to_multiple > 1:
+            total = _round_up(total, self.pad_to_multiple)
+        tokens = torch.full((len(raw_batch), max_alignments, total), self.alphabet.padding_idx,
+                            dtype=torch.int64)
+        labels, strs = [], []
+        for i, msa in enumerate(raw_batch):
+            if len({len(seq) for _, seq in msa}) != 1:
+                raise RuntimeError(
+                    "Received unaligned sequences for input to MSA, all sequence "
+                    "lengths must be equal."
+                )
+            msa_labels, msa_strs, msa_tokens = BatchConverter.__call__(self, msa)
+            labels.append(msa_labels)
+            strs.append(msa_strs)
+            tokens[i, : msa_tokens.shape[0], : msa_tokens.shape[1]] = msa_tokens
+        return labels, strs, tokens

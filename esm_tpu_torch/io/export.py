@@ -7,14 +7,22 @@ Namespace}, "model": state}`` with the released ``encoder.sentence_encoder.``
 co-located ``<name>-contact-regression.pt``. The file stem must start with
 ``esm2``: that is how the loaders route a file to the ESM-2 path.
 ``save_esmfold`` writes ESMFold's trunk and heads in the reference's
-esmfold format.
+esmfold format. ``save_esm1b``, ``save_esm1`` and ``save_msa`` write the
+fairseq-era v1 layout (esm_tpu/io/export.py:272, :364, :773; reference
+loader esm/pretrained.py:85-132): ``{"args": Namespace(arch=...), "model":
+state}`` with the fairseq prefixes on the size args (``encoder_`` for
+roberta_large and msa_transformer, ``decoder_`` for protein_bert_base) and
+on the keys (``{stem}.sentence_encoder.``, ``{stem}.`` for the heads), the
+MSA Transformer's row and column attention keys swapped as the released
+files have them, and the contact regression in ``-contact-regression.pt``.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
-from typing import Optional, Tuple
+import warnings
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -107,3 +115,80 @@ def save_esmfold(model, path, esm_type: Optional[str] = None) -> str:
              if not k.startswith("esm.")}
     torch.save({"cfg": {"model": _namespace(cfg_dict)}, "model": state}, path)
     return path
+
+
+def _v1_save(model, path, stem: str, args: Dict, rename=lambda k: k) -> Tuple[str, str]:
+    """Write ``path`` in the v1 layout and its ``-contact-regression.pt``."""
+    state = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    regression = {k: state.pop(k) for k in list(state) if k.startswith("contact_head.")}
+    heads = ("lm_head", "embed_out")
+    prefixed = {
+        (f"{stem}." if k.startswith(heads) else f"{stem}.sentence_encoder.") + rename(k): v
+        for k, v in state.items()
+    }
+    torch.save({"args": argparse.Namespace(**args), "model": prefixed}, path)
+    reg_path = os.path.splitext(path)[0] + "-contact-regression.pt"
+    torch.save({"model": regression}, reg_path)
+    return path, reg_path
+
+
+def _sizes(cfg, prefix: str) -> Dict:
+    return {f"{prefix}layers": cfg.num_layers, f"{prefix}embed_dim": cfg.embed_dim,
+            f"{prefix}ffn_embed_dim": cfg.ffn_embed_dim,
+            f"{prefix}attention_heads": cfg.attention_heads,
+            "max_positions": cfg.max_positions}
+
+
+def save_esm1b(model, path) -> Tuple[str, str]:
+    """Write the port's ESM-1b/1v ``ESM1`` as arch "roberta_large"; the file
+    stem must start with ``esm1``, as esm_tpu's saver requires. The v1
+    loader zeroes the ``<mask>`` embedding row (esm/pretrained.py:100), so a
+    model whose row is not zero does not round-trip that row: warned."""
+    path = os.fspath(path)
+    if not os.path.basename(path).startswith("esm1"):
+        raise ValueError(f"file name {os.path.basename(path)!r} must start with 'esm1'")
+    cfg = model.cfg
+    if not cfg.is_1b:
+        raise ValueError("save_esm1b is for model_version='ESM-1b'; ESM-1 saves with save_esm1")
+    if model.embed_tokens.weight[cfg.mask_idx].any():
+        warnings.warn("embed_tokens row for <mask> is nonzero; the v1 loader zeroes it at "
+                      "load time (reference esm/pretrained.py:100)")
+    args = dict(arch="roberta_large", **_sizes(cfg, "encoder_"), final_bias=True,
+                token_dropout=cfg.token_dropout)
+    return _v1_save(model, path, "encoder", args)
+
+
+def save_esm1(model, path) -> Tuple[str, str]:
+    """Write the port's ESM-1 ``ESM1`` as arch "protein_bert_base"."""
+    path = os.fspath(path)
+    if os.path.basename(path).startswith("esm2"):
+        raise ValueError(f"file name {os.path.basename(path)!r} must not start with 'esm2' "
+                         "(that routes a file to the ESM-2 loader)")
+    cfg = model.cfg
+    if cfg.is_1b:
+        raise ValueError("save_esm1 is for model_version='ESM-1'; ESM-1b saves with save_esm1b")
+    args = dict(arch="protein_bert_base", **_sizes(cfg, "decoder_"), final_bias=cfg.final_bias)
+    return _v1_save(model, path, "decoder", args)
+
+
+def _swap_row_column(key: str) -> str:
+    """The released msa_transformer files name the row and column attentions
+    the other way round; the v1 loader swaps them back (reference
+    esm/pretrained.py:121-125). The swap is its own inverse."""
+    if "row" in key:
+        return key.replace("row", "column")
+    return key.replace("column", "row")
+
+
+def save_msa(model, path) -> Tuple[str, str]:
+    """Write the port's ``MSATransformer`` as arch "msa_transformer"."""
+    path = os.fspath(path)
+    if os.path.basename(path).startswith("esm2"):
+        raise ValueError(f"file name {os.path.basename(path)!r} must not start with 'esm2' "
+                         "(that routes a file to the ESM-2 loader)")
+    cfg = model.cfg
+    args = dict(arch="msa_transformer", **_sizes(cfg, "encoder_"), dropout=0.1,
+                attention_dropout=0.1, activation_dropout=0.1,
+                max_tokens_per_msa=cfg.max_tokens_per_msa, max_tokens=cfg.max_tokens_per_msa,
+                embed_positions_msa=cfg.embed_positions_msa)
+    return _v1_save(model, path, "encoder", args, rename=_swap_row_column)

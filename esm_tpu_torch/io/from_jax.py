@@ -12,6 +12,12 @@ esm_tpu/io/export.py:128-169 and :572-676:
   * ``lm_head.weight`` tied to the token embedding;
   * the analytic rotary ``rot_emb.inv_freq`` buffers;
   * the contact regression (``contact_head.regression.*``).
+``esm1_state_dict_from_jax`` (ESM-1 and ESM-1b/1v) and
+``msa_state_dict_from_jax`` follow esm_tpu/io/export.py:224-261 and
+:323-425: ESM-1's (D,) bias_k/bias_v become (1, 1, D), its ``embed_out``
+kernel (D, V) is stored (V, D), its sinusoidal table leaves only the
+``embed_positions._float_tensor`` buffer; the MSA position embedding
+(1024, 1, D) becomes (1, 1024, 1, D).
 """
 
 from __future__ import annotations
@@ -54,27 +60,94 @@ def rotary_inv_freq(head_dim: int) -> torch.Tensor:
     return torch.from_numpy(np.float32(1.0) / np.float32(10000.0) ** exp)
 
 
-def esm2_state_dict_from_jax(params, cfg) -> Dict[str, torch.Tensor]:
-    emb = _t(params["embed_tokens"]["weight"])
-    sd: Dict[str, torch.Tensor] = {"embed_tokens.weight": emb}
-    layers = params["layers"]
+def _transformer_layers(sd: Dict, layers, *, inv_freq: Optional[torch.Tensor] = None,
+                        bias_kv: bool = False) -> None:
+    """The stacked pre-LN layers -> ``layers.{i}.*`` keys, with the rotary
+    buffer (ESM-2) or the (1, 1, D) bias_k/bias_v (ESM-1)."""
     n = int(np.asarray(layers["fc1"]["kernel"]).shape[0])
-    inv_freq = rotary_inv_freq(cfg.embed_dim // cfg.attention_heads)
     for i in range(n):
         p = f"layers.{i}"
+        attn = layers["self_attn"]
         for name in ("k_proj", "v_proj", "q_proj", "out_proj"):
-            _linear(sd, f"{p}.self_attn.{name}", layers["self_attn"][name], i)
-        sd[f"{p}.self_attn.rot_emb.inv_freq"] = inv_freq.clone()
+            _linear(sd, f"{p}.self_attn.{name}", attn[name], i)
+        if inv_freq is not None:
+            sd[f"{p}.self_attn.rot_emb.inv_freq"] = inv_freq.clone()
+        if bias_kv:
+            for name in ("bias_k", "bias_v"):
+                sd[f"{p}.self_attn.{name}"] = _t(np.asarray(attn[name])[i]).reshape(1, 1, -1)
         _ln(sd, f"{p}.self_attn_layer_norm", layers["self_attn_layer_norm"], i)
         _linear(sd, f"{p}.fc1", layers["fc1"], i)
         _linear(sd, f"{p}.fc2", layers["fc2"], i)
         _ln(sd, f"{p}.final_layer_norm", layers["final_layer_norm"], i)
-    _ln(sd, "emb_layer_norm_after", params["emb_layer_norm_after"])
-    head = params["lm_head"]
+
+
+def _lm_head(sd: Dict, head, emb: torch.Tensor) -> None:
     _linear(sd, "lm_head.dense", head["dense"])
     _ln(sd, "lm_head.layer_norm", head["layer_norm"])
     sd["lm_head.weight"] = emb  # tied projection (reference esm/modules.py:303-308)
     sd["lm_head.bias"] = _t(head["bias"])
+
+
+def esm2_state_dict_from_jax(params, cfg) -> Dict[str, torch.Tensor]:
+    emb = _t(params["embed_tokens"]["weight"])
+    sd: Dict[str, torch.Tensor] = {"embed_tokens.weight": emb}
+    _transformer_layers(sd, params["layers"],
+                        inv_freq=rotary_inv_freq(cfg.embed_dim // cfg.attention_heads))
+    _ln(sd, "emb_layer_norm_after", params["emb_layer_norm_after"])
+    _lm_head(sd, params["lm_head"], emb)
+    _linear(sd, "contact_head.regression", params["contact_head"]["regression"])
+    return sd
+
+
+def esm1_state_dict_from_jax(params, cfg) -> Dict[str, torch.Tensor]:
+    """An ESM-1/1b/1v parameter pytree of esm_tpu's layout (numpy) -> the
+    port's ``ESM1`` state dict (esm_tpu/io/export.py:343-425). ``cfg`` is
+    the ESM1Config (its ``model_version`` picks the layout)."""
+    emb = _t(params["embed_tokens"]["weight"])
+    sd: Dict[str, torch.Tensor] = {"embed_tokens.weight": emb}
+    is_1b = cfg.model_version == "ESM-1b"
+    _transformer_layers(sd, params["layers"], bias_kv=not is_1b)
+    _linear(sd, "contact_head.regression", params["contact_head"]["regression"])
+    if is_1b:
+        sd["embed_positions.weight"] = _t(params["embed_positions"]["weight"])
+        if "emb_layer_norm_before" in params:
+            _ln(sd, "emb_layer_norm_before", params["emb_layer_norm_before"])
+        _ln(sd, "emb_layer_norm_after", params["emb_layer_norm_after"])
+        _lm_head(sd, params["lm_head"], emb)
+    else:
+        sd["embed_positions._float_tensor"] = torch.zeros(1)
+        sd["embed_out"] = _t(np.asarray(params["embed_out"]["kernel"]).T)  # stored (V, D)
+        if "bias" in params["embed_out"]:
+            sd["embed_out_bias"] = _t(params["embed_out"]["bias"])
+    return sd
+
+
+def msa_state_dict_from_jax(params, cfg) -> Dict[str, torch.Tensor]:
+    """An MSA Transformer parameter pytree of esm_tpu's layout (numpy) -> the
+    port's ``MSATransformer`` state dict, canonical (unswapped) row/column
+    keys (esm_tpu/io/export.py:224-261)."""
+    emb = _t(params["embed_tokens"]["weight"])
+    sd: Dict[str, torch.Tensor] = {
+        "embed_tokens.weight": emb,
+        "embed_positions.weight": _t(params["embed_positions"]["weight"]),
+    }
+    if "msa_position_embedding" in params:
+        sd["msa_position_embedding"] = _t(params["msa_position_embedding"])[None]
+    layers = params["layers"]
+    n = int(np.asarray(layers["feed_forward_layer"]["layer"]["fc1"]["kernel"]).shape[0])
+    for i in range(n):
+        p = f"layers.{i}"
+        for attn in ("row_self_attention", "column_self_attention"):
+            for name in ("k_proj", "v_proj", "q_proj", "out_proj"):
+                _linear(sd, f"{p}.{attn}.layer.{name}", layers[attn]["layer"][name], i)
+            _ln(sd, f"{p}.{attn}.layer_norm", layers[attn]["layer_norm"], i)
+        ffn = layers["feed_forward_layer"]
+        _linear(sd, f"{p}.feed_forward_layer.layer.fc1", ffn["layer"]["fc1"], i)
+        _linear(sd, f"{p}.feed_forward_layer.layer.fc2", ffn["layer"]["fc2"], i)
+        _ln(sd, f"{p}.feed_forward_layer.layer_norm", ffn["layer_norm"], i)
+    _ln(sd, "emb_layer_norm_before", params["emb_layer_norm_before"])
+    _ln(sd, "emb_layer_norm_after", params["emb_layer_norm_after"])
+    _lm_head(sd, params["lm_head"], emb)
     _linear(sd, "contact_head.regression", params["contact_head"]["regression"])
     return sd
 

@@ -281,12 +281,15 @@ def apply(
 
 
 def _stack_with_streaming_contacts(
-    model: ESM2, cfg: ESM2Config, x, tokens, padding_mask, collect_hiddens: bool
+    model, cfg, x, tokens, padding_mask, collect_hiddens: bool,
+    strip_last_key: bool = False,
 ):
     """Layer loop with the contact regression folded in: each layer's
     (B, H, T, S) map is masked, bos/eos-stripped, symmetrized + APC'd and
     contracted with that layer's regression weights into a (B, T', T') sum
-    (esm_tpu/models/esm2.py:312-366)."""
+    (esm_tpu/models/esm2.py:312-366). ``strip_last_key`` first drops the
+    bias_kv key column (ESM-1, reference esm/model/esm1.py:181-183).
+    ``model`` is an ESM2 or ESM1 module, ``cfg`` its config."""
     static = cfg.layer_static()
     keep = 1.0 - padding_mask.float()
     pair_mask = keep[:, None, :] * keep[:, :, None]              # (B, T, T)
@@ -305,7 +308,10 @@ def _stack_with_streaming_contacts(
         x, probs = transformer_layer_apply(
             layer, x, static=static, key_padding_mask=padding_mask, need_head_weights=True
         )
-        a = probs.float() * pair_mask[:, None]
+        a = probs.float()
+        if strip_last_key:
+            a = a[..., :-1]
+        a = a * pair_mask[:, None]
         if cfg.append_eos:
             a = (a * eos_pair[:, None])[..., :-1, :-1]
         if cfg.prepend_bos:

@@ -85,10 +85,10 @@ class TransformerLayer(nn.Module):
     final_layer_norm)."""
 
     def __init__(self, embed_dim: int, ffn_dim: int, num_heads: int, *,
-                 use_rotary: bool = True, device=None):
+                 use_rotary: bool = True, use_bias_kv: bool = False, device=None):
         super().__init__()
         self.self_attn = SelfAttention(embed_dim, num_heads, use_rotary=use_rotary,
-                                       device=device)
+                                       use_bias_kv=use_bias_kv, device=device)
         self.self_attn_layer_norm = new_layer_norm(embed_dim, device=device)
         self.fc1 = new_linear(embed_dim, ffn_dim, device=device)
         self.fc2 = new_linear(ffn_dim, embed_dim, device=device)
@@ -97,11 +97,18 @@ class TransformerLayer(nn.Module):
     def init_(self, generator: torch.Generator) -> "TransformerLayer":
         """The reference's init (esm/multihead_attention.py:139-157: xavier
         with gain 1/sqrt(2) for q/k/v, xavier for out_proj; torch default for
-        the FFN)."""
+        the FFN); ESM-1's bias_k/bias_v are N(0, 2 / (D + 1)), as
+        esm_tpu/models/lm_common.py:187-199 draws them (the reference's
+        xavier-normal on a (1, 1, D) tensor)."""
         a = self.self_attn
         for proj in (a.q_proj, a.k_proj, a.v_proj):
             init_linear(proj, generator, gain=1 / math.sqrt(2))
         init_linear(a.out_proj, generator)
+        if hasattr(a, "bias_k"):
+            d = a.bias_k.shape[-1]
+            with torch.no_grad():
+                for p in (a.bias_k, a.bias_v):
+                    p.normal_(generator=generator).mul_(math.sqrt(2.0 / (d + 1)))
         init_linear_torch_default(self.fc1, generator)
         init_linear_torch_default(self.fc2, generator)
         init_layer_norm(self.self_attn_layer_norm)

@@ -8,6 +8,11 @@ batch-major (B, T, D), with two execution paths:
     folded in), used when attention maps are not needed; differentiable,
     with kernel K2 as its backward.
 
+ESM-1's bias_kv (esm_tpu/ops/attention.py:171-182; reference
+esm/multihead_attention.py:263-278) appends one learned key/value row to the
+source axis, so S = T + 1: the flash path hands K1 those keys with no
+rotary, the exact path returns (B, H, T, T + 1) probabilities.
+
 The JAX package's d-major flash branch (esm_tpu/ops/attention.py:141-165,
 ``DMAJOR_IO_DEFAULT``) laid q/k/v out as (B, H, d, T) for the TPU's 128-wide
 lanes; it has no counterpart here: the flash path hands K1 plain
@@ -48,12 +53,15 @@ class SelfAttention(nn.Module):
     MultiheadAttention (q_proj, k_proj, v_proj, out_proj, rot_emb)."""
 
     def __init__(self, embed_dim: int, num_heads: int, *, use_rotary: bool = True,
-                 device=None):
+                 use_bias_kv: bool = False, device=None):
         super().__init__()
         self.k_proj = new_linear(embed_dim, embed_dim, device=device)
         self.v_proj = new_linear(embed_dim, embed_dim, device=device)
         self.q_proj = new_linear(embed_dim, embed_dim, device=device)
         self.out_proj = new_linear(embed_dim, embed_dim, device=device)
+        if use_bias_kv:  # (1, 1, D), as the reference stores them
+            self.bias_k = nn.Parameter(torch.empty(1, 1, embed_dim, device=device))
+            self.bias_v = nn.Parameter(torch.empty(1, 1, embed_dim, device=device))
         if use_rotary:
             self.rot_emb = RotaryEmbedding(embed_dim // num_heads, device=device)
 
@@ -86,21 +94,32 @@ def multihead_attention(
     """Self-attention over (B, T, D) activations.
 
     attn_mask: optional additive (T, S) mask broadcast over batch and heads.
-    ``use_bias_kv`` (ESM-1) and ``ring`` (sequence parallelism) are not
-    ported yet and raise.
+    ``use_bias_kv`` (ESM-1) appends ``attn.bias_k``/``bias_v`` as one more
+    key/value row that is never masked. ``ring`` (sequence parallelism) is
+    not ported yet and raises.
     """
-    if use_bias_kv:
-        raise NotImplementedError("bias_kv attention (ESM-1) is not ported yet")
     if ring is not None:
-        raise NotImplementedError("ring attention is not ported yet")
+        raise NotImplementedError(
+            "ring attention is multi-GPU work, not ported yet (ROADMAP Queue 1, item 13)")
 
     b, t, d = x.shape
     head_dim = d // num_heads
     scaling = head_dim ** -0.5
 
-    q = _split_heads(linear(attn.q_proj, x) * scaling, num_heads)  # (B, H, T, Dh)
-    k = _split_heads(linear(attn.k_proj, x), num_heads)            # (B, H, S, Dh)
-    v = _split_heads(linear(attn.v_proj, x), num_heads)
+    q = linear(attn.q_proj, x) * scaling
+    k = linear(attn.k_proj, x)
+    v = linear(attn.v_proj, x)
+    if use_bias_kv:
+        k = torch.cat([k, attn.bias_k.to(k.dtype).expand(b, 1, d)], dim=1)
+        v = torch.cat([v, attn.bias_v.to(v.dtype).expand(b, 1, d)], dim=1)
+        if key_padding_mask is not None:
+            key_padding_mask = torch.cat(
+                [key_padding_mask, key_padding_mask.new_zeros(b, 1)], dim=1)
+        if attn_mask is not None:
+            attn_mask = torch.nn.functional.pad(attn_mask, (0, 1))
+    q = _split_heads(q, num_heads)  # (B, H, T, Dh)
+    k = _split_heads(k, num_heads)  # (B, H, S, Dh)
+    v = _split_heads(v, num_heads)
 
     if use_flash and not need_weights and attn_mask is None:
         from ..kernels.flash_attention import flash_attention

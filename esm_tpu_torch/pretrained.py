@@ -1,13 +1,20 @@
 """Checkpoint loading and model handles.
 
-Port of esm_tpu/pretrained.py for ESM-2 and ESMFold (reference semantics:
-esm/pretrained.py, esm/esmfold/v1/pretrained.py): ``load_model_and_alphabet_local``
-reads an ``esm2*.pt`` file and its co-located ``-contact-regression.pt``,
-strips the v2 key prefixes and loads the state dict into the port's ``ESM2``
-module; ``load_esmfold`` reads an esmfold ``.pt`` and its LM into an
-``ESMFoldHandle``. A registry name resolves only from the local cache
-(``ESM_TPU_CACHE``, default ``~/.cache/esm_tpu/checkpoints``): downloading,
-and the ESM-1, MSA and IF handles, are not ported yet.
+Port of esm_tpu/pretrained.py (reference semantics: esm/pretrained.py,
+esm/esmfold/v1/pretrained.py) for the language models and ESMFold.
+``load_model_and_alphabet_local`` reads a ``.pt`` and its co-located
+``-contact-regression.pt``: an ``esm2*`` file takes the v2 path (the key
+prefixes stripped), any other the fairseq-era v1 path (``upgrade_state_v1``:
+args and keys lose their module prefixes, ESM-1b's ``<mask>`` embedding row
+is zeroed, the MSA Transformer's row and column keys are swapped back). The
+state loads strictly into the port's ``ESM2``, ``ESM1`` (ESM-1, ESM-1b,
+ESM-1v) or ``MSATransformer`` behind an ``LMHandle``. ``load_esmfold`` reads
+an esmfold ``.pt`` and its LM into an ``ESMFoldHandle``. A registry name
+resolves only from the local cache (``ESM_TPU_CACHE``, default
+``~/.cache/esm_tpu/checkpoints``): downloading is not ported, and ESM-IF1
+checkpoints raise (ROADMAP Queue 1, item 9). ``random_model_and_alphabet``
+builds any registered language model at its released size with seeded
+random weights.
 
 Device: every entry point runs on CUDA unless the caller passes
 ``device="cpu"``; with no GPU and no CPU request it raises. Nothing falls
@@ -21,13 +28,18 @@ import os
 import re
 import warnings
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Any, Dict, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .data.alphabet import Alphabet
+from .io.export import _swap_row_column
+from .models import esm1 as esm1_mod
 from .models import esm2 as esm2_mod
+from .models import msa_transformer as msa_mod
+
+_IF1 = "ESM-IF1 (inverse folding) is not ported yet (ROADMAP Queue 1, item 9)"
 
 
 def resolve_device(device=None) -> torch.device:
@@ -54,6 +66,72 @@ def _has_regression_weights(model_name: str) -> bool:
     )
 
 
+# ---------------------------------------------------------------------------
+# Key upgrades (reference esm/pretrained.py:85-183)
+# ---------------------------------------------------------------------------
+
+
+def has_emb_layer_norm_before(model_state) -> bool:
+    """ESM-1b-style checkpoints carry the pre-embedding LN (reference
+    esm/pretrained.py:76-82)."""
+    return any(k.startswith("emb_layer_norm_before") for k in model_state)
+
+
+def _strip_through(key: str, marker: str, guard: str) -> str:
+    """Drop everything up to and including the first ``marker`` in ``key``
+    (and any later occurrence), when ``guard`` appears in the key; a key
+    with ``guard`` but no ``marker`` maps to "" (the mapping of the
+    reference's fairseq-era renames, esm/pretrained.py:91-108)."""
+    if guard not in key:
+        return key
+    _, hit, tail = key.partition(marker)
+    if not hit:
+        return ""
+    return tail.replace(marker, "")
+
+
+def _rename_v1_args(args: Dict[str, Any], stem: str) -> Dict[str, Any]:
+    """Argparse-namespace keys lose their ``{stem}_`` module prefix."""
+    return {_strip_through(k, stem + "_", stem): v for k, v in args.items()}
+
+
+def _rename_v1_state(state: Dict, stem: str) -> Dict:
+    """State-dict keys lose the ``{stem}.sentence_encoder.`` / ``{stem}.``
+    module paths (fairseq wrapped the model in an encoder/decoder shell)."""
+    out = {}
+    for k, v in state.items():
+        k = _strip_through(k, "sentence_encoder.", "sentence_encoder")
+        out[_strip_through(k, stem + ".", stem)] = v
+    return out
+
+
+def upgrade_state_v1(model_data) -> Tuple[Dict[str, Any], Dict, str]:
+    """The fairseq-era upgrades, per architecture (esm_tpu/pretrained.py:163-197).
+    Returns (args dict, canonical state, arch)."""
+    arch = model_data["args"].arch
+    state = model_data["model"]
+    args = vars(model_data["args"])
+    if arch == "roberta_large":  # ESM-1b / ESM-1v
+        args = _rename_v1_args(args, "encoder")
+        state = _rename_v1_state(state, "encoder")
+        alphabet = Alphabet.from_architecture("ESM-1b")
+        state["embed_tokens.weight"][alphabet.mask_idx].zero_()  # the token-dropout row
+        args["emb_layer_norm_before"] = has_emb_layer_norm_before(state)
+    elif arch == "protein_bert_base":  # ESM-1
+        args = _rename_v1_args(args, "decoder")
+        state = _rename_v1_state(state, "decoder")
+    elif arch == "msa_transformer":
+        args = _rename_v1_args(args, "encoder")
+        state = _rename_v1_state({_swap_row_column(k): v for k, v in state.items()}, "encoder")
+        if args.get("embed_positions_msa", False):
+            args["embed_positions_msa_dim"] = state["msa_position_embedding"].size(-1)
+    elif "invariant_gvp" in arch:
+        raise NotImplementedError(_IF1)
+    else:
+        raise ValueError(f"Unknown architecture {arch}")
+    return args, state, arch
+
+
 def upgrade_state_v2(state: Dict) -> Dict:
     """Strip 'encoder.sentence_encoder.' / 'encoder.' prefixes
     (reference esm/pretrained.py:164-174)."""
@@ -61,15 +139,23 @@ def upgrade_state_v2(state: Dict) -> Dict:
     return {pattern.sub("", k): v for k, v in state.items()}
 
 
+# ---------------------------------------------------------------------------
+# Language-model handles
+# ---------------------------------------------------------------------------
+
+_APPLY = {"esm2": esm2_mod.apply, "esm1": esm1_mod.apply, "msa": msa_mod.apply}
+
+
 class LMHandle:
     """Callable handle exposing the reference forward contract
-    ({"logits","representations","attentions","contacts"}). Holds the
-    ``ESM2`` module, the config whose execution options apply, the alphabet
-    and the device."""
+    ({"logits", "representations", "attentions", "contacts"}; the MSA
+    Transformer's row and column attentions). Holds the module (``ESM2``,
+    ``ESM1`` or ``MSATransformer``: ``kind`` "esm2", "esm1" or "msa"), the
+    config whose execution options apply, the alphabet and the device."""
 
     def __init__(self, kind: str, cfg, model: torch.nn.Module, alphabet: Alphabet):
-        if kind != "esm2":
-            raise NotImplementedError(f"{kind} handles are not ported yet")
+        if kind not in _APPLY:
+            raise ValueError(f"unknown language-model kind {kind!r}: one of {sorted(_APPLY)}")
         self.kind = kind
         self.cfg = cfg
         self.model = model
@@ -93,7 +179,9 @@ class LMHandle:
 
     def with_options(self, **kw) -> "LMHandle":
         """A handle on the same weights with execution options changed, e.g.
-        ``model.with_options(compute_dtype=torch.bfloat16, use_flash=True)``."""
+        ``model.with_options(compute_dtype=torch.bfloat16, use_flash=True)``
+        (the MSA Transformer has no flash path: compute_dtype and
+        max_tokens_per_msa)."""
         return LMHandle(self.kind, dataclasses.replace(self.cfg, **kw), self.model,
                         self.alphabet)
 
@@ -107,20 +195,21 @@ class LMHandle:
     ):
         from .utils.validation import check_repr_layers, check_tokens
 
-        tokens = check_tokens(tokens, self.alphabet)
+        tokens = check_tokens(tokens, self.alphabet, msa=self.kind == "msa")
         check_repr_layers(repr_layers, self.num_layers)
         tokens = torch.as_tensor(
             np.asarray(tokens) if not isinstance(tokens, torch.Tensor) else tokens
         ).to(device=self.device, dtype=torch.int64)
+        apply = _APPLY[self.kind]
         if repr_layers and not (return_contacts and not need_head_weights):
             # only the requested layers are kept in the loop
-            return esm2_mod.apply(
+            return apply(
                 self.model, self.cfg, tokens,
                 need_head_weights=need_head_weights,
                 return_contacts=return_contacts,
                 repr_layers=tuple(repr_layers),
             )
-        out = esm2_mod.apply(
+        out = apply(
             self.model, self.cfg, tokens,
             need_head_weights=need_head_weights,
             return_contacts=return_contacts,
@@ -140,34 +229,77 @@ def _esm2_alphabet() -> Alphabet:
     return Alphabet.from_architecture("ESM-1b")
 
 
-def load_model_and_alphabet_core(model_name, model_data, regression_data=None, device=None):
-    """Build an ESM-2 handle from loaded checkpoint data
-    (esm_tpu/pretrained.py:489-500)."""
-    from .io.convert import load_esm2_state
+def _build_lm_from_state(model_name, args, state, arch, regression_data, device) -> LMHandle:
+    """Config and module from the (upgraded) args, then a strict load
+    (esm_tpu/pretrained.py:411-486)."""
+    from .io.convert import load_lm_state
 
-    device = resolve_device(device)
-    if not model_name.startswith("esm2"):
-        raise NotImplementedError(f"{model_name}: only ESM-2 checkpoints are ported yet")
-    ck = model_data["cfg"]["model"]
-    state = upgrade_state_v2(model_data["model"])
     if regression_data is not None:
+        state = dict(state)
         state.update(regression_data["model"])
     elif _has_regression_weights(model_name):
         warnings.warn(
             "Regression weights not found, predicting contacts will not produce "
             "correct results."
         )
-    alphabet = _esm2_alphabet()
-    cfg = esm2_mod.ESM2Config.from_alphabet(
-        alphabet,
-        num_layers=ck.encoder_layers,
-        embed_dim=ck.encoder_embed_dim,
-        attention_heads=ck.encoder_attention_heads,
-        token_dropout=ck.token_dropout,
-    )
-    model = esm2_mod.ESM2(cfg, device=device)
-    load_esm2_state(model, state)
-    return LMHandle("esm2", cfg, model, alphabet), alphabet
+    if arch == "esm2":
+        alphabet = _esm2_alphabet()
+        cfg = esm2_mod.ESM2Config.from_alphabet(
+            alphabet,
+            num_layers=args["encoder_layers"],
+            embed_dim=args["encoder_embed_dim"],
+            attention_heads=args["encoder_attention_heads"],
+            token_dropout=args["token_dropout"],
+        )
+        kind, model = "esm2", esm2_mod.ESM2(cfg, device=device)
+    elif arch in ("roberta_large", "protein_bert_base"):
+        is_1b = arch == "roberta_large"
+        alphabet = Alphabet.from_architecture("ESM-1b" if is_1b else "ESM-1")
+        sizes = dict(num_layers=args["layers"], embed_dim=args["embed_dim"],
+                     ffn_embed_dim=args["ffn_embed_dim"],
+                     attention_heads=args["attention_heads"],
+                     token_dropout=args.get("token_dropout", False))
+        if is_1b:
+            sizes.update(max_positions=args["max_positions"],
+                         emb_layer_norm_before=args.get("emb_layer_norm_before", False))
+        else:
+            sizes.update(final_bias=args.get("final_bias", True))
+        cfg = esm1_mod.ESM1Config.from_alphabet(
+            alphabet, model_version="ESM-1b" if is_1b else "ESM-1", **sizes)
+        kind, model = "esm1", esm1_mod.ESM1(cfg, device=device)
+    elif arch == "msa_transformer":
+        alphabet = Alphabet.from_architecture("msa_transformer")
+        cfg = msa_mod.MSATransformerConfig.from_alphabet(
+            alphabet,
+            num_layers=args["layers"],
+            embed_dim=args["embed_dim"],
+            ffn_embed_dim=args["ffn_embed_dim"],
+            attention_heads=args["attention_heads"],
+            max_positions=args["max_positions"],
+            embed_positions_msa=args.get("embed_positions_msa", False),
+        )
+        kind, model = "msa", msa_mod.MSATransformer(cfg, device=device)
+    else:
+        raise ValueError(f"Unknown architecture {arch}")
+    load_lm_state(model, state)
+    return LMHandle(kind, cfg, model, alphabet)
+
+
+def load_model_and_alphabet_core(model_name, model_data, regression_data=None, device=None):
+    """A language-model handle from loaded checkpoint data
+    (esm_tpu/pretrained.py:489-529). Returns (handle, alphabet)."""
+    device = resolve_device(device)
+    if model_name.startswith("esm2"):
+        ck = model_data["cfg"]["model"]
+        args = {"encoder_layers": ck.encoder_layers,
+                "encoder_embed_dim": ck.encoder_embed_dim,
+                "encoder_attention_heads": ck.encoder_attention_heads,
+                "token_dropout": ck.token_dropout}
+        state, arch = upgrade_state_v2(model_data["model"]), "esm2"
+    else:
+        args, state, arch = upgrade_state_v1(model_data)
+    handle = _build_lm_from_state(model_name, args, state, arch, regression_data, device)
+    return handle, handle.alphabet
 
 
 def load_model_and_alphabet_local(model_location, device=None):
@@ -205,31 +337,52 @@ def load_model_and_alphabet(model_name: str, device=None):
     return load_model_and_alphabet_hub(model_name, device=device)
 
 
+# The constructor without a suffix loads the first of the five ESM-1v models
+# (esm_tpu/pretrained.py:607-608).
+_ALIASES = {"esm1v_t33_650M_UR90S": "esm1v_t33_650M_UR90S_1"}
+
+
 def random_model_and_alphabet(model_name: str, *, seed: int = 0, device=None, **options):
-    """An ESM-2 handle at a released size (``ESM2_SIZES``) with seeded random
-    weights, built on the device from a ``torch.Generator`` there.
-    ``options`` are execution options (compute_dtype, use_flash)."""
+    """A language-model handle at a released size (``ESM2_SIZES``,
+    ``ESM1_SIZES``, ``MSA_SIZES``) with seeded random weights, built on the
+    device from a ``torch.Generator`` there. ``options`` are execution
+    options (compute_dtype, use_flash)."""
     device = resolve_device(device)
-    alphabet = _esm2_alphabet()
-    cfg = esm2_mod.ESM2Config.from_alphabet(
-        alphabet, **esm2_mod.ESM2_SIZES[model_name], **options
-    )
+    model_name = _ALIASES.get(model_name, model_name)
     gen = torch.Generator(device=device).manual_seed(seed)
-    model = esm2_mod.init(cfg, gen, device=device)
-    return LMHandle("esm2", cfg, model, alphabet), alphabet
+    if model_name in esm2_mod.ESM2_SIZES:
+        alphabet = _esm2_alphabet()
+        cfg = esm2_mod.ESM2Config.from_alphabet(
+            alphabet, **esm2_mod.ESM2_SIZES[model_name], **options)
+        return LMHandle("esm2", cfg, esm2_mod.init(cfg, gen, device=device), alphabet), alphabet
+    if model_name in esm1_mod.ESM1_SIZES:
+        size = esm1_mod.ESM1_SIZES[model_name]
+        alphabet = Alphabet.from_architecture(size["model_version"])
+        cfg = esm1_mod.ESM1Config.from_alphabet(alphabet, **size, **options)
+        return LMHandle("esm1", cfg, esm1_mod.init(cfg, gen, device=device), alphabet), alphabet
+    if model_name in msa_mod.MSA_SIZES:
+        alphabet = Alphabet.from_architecture("msa_transformer")
+        cfg = msa_mod.MSATransformerConfig.from_alphabet(
+            alphabet, **msa_mod.MSA_SIZES[model_name], **options)
+        return LMHandle("msa", cfg, msa_mod.init(cfg, gen, device=device), alphabet), alphabet
+    if model_name.startswith("esm_if"):
+        raise NotImplementedError(_IF1)
+    raise ValueError(f"unknown model {model_name!r}")
 
 
-def _make_constructor(name):
+def _make_constructor(name, file_name=None):
     def ctor(device=None):
-        return load_model_and_alphabet_hub(name, device=device)
+        return load_model_and_alphabet_hub(file_name or name, device=device)
 
     ctor.__name__ = name
-    ctor.__doc__ = f"Load {name} from the local cache. Returns (model, alphabet)."
+    ctor.__doc__ = f"Load {file_name or name} from the local cache. Returns (model, alphabet)."
     return ctor
 
 
-for _name in esm2_mod.ESM2_SIZES:
+for _name in (*esm1_mod.ESM1_SIZES, *msa_mod.MSA_SIZES, *esm2_mod.ESM2_SIZES):
     globals()[_name] = _make_constructor(_name)
+for _name, _file in _ALIASES.items():
+    globals()[_name] = _make_constructor(_name, _file)
 
 
 # ---------------------------------------------------------------------------

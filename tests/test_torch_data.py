@@ -48,8 +48,13 @@ def test_unknown_residue_raises_like_jax():
 
 
 def test_msa_converter_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        talpha.Alphabet.from_architecture("MSA Transformer").get_batch_converter()
+    """The MSA batch converter is ported now: the MSA alphabet returns
+    MSABatchConverter, whose (B, R, C) tokens equal JAX's."""
+    conv = talpha.Alphabet.from_architecture("MSA Transformer").get_batch_converter()
+    assert isinstance(conv, talpha.MSABatchConverter)
+    msa = [("a", "MKT-A"), ("b", "MRTQA")]
+    ref = jalpha.Alphabet.from_architecture("MSA Transformer").get_batch_converter()(msa)[2]
+    np.testing.assert_array_equal(conv(msa)[2].numpy(), np.asarray(ref))
 
 
 @pytest.fixture

@@ -1,6 +1,7 @@
 """Import hygiene and device rules of the port (esm_tpu_torch):
-  * importing it, and every module in it, pulls in neither ``jax`` nor
-    ``esm_tpu`` (checked in a fresh interpreter);
+  * importing it, and every module in it (the ESM-1 and MSA Transformer
+    modules and the variant-scoring CLI among them), pulls in neither
+    ``jax`` nor ``esm_tpu`` (checked in a fresh interpreter);
   * no source file of the port, nor chip_smoke.py, imports ``esm_tpu.``;
   * entry points given no device run on CUDA, so without a GPU they raise.
 """
@@ -61,11 +62,12 @@ def no_cuda():
 @pytest.mark.parametrize(
     "entry",
     ["resolve_device", "random_model_and_alphabet", "load_model_and_alphabet_local",
-     "extract", "pretrain", "random_esmfold", "load_esmfold", "fold"],
+     "extract", "pretrain", "random_esmfold", "load_esmfold", "fold",
+     "random_esm1", "random_msa", "predict_variants"],
 )
 def test_entry_points_without_device_raise_when_cuda_absent(no_cuda, entry, tmp_path):
     from esm_tpu_torch import pretrained
-    from esm_tpu_torch.cli import extract, fold, pretrain
+    from esm_tpu_torch.cli import extract, fold, predict_variants, pretrain
 
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         if entry == "resolve_device":
@@ -74,6 +76,16 @@ def test_entry_points_without_device_raise_when_cuda_absent(no_cuda, entry, tmp_
             pretrained.random_model_and_alphabet("esm2_t6_8M_UR50D")
         elif entry == "load_model_and_alphabet_local":
             pretrained.load_model_and_alphabet_local(tmp_path / "esm2_missing.pt")
+        elif entry == "random_esm1":
+            pretrained.random_model_and_alphabet("esm1b_t33_650M_UR50S")
+        elif entry == "random_msa":
+            pretrained.random_model_and_alphabet("esm_msa1b_t12_100M_UR50S")
+        elif entry == "predict_variants":
+            (tmp_path / "dms.csv").write_text("mutant\nA1C\n")
+            predict_variants.run(predict_variants.create_parser().parse_args(
+                ["--model-location", str(tmp_path / "esm1v_missing.pt"), "--sequence", "A",
+                 "--dms-input", str(tmp_path / "dms.csv"), "--dms-output",
+                 str(tmp_path / "out.csv")]))
         elif entry == "random_esmfold":
             pretrained.random_esmfold("esmfold_v1")
         elif entry == "load_esmfold":

@@ -75,6 +75,42 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, atol, d, t, s):
             assert err <= atol, (rotary, m is not None, err)
 
 
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 2e-5), (torch.bfloat16, 2e-2)])
+def test_flash_attention_kernel_at_the_esm1_shape(cuda, dtype, atol):
+    """ESM-1's call: T = 1023 queries, S = T + 1 keys (the bias_kv row last,
+    never masked), d = 64, no rotary; then, in fp32, the same through bias_kv
+    self-attention: the flash path (K1) against the exact one."""
+    from esm_tpu_torch.ops import attention as att
+
+    t, s = 1023, 1024
+    q, k, v, mask = _inputs(2, 20, t, s, 64, dtype, cuda, all_padding_row=False)
+    mask[:, -1] = False
+    for m in (None, mask):
+        before = fa.flash_attention.launches
+        out = fa.flash_attention(q, k, v, key_padding_mask=m)
+        ref = fa.flash_attention_reference(q, k, v, key_padding_mask=m)
+        torch.cuda.synchronize()
+        assert fa.flash_attention.launches == before + 1
+        assert (out.float() - ref.float()).abs().max().item() <= atol
+
+    if dtype != torch.float32:
+        return
+    gen = torch.Generator(cuda).manual_seed(3)
+    attn = att.SelfAttention(1280, 20, use_rotary=False, use_bias_kv=True, device=cuda)
+    with torch.no_grad():
+        for p in attn.parameters():
+            p.copy_(torch.randn(p.shape, device=cuda, generator=gen) * p.shape[-1] ** -0.5)
+        x = torch.randn(2, t, 1280, device=cuda, generator=gen)
+        pad = torch.zeros(2, t, dtype=torch.bool, device=cuda)
+        pad[1, 900:] = True
+        kw = dict(num_heads=20, key_padding_mask=pad, use_bias_kv=True)
+        before = fa.flash_attention.launches
+        flash = att.multihead_attention(attn, x, use_flash=True, **kw).out
+        assert fa.flash_attention.launches == before + 1
+        exact = att.multihead_attention(attn, x, **kw).out
+    assert _rel_err(flash, exact) <= 1e-4
+
+
 def test_flash_attention_kernel_rejects_strided_input(cuda):
     q, k, v, _ = _inputs(1, 2, 16, 16, 16, torch.bfloat16, cuda)
     with pytest.raises(ValueError, match="contiguous"):

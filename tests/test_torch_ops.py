@@ -185,9 +185,18 @@ def test_multihead_attention(use_flash, need_weights):
 
 
 def test_bias_kv_and_ring_are_not_ported():
-    attn = tatt.SelfAttention(16, 2)
-    x = torch.zeros(1, 3, 16)
-    with pytest.raises(NotImplementedError):
-        tatt.multihead_attention(attn, x, num_heads=2, use_bias_kv=True)
-    with pytest.raises(NotImplementedError):
+    """bias_kv attention (ESM-1) is ported now: the appended key shows as
+    one more probability column; ring attention still raises, naming its
+    ROADMAP item."""
+    attn = tatt.SelfAttention(16, 2, use_bias_kv=True)
+    torch.nn.init.normal_(attn.bias_k)
+    torch.nn.init.normal_(attn.bias_v)
+    for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+        tc.init_linear(getattr(attn, name), torch.Generator().manual_seed(0))
+    x = torch.randn(1, 3, 16, generator=torch.Generator().manual_seed(1))
+    out, probs = tatt.multihead_attention(attn, x, num_heads=2, use_bias_kv=True,
+                                          need_weights=True)
+    assert out.shape == (1, 3, 16) and probs.shape == (1, 2, 3, 4)
+    torch.testing.assert_close(probs.sum(-1), torch.ones(1, 2, 3))
+    with pytest.raises(NotImplementedError, match="item 13"):
         tatt.multihead_attention(attn, x, num_heads=2, ring=("mesh", "tp"))
