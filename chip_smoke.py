@@ -100,7 +100,25 @@ Phases, each raising on failure (nothing is caught):
                 pseudo-ppl, an MSA-1b-shaped one (768 wide, 2 layers) with
                 masked-marginals over a seeded 64-row a3m with insertions,
                 the two as an ensemble with --eval-column;
- 13. summary  — the nvidia-smi line, a JSON line of the ported kernels (K1
+ 13. if1      — ESM-IF1 at its released size (esm_if1_gvp4_t16_142M_UR50,
+                seeded random weights, built with no device argument), fp32
+                with TF32 off, on a seeded 500-residue backbone built from
+                ideal geometry with a 5-residue gap: the encoder output, the
+                teacher-forced logits and score_sequence against a CPU copy
+                of the weights, a forward repeated bit for bit, every decode
+                step against the teacher forcing of the decoded tokens,
+                partial_seq, pad_to_multiple=64 against the unpadded call,
+                20,000 draws against softmax(logits / T), the encoder's and
+                a score's times, sample with 1 and 8 samples in residues/s,
+                a profile of a sample (launches a decode step, busy share,
+                top operators), a 220 + 160 residue complex; no kernel
+                launches (the JAX package has none for IF1);
+ 14. cli-if   — esm_tpu_torch.cli.if_score and if_sample on the card with a
+                save_if1 checkpoint of that model, a 250-residue backbone as
+                PDB and mmCIF and a two-chain PDB, against --nogpu runs of
+                the same commands (scores within 1e-4; one seed sampled twice
+                on the card gives one FASTA);
+ 15. summary  — the nvidia-smi line, a JSON line of the ported kernels (K1
                 also at the ESM-1b and ESM-1 shapes), and as the last line
                 {"ok": true, "device": {...}}.
 
@@ -685,7 +703,8 @@ def profile(label, fn, top=8, by_op=False):
     """Device time by kernel over one call of ``fn`` (torch.profiler), and the
     share of its wall time during which some kernel ran (the union of the
     device events' intervals); with ``by_op`` also the device time of the
-    PyTorch operators that launched the kernels."""
+    PyTorch operators that launched the kernels. Returns (wall ms, busy ms,
+    device events)."""
     import collections
 
     import torch
@@ -722,6 +741,7 @@ def profile(label, fn, top=8, by_op=False):
         for ms, count, key in sorted(ops, reverse=True)[:top]:
             log(f"[profile]   by operator: {ms:9.3f} ms {100 * ms / max(total, 1e-9):5.1f}%  "
                 f"x{count:<5d} {key[:60]}")
+    return wall_ms, busy_us / 1e3, len(events)
 
 
 def attention_bound_ms(flops, nbytes, peak=H100_BF16_FLOPS):
@@ -1933,6 +1953,400 @@ def phase_cli_variants():
                     raise AssertionError(f"[cli-variants] {what}: |rho| {rho} vs CPU {crho}")
 
 
+# ESM-IF1 card vs CPU (fp32 on both, TF32 off): the encoder output, the
+# logits and the decode's step logits as a share of the largest value (GEMMs
+# and reductions in other orders through 4 GVP and 16 transformer layers);
+# the average log-likelihoods absolutely (sums of ~500 log-probs, divided by
+# the count); the sampling distribution by total variation (20,000 draws:
+# sampling noise alone is ~0.01 there)
+IF1_TOL = 1e-4
+IF1_SCORE_TOL = 1e-4
+IF1_TV = 0.03
+IF1_PARAMS = 141_662_150  # esm_if1_gvp4_t16_142M_UR50, counted from esm_tpu's init shapes
+IF1_CPU_ROWS = 3  # the CPU reference of [cli-if] scores the first 3 of 10 variants
+
+
+def ideal_backbone(length, seed, gap=None, offset=(0.0, 0.0, 0.0)):
+    """(length, 3, 3) N/CA/C built atom by atom (NeRF) from ideal bond lengths
+    (N-CA 1.458, CA-C 1.525, C-N 1.329 A) and angles (N-CA-C 111.2, CA-C-N
+    116.2, C-N-CA 121.7 degrees) and seeded torsions: phi/psi in runs of 4-14
+    residues around the helix (-57, -47) or strand (-119, 113) basins with
+    8-degree spread, omega around 180 with 4. (An exactly planar omega would
+    put the dihedral features' sign(0) at the mercy of rounding: they jump
+    from cos 1 to cos -1 there, in the reference too.) NaN rows at ``gap``
+    (a slice), as a structure's missing residues read back."""
+    rng = np.random.RandomState(seed)
+    phi, psi = np.empty(length), np.empty(length)
+    i = 0
+    while i < length:
+        n = min(rng.randint(4, 15), length - i)
+        centre = (-57.0, -47.0) if rng.rand() < 0.5 else (-119.0, 113.0)
+        phi[i:i + n] = centre[0] + 8.0 * rng.randn(n)
+        psi[i:i + n] = centre[1] + 8.0 * rng.randn(n)
+        i += n
+    phi, psi = np.radians(phi), np.radians(psi)
+    omega = np.radians(180.0 + 4.0 * rng.randn(length))
+
+    def place(a, b, c, bond, angle, torsion):
+        bc = (c - b) / np.linalg.norm(c - b)
+        n = np.cross(b - a, bc)
+        n /= np.linalg.norm(n)
+        d = (-bond * np.cos(angle), bond * np.sin(angle) * np.cos(torsion),
+             bond * np.sin(angle) * np.sin(torsion))
+        return c + d[0] * bc + d[1] * np.cross(n, bc) + d[2] * n
+
+    ang = {k: np.radians(v) for k, v in (("ncac", 111.2), ("cacn", 116.2), ("cnca", 121.7))}
+    out = np.zeros((length, 3, 3))
+    out[0, 1] = (1.458, 0.0, 0.0)
+    out[0, 2] = out[0, 1] + 1.525 * np.array([-np.cos(ang["ncac"]), np.sin(ang["ncac"]), 0.0])
+    for i in range(1, length):
+        n0, ca0, c0 = out[i - 1]
+        out[i, 0] = place(n0, ca0, c0, 1.329, ang["cacn"], psi[i - 1])
+        out[i, 1] = place(ca0, c0, out[i, 0], 1.458, ang["cnca"], omega[i])
+        out[i, 2] = place(c0, out[i, 0], out[i, 1], 1.525, ang["ncac"], phi[i])
+    out = (out + np.asarray(offset)).astype(np.float32)
+    if gap is not None:
+        out[gap] = np.nan
+    return out
+
+
+def write_backbone(path, chains, fmt):
+    """Writes {chain id: (coords, sequence)} as PDB or mmCIF ATOM records of
+    N/CA/C; NaN atoms are left out (a residue with none is missing)."""
+    three = {v: k for k, v in {"ALA": "A", "CYS": "C", "ASP": "D", "GLU": "E", "PHE": "F",
+                                "GLY": "G", "HIS": "H", "ILE": "I", "LYS": "K", "LEU": "L",
+                                "MET": "M", "ASN": "N", "PRO": "P", "GLN": "Q", "ARG": "R",
+                                "SER": "S", "THR": "T", "VAL": "V", "TRP": "W",
+                                "TYR": "Y"}.items()}
+    rows = [(chain, i + 1, three[aa], name, coords[i, a])
+            for chain, (coords, seq) in chains.items() for i, aa in enumerate(seq)
+            for a, name in enumerate(("N", "CA", "C")) if np.isfinite(coords[i, a]).all()]
+    if fmt == "pdb":
+        lines = [f"ATOM  {k + 1:5d} {name:<4s} {res:>3s} {chain}{num:4d}    "
+                 f"{x:8.3f}{y:8.3f}{z:8.3f}  1.00  0.00           {name[0]}"
+                 for k, (chain, num, res, name, (x, y, z)) in enumerate(rows)] + ["END"]
+    else:
+        tags = ["group_PDB", "id", "type_symbol", "label_atom_id", "label_comp_id",
+                "label_asym_id", "label_seq_id", "Cartn_x", "Cartn_y", "Cartn_z", "auth_seq_id",
+                "auth_asym_id", "pdbx_PDB_model_num"]
+        lines = ["data_seeded", "loop_"] + [f"_atom_site.{t}" for t in tags]
+        lines += [f"ATOM {k + 1} {name[0]} {name} {res} {chain} {num} {x:.3f} {y:.3f} {z:.3f} "
+                  f"{num} {chain} 1" for k, (chain, num, res, name, (x, y, z)) in enumerate(rows)]
+        lines.append("#")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def host_seconds(fn, iters=3, warmup=True):
+    """Host clock around ``iters`` calls, synchronised, after a warm-up call."""
+    import torch
+
+    if warmup:
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters
+
+
+def phase_if1(card):
+    """ESM-IF1 at its released size (esm_if1_gvp4_t16_142M_UR50, seeded random
+    weights), fp32 with TF32 off, built with no device argument, on a seeded
+    L=500 backbone with a 5-residue gap: the encoder output, the
+    teacher-forced logits and score_sequence against the port's CPU forward
+    of the same weights; a forward repeated bit for bit; every decode step's
+    logits against the teacher forcing of the decoded tokens; partial_seq;
+    pad_to_multiple=64 against the unpadded call; one position's sampling
+    distribution (20,000 draws); the times of the encoder, a score and
+    sample with 1 and 8 samples; a profile of one sample (of the first 64
+    residues); a 220 + 160 residue complex sampled and scored. No kernel of
+    the port is on this path (the JAX package has no Pallas kernel for it).
+    Returns the handle's model."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from esm_tpu_torch import pretrained
+    from esm_tpu_torch.models.inverse_folding import model as ifm
+    from esm_tpu_torch.models.inverse_folding import multichain
+
+    L, gap = 500, slice(240, 245)
+    t0 = time.perf_counter()
+    handle, alphabet = pretrained.random_model_and_alphabet("esm_if1_gvp4_t16_142M_UR50", seed=50)
+    model = handle.model
+    n_params = sum(p.numel() for p in model.parameters())
+    n_gvp = sum(p.numel() for p in model.encoder.gvp_encoder.parameters())
+    if handle.device.type != "cuda" or n_params != IF1_PARAMS:
+        raise AssertionError(f"[if1] built on {handle.device} with {n_params} parameters")
+    cpu = pretrained.IFHandle(handle.cfg, ifm.GVPTransformerModel(handle.cfg, device="cpu"),
+                              alphabet)
+    cpu.model.load_state_dict(model.state_dict())
+    coords = ideal_backbone(L, 51, gap=gap)
+    native = random_protein(L, seed=52)
+    prev = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    zero_counts()
+    try:
+        log(f"[if1] esm_if1_gvp4_t16_142M_UR50: {n_params:,} parameters ({n_gvp:,} in the GVP "
+            f"encoder), on {handle.device}, fp32, TF32 off; backbone L={L}, residues "
+            f"{gap.start}-{gap.stop - 1} missing (built and copied to the CPU in "
+            f"{time.perf_counter() - t0:.1f} s)")
+        enc = handle.get_encoder_output(coords)
+        again = handle.get_encoder_output(coords)
+        err = rel_err(enc.cpu(), cpu.get_encoder_output(coords))
+        log(f"[if1] encoder output {tuple(enc.shape)}: card vs CPU max err {err:.2e} of the "
+            f"largest value (<= {IF1_TOL}); repeated on the card bit for bit: {torch.equal(enc, again)} "
+            f"(t={time.perf_counter() - t0:.1f} s)")
+        if not (err <= IF1_TOL and torch.isfinite(enc).all() and torch.equal(enc, again)):
+            raise AssertionError(f"[if1] encoder output: err {err}")
+
+        bc, conf, _, toks, pmask = ifm.CoordBatchConverter(alphabet)([(coords, None, native)])
+        logits = handle.forward(bc, pmask, conf, toks[:, :-1])
+        err = rel_err(logits.cpu(), cpu.forward(bc, pmask, conf, toks[:, :-1]))
+        log(f"[if1] teacher-forced logits {tuple(logits.shape)}: card vs CPU max err {err:.2e} of "
+            f"the largest (max |logit| {logits.abs().max().item():.2f}; <= {IF1_TOL})")
+        if not (err <= IF1_TOL and logits.shape == (1, len(alphabet), L)):
+            raise AssertionError(f"[if1] logits: err {err}")
+        score = handle.score_sequence(coords, native)
+        score_cpu = cpu.score_sequence(coords, native)
+        err = float(np.abs(np.subtract(score, score_cpu)).max())
+        log(f"[if1] score_sequence (ll, ll with coords): card {score[0]:.6f}, {score[1]:.6f}; "
+            f"CPU {score_cpu[0]:.6f}, {score_cpu[1]:.6f}; max abs diff {err:.2e} "
+            f"(<= {IF1_SCORE_TOL})")
+        if not err <= IF1_SCORE_TOL:
+            raise AssertionError(f"[if1] score card vs CPU: {err}")
+
+        # the decode against the teacher forcing of what it decoded, 2 rows
+        dev = handle.device
+        bc, conf, pmask = bc.to(dev), conf.to(dev), pmask.to(dev)
+        init = torch.full((2, L + 1), handle.cfg.mask_idx, dtype=torch.int64, device=dev)
+        init[:, 0] = handle.cfg.cath_idx
+        steps = []
+        decoded = ifm.sample_tokens(model, bc, pmask, conf, init,
+                                    torch.Generator(device=dev).manual_seed(54), 1.0,
+                                    step_logits=steps)
+        forced = handle.forward(bc.expand(2, -1, -1, -1), pmask.expand(2, -1),
+                                conf.expand(2, -1), decoded[:, :-1])
+        err = rel_err(torch.stack(steps, dim=-1), forced)
+        log(f"[if1] incremental decode, 2 rows x {L} steps: every step's logits vs the teacher "
+            f"forcing of the decoded tokens, max err {err:.2e} of the largest (<= {IF1_TOL}) "
+            f"(t={time.perf_counter() - t0:.1f} s)")
+        if not err <= IF1_TOL:
+            raise AssertionError(f"[if1] decode vs teacher forcing: err {err}")
+
+        keep = {i: native[i] for i in range(0, L, 3)}
+        partial = [keep.get(i, "<mask>") for i in range(L)]
+        got = handle.sample(coords, partial_seq=partial, seed=55, return_tokens=True)
+        kept = all(alphabet.get_tok(int(got[i])) == c for i, c in keep.items())
+        plain = handle.sample(coords, seed=56, num_samples=8, return_tokens=True)
+        padded = handle.sample(coords, seed=56, num_samples=8, pad_to_multiple=64,
+                               return_tokens=True)
+        log(f"[if1] partial_seq: {len(keep)} given positions kept: {kept}; pad_to_multiple=64 "
+            f"(L {L} -> {L + (-L) % 64}), 8 samples: the same tokens as unpadded: "
+            f"{np.array_equal(plain, padded)} (t={time.perf_counter() - t0:.1f} s)")
+        if not (kept and np.array_equal(plain, padded) and plain.shape == (8, L)):
+            raise AssertionError("[if1] partial_seq or pad_to_multiple changed the sample")
+
+        temperature, n = 0.7, 20000
+        first = steps[0][0]
+        draws = ifm.draw_tokens(first.expand(n, -1), temperature,
+                                torch.Generator(device=dev).manual_seed(57))
+        p = torch.softmax(first.double() / temperature, -1).cpu().numpy()
+        freq = np.bincount(draws.cpu().numpy(), minlength=len(p)) / n
+        tv = 0.5 * np.abs(freq - p).sum()
+        log(f"[if1] sampling distribution at the first position, T={temperature}, {n} draws on "
+            f"the card: total variation {tv:.4f} against softmax(logits / T) (<= {IF1_TV})")
+        if not tv <= IF1_TV:
+            raise AssertionError(f"[if1] sampling distribution: TV {tv}")
+
+        with FlopCounterMode(display=False) as fc:
+            ifm.encoder_apply(model.encoder, handle.cfg, bc, pmask, conf)
+        enc_flops = fc.get_total_flops()
+        with FlopCounterMode(display=False) as fc:
+            handle.forward(bc, pmask, conf, toks[:, :-1].to(dev))
+        fwd_flops = fc.get_total_flops()
+        enc_s = host_seconds(lambda: ifm.encoder_apply(model.encoder, handle.cfg, bc, pmask, conf))
+        score_s = host_seconds(lambda: handle.score_sequence(coords, native))
+        log(f"[if1] encoder forward L={L}: {enc_s * 1e3:.1f} ms, {enc_flops / 1e9:.1f} GFLOP "
+            f"(torch FlopCounterMode), {enc_flops / enc_s / 1e12:.2f} TFLOP/s fp32; "
+            f"score_sequence (host conversion, forward of {fwd_flops / 1e9:.1f} GFLOP, "
+            f"log-softmax, copy back): {score_s * 1e3:.1f} ms ({card}) "
+            f"(t={time.perf_counter() - t0:.1f} s)")
+        for num in (1, 8):
+            # (the decode is warm: the samples above ran it)
+            sec = host_seconds(lambda: handle.sample(coords, seed=58, num_samples=num), iters=1,
+                               warmup=False)
+            log(f"[if1] sample num_samples={num}, L={L}: {sec:.3f} s, {num * L / sec:.1f} "
+                f"residues/s ({card})")
+        # the profile: the first 64 residues (the profiler's post-processing of
+        # a 500-step decode's ~600,000 events took minutes); launches a step
+        # and the busy share do not depend on the length
+        short = coords[:64]
+        sb, sc, _, _, sp = ifm.CoordBatchConverter(alphabet)([(short, None, None)], device=dev)
+        _, _, enc_events = profile("one IF1 encoder forward (L=64)",
+                                   lambda: ifm.encoder_apply(model.encoder, handle.cfg, sb, sp,
+                                                             sc), top=6)
+        wall, busy, events = profile("one IF1 sample (num_samples=1, L=64)",
+                                     lambda: handle.sample(short, seed=58), top=10, by_op=True)
+        log(f"[if1] decode: {(events - enc_events) / len(short):.1f} device launches a step "
+            f"({events} in the sample, {enc_events} in its encoder forward), device busy "
+            f"{100 * busy / wall:.1f}% of the sample's wall time "
+            f"(t={time.perf_counter() - t0:.1f} s)")
+
+        # a two-chain complex: chain A designed and scored in the presence of B
+        chains = {"A": ideal_backbone(220, 59), "B": ideal_backbone(160, 60, offset=(25, 0, 0))}
+        seqs = {"A": random_protein(220, seed=61), "B": random_protein(160, seed=62)}
+        worst = 0.0
+        for target in ("A", "B"):
+            got = multichain.score_sequence_in_complex(model, alphabet, chains, target,
+                                                       seqs[target])
+            want = multichain.score_sequence_in_complex(cpu.model, alphabet, chains, target,
+                                                        seqs[target])
+            worst = max(worst, float(np.abs(np.subtract(got, want)).max()))
+        # (a random model draws special tokens too, so the designed string is
+        # not scored: sliced to the chain's length it can cut a token)
+        designed = multichain.sample_sequence_in_complex(model, alphabet, chains, "A", seed=63)
+        again = multichain.sample_sequence_in_complex(model, alphabet, chains, "A", seed=63)
+        log(f"[if1] complex A (220) + B (160): score_sequence_in_complex card vs CPU, both "
+            f"targets, max abs diff {worst:.2e} (<= {IF1_SCORE_TOL}); "
+            f"sample_sequence_in_complex repeated with its seed: {designed == again} "
+            f"(t={time.perf_counter() - t0:.1f} s)")
+        if not (worst <= IF1_SCORE_TOL and designed == again):
+            raise AssertionError(f"[if1] complex: diff {worst}, repeat {designed == again}")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+    counts = read_counts()
+    if any(counts.values()):
+        raise AssertionError(f"[if1] a kernel launched on the IF1 path: {counts}")
+    del cpu, handle
+    return model
+
+
+def run_if_cli(module, argv, where):
+    """An IF1 CLI's ``run`` on the card or (--nogpu) the CPU, TF32 off.
+    Returns (printed lines, seconds)."""
+    import torch
+
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            module.run(module.create_parser().parse_args(
+                argv + (["--nogpu"] if where == "cpu" else [])))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    return buf.getvalue().splitlines(), time.perf_counter() - t0
+
+
+def phase_cli_if(model):
+    """esm-if-score and esm-if-sample (esm_tpu_torch.cli.if_score, if_sample)
+    on the card against --nogpu runs of the same commands, with a save_if1
+    checkpoint of the [if1] model (released size): a seeded 250-residue
+    backbone (3 residues with N only) as PDB and mmCIF, a second chain of 160
+    for --multichain-backbone, a seeded FASTA of 10 variants. Scores within
+    IF1_SCORE_TOL of the CPU's (the CPU scores the first IF1_CPU_ROWS
+    variants: a full-width forward takes seconds there) and the mmCIF's of
+    the PDB's; one seed sampled twice on the card gives the same FASTA; the
+    CPU's sample run prints the same native sequence and format."""
+    import csv
+
+    from esm_tpu_torch.cli import if_sample, if_score
+    from esm_tpu_torch.io.export import save_if1
+
+    L = 250
+    t0 = time.perf_counter()
+    coords = ideal_backbone(L, 70)
+    coords[120:123, 1:] = np.nan  # CA and C missing
+    native = random_protein(L, seed=71)
+    rng = np.random.RandomState(72)
+    variants = [native]
+    for _ in range(9):
+        v = np.array(list(native))
+        at = rng.rand(L) < 0.1
+        v[at] = rng.choice(list("ACDEFGHIKLMNPQRSTVWY"), int(at.sum()))
+        variants.append("".join(v))
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt, _ = save_if1(model, os.path.join(tmp, "esm_if1_gvp4_t16_142M_UR50_seeded.pt"))
+        log(f"[cli-if] save_if1 wrote {os.path.getsize(ckpt) / 1e6:.0f} MB "
+            f"(t={time.perf_counter() - t0:.1f} s)")
+        single = {"A": (coords, native)}
+        pair = dict(single, B=(ideal_backbone(160, 73, offset=(25, 0, 0)),
+                               random_protein(160, seed=74)))
+        paths = {}
+        for name, chains, fmt in (("a.pdb", single, "pdb"), ("a.cif", single, "cif"),
+                                  ("ab.pdb", pair, "pdb")):
+            paths[name] = os.path.join(tmp, name)
+            write_backbone(paths[name], chains, fmt)
+        fastas = {}
+        for where, n in (("cuda", len(variants)), ("cpu", IF1_CPU_ROWS)):
+            fastas[where] = os.path.join(tmp, f"variants_{where}.fasta")
+            with open(fastas[where], "w") as f:
+                f.write("".join(f">variant_{i}\n{s}\n" for i, s in enumerate(variants[:n])))
+
+        def scores(structure, where, *extra):
+            out = os.path.join(tmp, f"{where}_{os.path.basename(structure)}{len(extra)}.csv")
+            _, sec = run_if_cli(if_score, [structure, fastas[where], "--model", ckpt, "--chain",
+                                           "A", "--outpath", out, *extra], where)
+            with open(out, newline="") as f:
+                rows = list(csv.reader(f))
+            n = len(variants) if where == "cuda" else IF1_CPU_ROWS
+            if rows[0] != ["seqid", "log_likelihood", "log_likelihood_withcoord"] or \
+                    [r[0] for r in rows[1:]] != [f"variant_{i}" for i in range(n)]:
+                raise AssertionError(f"[cli-if] if_score {where}: CSV {rows[:2]}")
+            return np.asarray([r[1:] for r in rows[1:]], float), sec
+
+        for structure, extra in ((paths["a.pdb"], []),
+                                 (paths["ab.pdb"], ["--multichain-backbone"])):
+            card, sec = scores(structure, "cuda", *extra)
+            cpu_scores, csec = scores(structure, "cpu", *extra)
+            err = np.abs(card[:IF1_CPU_ROWS] - cpu_scores).max()
+            what = "multichain A|B" if extra else "single chain"
+            log(f"[cli-if] if_score {what}: {len(card)} variants on the card in {sec:.1f} s, "
+                f"{IF1_CPU_ROWS} on the CPU in {csec:.1f} s; card vs CPU max abs diff {err:.2e} "
+                f"(<= {IF1_SCORE_TOL})")
+            if not (np.isfinite(card).all() and err <= IF1_SCORE_TOL):
+                raise AssertionError(f"[cli-if] if_score {what}: card vs CPU {err}")
+            if not extra:
+                cif, _ = scores(paths["a.cif"], "cuda")
+                err = np.abs(cif - card).max()
+                log(f"[cli-if] if_score from the mmCIF vs the PDB on the card: max abs diff "
+                    f"{err:.2e}")
+                if not err <= IF1_SCORE_TOL:
+                    raise AssertionError(f"[cli-if] mmCIF vs PDB: {err}")
+
+        for structure, extra in ((paths["a.pdb"], []),
+                                 (paths["ab.pdb"], ["--multichain-backbone"])):
+            fastas = []
+            # the CPU samples once, single chain (its draws come from another
+            # generator, so only the output is compared)
+            runs = (("cuda", "s1", 2), ("cuda", "s2", 2)) + ((("cpu", "s3", 1),) if not extra
+                                                            else ())
+            for where, out, num in runs:
+                outpath = os.path.join(tmp, f"{out}{len(extra)}.fasta")
+                printed, sec = run_if_cli(if_sample, [structure, "--model", ckpt, "--chain", "A",
+                                                      "--num-samples", str(num), "--seed", "7",
+                                                      "--outpath", outpath, *extra], where)
+                with open(outpath) as f:
+                    records = f.read().splitlines()
+                recovery = re.findall(r"^Sequence recovery: ([0-9.]+)$", "\n".join(printed), re.M)
+                recovery = [float(x) for x in recovery]
+                if not (native in printed and len(recovery) == num
+                        and records[0::2] == [f">sampled_seq_{i + 1}" for i in range(num)]):
+                    raise AssertionError(f"[cli-if] if_sample {where}: {printed[:4]}, "
+                                         f"{records[:2]}")
+                fastas.append(records)
+                log(f"[cli-if] if_sample {' '.join(extra) or 'single chain'} on {where}: {num} "
+                    f"samples in {sec:.1f} s, recovery {recovery}")
+            if fastas[0] != fastas[1]:
+                raise AssertionError("[cli-if] if_sample: one seed gave two FASTAs on the card")
+        log("[cli-if] if_sample: the same seed gave the same FASTA twice on the card, single "
+            "chain and --multichain-backbone; the CPU run printed the same native sequence "
+            f"(t={time.perf_counter() - t0:.1f} s)")
+
+
 def main():
     import torch
 
@@ -1957,6 +2371,9 @@ def main():
     k1_esm1 = measure_k1_esm1(phase_esm1(card))
     phase_msa(card)
     phase_cli_variants()
+    t_if1 = time.perf_counter()
+    phase_cli_if(phase_if1(card))
+    log(f"[if1] [if1] and [cli-if] took {time.perf_counter() - t_if1:.1f} s")
     log(f"[summary] all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(smi)
     kernels = [k1] + k1_esm1 + backward + [k6] + trimul

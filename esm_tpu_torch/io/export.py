@@ -15,6 +15,9 @@ roberta_large and msa_transformer, ``decoder_`` for protein_bert_base) and
 on the keys (``{stem}.sentence_encoder.``, ``{stem}.`` for the heads), the
 MSA Transformer's row and column attention keys swapped as the released
 files have them, and the contact regression in ``-contact-regression.pt``.
+``save_if1`` writes ESM-IF1 as esm_tpu/io/export.py:508-560 does: arch
+"vt_invariant_gvp_transformer", the constructor's sizes in the args, the
+canonical keys, no regression file.
 """
 
 from __future__ import annotations
@@ -192,3 +195,36 @@ def save_msa(model, path) -> Tuple[str, str]:
                 max_tokens_per_msa=cfg.max_tokens_per_msa, max_tokens=cfg.max_tokens_per_msa,
                 embed_positions_msa=cfg.embed_positions_msa)
     return _v1_save(model, path, "encoder", args, rename=_swap_row_column)
+
+
+def save_if1(model, path) -> Tuple[str, None]:
+    """Write the port's ``GVPTransformerModel`` as the reference's v1
+    invariant_gvp checkpoint (reference loader esm/pretrained.py:134-161).
+    The file name must contain ``esm_if``: that is how the loaders know to
+    look for no contact-regression file (esm/pretrained.py:18-21). Returns
+    (path, None), the regression path of the other savers being absent."""
+    path = os.fspath(path)
+    stem = os.path.basename(path)
+    if "esm_if" not in stem:
+        raise ValueError(
+            f"file name {stem!r} must contain 'esm_if' — that marker is how the "
+            "reference loader knows to skip the contact-regression file "
+            "(esm/pretrained.py:18-21)")
+    cfg = model.cfg
+    args = argparse.Namespace(
+        arch="vt_invariant_gvp_transformer",
+        **{k: getattr(cfg, k) for k in (
+            "encoder_embed_dim", "encoder_layers", "encoder_attention_heads",
+            "encoder_ffn_embed_dim", "decoder_embed_dim", "decoder_layers",
+            "decoder_attention_heads", "decoder_ffn_embed_dim")},
+        dropout=0.1,
+        attention_dropout=0.1,
+        **{k: getattr(cfg, k) for k in (
+            "gvp_top_k_neighbors", "gvp_node_hidden_dim_scalar", "gvp_node_hidden_dim_vector",
+            "gvp_edge_hidden_dim_scalar", "gvp_edge_hidden_dim_vector",
+            "gvp_num_encoder_layers")},
+        gvp_dropout=0.1,
+    )
+    state = {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+    torch.save({"args": args, "model": state}, path)
+    return path, None

@@ -17,7 +17,12 @@ esm_tpu/io/export.py:128-169 and :572-676:
 :323-425: ESM-1's (D,) bias_k/bias_v become (1, 1, D), its ``embed_out``
 kernel (D, V) is stored (V, D), its sinusoidal table leaves only the
 ``embed_positions._float_tensor`` buffer; the MSA position embedding
-(1024, 1, D) becomes (1, 1024, 1, D).
+(1024, 1, D) becomes (1, 1024, 1, D). ``if1_state_dict_from_jax`` turns
+ESM-IF1's tree into the port's ``GVPTransformerModel`` state dict by the
+rules of esm_tpu/io/export.py:445-505: each GVP's wh/ws/wv/wg as present,
+tuple LNs under ``scalar_norm``, the GVP conv layers' ``norm0``/``norm1``
+as ``norm.0``/``norm.1``, the embedding GVP and its LN as ``.0``/``.1``,
+and the two ``embed_positions._float_tensor`` buffers.
 """
 
 from __future__ import annotations
@@ -244,4 +249,65 @@ def esmfold_state_dict_from_jax(params, cfg) -> Dict[str, torch.Tensor]:
         for name in ("linear_1", "linear_2"):
             _linear(sd, f"{p}.angle_resnet.layers.{i}.{name}", layer[name])
     _linear(sd, f"{p}.angle_resnet.linear_out", ar["linear_out"])
+    return sd
+
+
+def if1_state_dict_from_jax(params, cfg) -> Dict[str, torch.Tensor]:
+    """An ESM-IF1 parameter tree of esm_tpu's layout (numpy) -> the port's
+    ``GVPTransformerModel`` state dict (esm_tpu/io/export.py:445-505)."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def gvp(key: str, p) -> None:
+        for name in ("wh", "ws", "wv", "wg"):
+            if name in p:
+                _linear(sd, f"{key}.{name}", p[name])
+
+    def attn(key: str, p) -> None:
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            _linear(sd, f"{key}.{name}", p[name])
+
+    def layer(key: str, p) -> None:
+        attn(f"{key}.self_attn", p["self_attn"])
+        _ln(sd, f"{key}.self_attn_layer_norm", p["self_attn_layer_norm"])
+        if "encoder_attn" in p:
+            attn(f"{key}.encoder_attn", p["encoder_attn"])
+            _ln(sd, f"{key}.encoder_attn_layer_norm", p["encoder_attn_layer_norm"])
+        _linear(sd, f"{key}.fc1", p["fc1"])
+        _linear(sd, f"{key}.fc2", p["fc2"])
+        _ln(sd, f"{key}.final_layer_norm", p["final_layer_norm"])
+
+    enc, dec = params["encoder"], params["decoder"]
+    sd["encoder.embed_tokens.weight"] = _t(enc["embed_tokens"]["weight"])
+    sd["encoder.embed_positions._float_tensor"] = torch.zeros(1)
+    _linear(sd, "encoder.embed_gvp_input_features", enc["embed_gvp_input_features"])
+    _linear(sd, "encoder.embed_confidence", enc["embed_confidence"])
+    dih = enc["embed_dihedrals"]
+    _linear(sd, "encoder.embed_dihedrals.node_embedding", dih["node_embedding"])
+    sd["encoder.embed_dihedrals.norm_nodes.gain"] = _t(dih["norm_nodes"]["gain"])
+    sd["encoder.embed_dihedrals.norm_nodes.bias"] = _t(dih["norm_nodes"]["bias"])
+    g, eg = "encoder.gvp_encoder.embed_graph", enc["gvp_encoder"]["embed_graph"]
+    gvp(f"{g}.embed_node.0", eg["embed_node_gvp"])
+    _ln(sd, f"{g}.embed_node.1.scalar_norm", eg["embed_node_norm"]["scalar_norm"])
+    gvp(f"{g}.embed_edge.0", eg["embed_edge_gvp"])
+    _ln(sd, f"{g}.embed_edge.1.scalar_norm", eg["embed_edge_norm"]["scalar_norm"])
+    _linear(sd, f"{g}.embed_confidence", eg["embed_confidence"])
+    for i, lp in enumerate(enc["gvp_encoder"]["encoder_layers"]):
+        key = f"encoder.gvp_encoder.encoder_layers.{i}"
+        for j, m in enumerate(lp["conv"]["message_func"]):
+            gvp(f"{key}.conv.message_func.{j}", m)
+        _ln(sd, f"{key}.norm.0.scalar_norm", lp["norm0"]["scalar_norm"])
+        _ln(sd, f"{key}.norm.1.scalar_norm", lp["norm1"]["scalar_norm"])
+        for j, m in enumerate(lp["ff_func"]):
+            gvp(f"{key}.ff_func.{j}", m)
+    _linear(sd, "encoder.embed_gvp_output", enc["embed_gvp_output"])
+    for i, lp in enumerate(enc["layers"]):
+        layer(f"encoder.layers.{i}", lp)
+    _ln(sd, "encoder.layer_norm", enc["layer_norm"])
+
+    sd["decoder.embed_tokens.weight"] = _t(dec["embed_tokens"]["weight"])
+    sd["decoder.embed_positions._float_tensor"] = torch.zeros(1)
+    for i, lp in enumerate(dec["layers"]):
+        layer(f"decoder.layers.{i}", lp)
+    _ln(sd, "decoder.layer_norm", dec["layer_norm"])
+    _linear(sd, "decoder.output_projection", dec["output_projection"])
     return sd

@@ -6,15 +6,15 @@ esm/esmfold/v1/pretrained.py) for the language models and ESMFold.
 ``-contact-regression.pt``: an ``esm2*`` file takes the v2 path (the key
 prefixes stripped), any other the fairseq-era v1 path (``upgrade_state_v1``:
 args and keys lose their module prefixes, ESM-1b's ``<mask>`` embedding row
-is zeroed, the MSA Transformer's row and column keys are swapped back). The
-state loads strictly into the port's ``ESM2``, ``ESM1`` (ESM-1, ESM-1b,
-ESM-1v) or ``MSATransformer`` behind an ``LMHandle``. ``load_esmfold`` reads
-an esmfold ``.pt`` and its LM into an ``ESMFoldHandle``. A registry name
-resolves only from the local cache (``ESM_TPU_CACHE``, default
-``~/.cache/esm_tpu/checkpoints``): downloading is not ported, and ESM-IF1
-checkpoints raise (ROADMAP Queue 1, item 9). ``random_model_and_alphabet``
-builds any registered language model at its released size with seeded
-random weights.
+is zeroed, the MSA Transformer's row and column keys are swapped back, the
+ESM-IF1 keys of older layouts are renamed). The state loads strictly into
+the port's ``ESM2``, ``ESM1`` (ESM-1, ESM-1b, ESM-1v) or ``MSATransformer``
+behind an ``LMHandle``, or into ``GVPTransformerModel`` (ESM-IF1) behind an
+``IFHandle``. ``load_esmfold`` reads an esmfold ``.pt`` and its LM into an
+``ESMFoldHandle``. A registry name resolves only from the local cache
+(``ESM_TPU_CACHE``, default ``~/.cache/esm_tpu/checkpoints``): downloading
+is not ported. ``random_model_and_alphabet`` builds any registered model at
+its released size with seeded random weights.
 
 Device: every entry point runs on CUDA unless the caller passes
 ``device="cpu"``; with no GPU and no CPU request it raises. Nothing falls
@@ -37,9 +37,9 @@ from .data.alphabet import Alphabet
 from .io.export import _swap_row_column
 from .models import esm1 as esm1_mod
 from .models import esm2 as esm2_mod
+from .models import inverse_folding as if_mod
 from .models import msa_transformer as msa_mod
-
-_IF1 = "ESM-IF1 (inverse folding) is not ported yet (ROADMAP Queue 1, item 9)"
+from .utils.validation import check_coords
 
 
 def resolve_device(device=None) -> torch.device:
@@ -105,6 +105,21 @@ def _rename_v1_state(state: Dict, stem: str) -> Dict:
     return out
 
 
+# ESM-IF1 checkpoints predate the module layout the reference (and both
+# packages) use: ordered substring renames, applied first to last
+# (esm_tpu/pretrained.py:150-160; reference esm/pretrained.py:128-146).
+_GVP_KEY_RENAMES: Tuple[Tuple[str, str], ...] = (
+    ("W_v", "embed_graph.embed_node"),
+    ("W_e", "embed_graph.embed_edge"),
+    ("embed_scores.0", "embed_confidence"),
+    ("embed_score.", "embed_graph.embed_confidence."),
+    ("seq_logits_projection.", ""),
+    ("embed_ingraham_features", "embed_dihedrals"),
+    ("embed_gvp_in_local_frame.0", "embed_gvp_output"),
+    ("embed_features_in_local_frame.0", "embed_gvp_input_features"),
+)
+
+
 def upgrade_state_v1(model_data) -> Tuple[Dict[str, Any], Dict, str]:
     """The fairseq-era upgrades, per architecture (esm_tpu/pretrained.py:163-197).
     Returns (args dict, canonical state, arch)."""
@@ -126,7 +141,14 @@ def upgrade_state_v1(model_data) -> Tuple[Dict[str, Any], Dict, str]:
         if args.get("embed_positions_msa", False):
             args["embed_positions_msa_dim"] = state["msa_position_embedding"].size(-1)
     elif "invariant_gvp" in arch:
-        raise NotImplementedError(_IF1)
+        renamed = {}
+        for k, v in state.items():
+            if "version" in k:
+                continue
+            for old, new in _GVP_KEY_RENAMES:
+                k = k.replace(old, new)
+            renamed[k] = v
+        state = renamed
     else:
         raise ValueError(f"Unknown architecture {arch}")
     return args, state, arch
@@ -225,6 +247,58 @@ class LMHandle:
         return self(tokens, return_contacts=True)["contacts"]
 
 
+class IFHandle:
+    """ESM-IF1 handle (esm_tpu/pretrained.py:303-335): ``sample``,
+    ``score_sequence``, ``forward`` and ``get_encoder_output`` on the device
+    the model was built on. Holds the config, the ``GVPTransformerModel``
+    and the alphabet."""
+
+    def __init__(self, cfg, model: torch.nn.Module, alphabet: Alphabet):
+        self.cfg = cfg
+        self.model = model
+        self.alphabet = alphabet
+
+    @property
+    def device(self) -> torch.device:
+        return self.model.device
+
+    def sample(self, coords, **kw):
+        """Sequence design (models/inverse_folding/model.py ``sample``)."""
+        check_coords(coords)
+        return if_mod.sample(self.model, self.alphabet, coords, **kw)
+
+    def score_sequence(self, coords, seq: str):
+        """(log-likelihood over the sequence, over the residues with coordinates)."""
+        check_coords(coords)
+        return if_mod.score_sequence(self.model, self.alphabet, coords, seq)
+
+    def get_encoder_output(self, coords) -> torch.Tensor:
+        check_coords(coords)
+        return if_mod.get_encoder_output(self.model, self.alphabet, coords)
+
+    @torch.no_grad()
+    def forward(self, coords, padding_mask, confidence, prev_output_tokens):
+        """Teacher-forced logits (B, V, T) of a converted batch."""
+        check_coords(coords, batched=True)
+        dev = self.device
+        return self.model(torch.as_tensor(coords, device=dev),
+                          torch.as_tensor(padding_mask, device=dev),
+                          torch.as_tensor(confidence, device=dev),
+                          torch.as_tensor(prev_output_tokens, device=dev, dtype=torch.int64))
+
+
+def _build_if1_from_state(args, state, device) -> IFHandle:
+    """GVPTransformerConfig from the (upgraded) args, then a strict load
+    (esm_tpu/pretrained.py:503-526)."""
+    alphabet = Alphabet.from_architecture("invariant_gvp")
+    cfg = if_mod.GVPTransformerConfig.from_alphabet(
+        alphabet, **{f.name: args[f.name] for f in dataclasses.fields(if_mod.GVPTransformerConfig)
+                     if f.name.startswith(("encoder_", "decoder_", "gvp_"))})
+    model = if_mod.GVPTransformerModel(cfg, device=device)
+    model.load_state_dict(state, strict=True)
+    return IFHandle(cfg, model, alphabet)
+
+
 def _esm2_alphabet() -> Alphabet:
     return Alphabet.from_architecture("ESM-1b")
 
@@ -286,8 +360,9 @@ def _build_lm_from_state(model_name, args, state, arch, regression_data, device)
 
 
 def load_model_and_alphabet_core(model_name, model_data, regression_data=None, device=None):
-    """A language-model handle from loaded checkpoint data
-    (esm_tpu/pretrained.py:489-529). Returns (handle, alphabet)."""
+    """A model handle from loaded checkpoint data (esm_tpu/pretrained.py:
+    489-529): an ``LMHandle``, or an ``IFHandle`` for ESM-IF1. Returns
+    (handle, alphabet)."""
     device = resolve_device(device)
     if model_name.startswith("esm2"):
         ck = model_data["cfg"]["model"]
@@ -298,6 +373,9 @@ def load_model_and_alphabet_core(model_name, model_data, regression_data=None, d
         state, arch = upgrade_state_v2(model_data["model"]), "esm2"
     else:
         args, state, arch = upgrade_state_v1(model_data)
+        if "invariant_gvp" in arch:
+            handle = _build_if1_from_state(args, state, device)
+            return handle, handle.alphabet
     handle = _build_lm_from_state(model_name, args, state, arch, regression_data, device)
     return handle, handle.alphabet
 
@@ -343,10 +421,10 @@ _ALIASES = {"esm1v_t33_650M_UR90S": "esm1v_t33_650M_UR90S_1"}
 
 
 def random_model_and_alphabet(model_name: str, *, seed: int = 0, device=None, **options):
-    """A language-model handle at a released size (``ESM2_SIZES``,
-    ``ESM1_SIZES``, ``MSA_SIZES``) with seeded random weights, built on the
-    device from a ``torch.Generator`` there. ``options`` are execution
-    options (compute_dtype, use_flash)."""
+    """A model handle at a released size (``ESM2_SIZES``, ``ESM1_SIZES``,
+    ``MSA_SIZES``, ``IF1_SIZES``) with seeded random weights, built on the
+    device from a ``torch.Generator`` there. ``options`` are a language
+    model's execution options (compute_dtype, use_flash); ESM-IF1 has none."""
     device = resolve_device(device)
     model_name = _ALIASES.get(model_name, model_name)
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -365,8 +443,12 @@ def random_model_and_alphabet(model_name: str, *, seed: int = 0, device=None, **
         cfg = msa_mod.MSATransformerConfig.from_alphabet(
             alphabet, **msa_mod.MSA_SIZES[model_name], **options)
         return LMHandle("msa", cfg, msa_mod.init(cfg, gen, device=device), alphabet), alphabet
-    if model_name.startswith("esm_if"):
-        raise NotImplementedError(_IF1)
+    if model_name in if_mod.IF1_SIZES:
+        if options:
+            raise TypeError(f"ESM-IF1 takes no execution options, got {sorted(options)}")
+        alphabet = Alphabet.from_architecture("invariant_gvp")
+        cfg = if_mod.GVPTransformerConfig.from_alphabet(alphabet, **if_mod.IF1_SIZES[model_name])
+        return IFHandle(cfg, if_mod.init(cfg, gen, device=device), alphabet), alphabet
     raise ValueError(f"unknown model {model_name!r}")
 
 
@@ -379,7 +461,8 @@ def _make_constructor(name, file_name=None):
     return ctor
 
 
-for _name in (*esm1_mod.ESM1_SIZES, *msa_mod.MSA_SIZES, *esm2_mod.ESM2_SIZES):
+for _name in (*esm1_mod.ESM1_SIZES, *msa_mod.MSA_SIZES, *esm2_mod.ESM2_SIZES,
+              *if_mod.IF1_SIZES):
     globals()[_name] = _make_constructor(_name)
 for _name, _file in _ALIASES.items():
     globals()[_name] = _make_constructor(_name, _file)

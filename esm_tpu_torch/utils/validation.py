@@ -1,7 +1,8 @@
 """Host-side input validation at the public API boundary.
 
 Port of esm_tpu/utils/validation.py: token dtype/range/rank and
-representation-layer indices, with the same errors. Accepts torch tensors,
+representation-layer indices and backbone coordinates, with the same
+errors. Accepts torch tensors,
 numpy arrays or nested lists. The value-range check of a token tensor that
 already lies on the card is skipped (it would cost a device-to-host copy per
 call), and a warning says so once.
@@ -64,6 +65,25 @@ def check_tokens(tokens, alphabet, *, msa: bool = False, name: str = "tokens"):
                     f"{name}: token ids must be in [0, {len(alphabet)}), "
                     f"found range [{lo}, {hi}]"
                 )
+    return arr
+
+
+def check_coords(coords, *, name: str = "coords", batched: bool = False):
+    """Backbone coordinates: (L, 3, 3) N/CA/C (or (B, L, 3, 3) when
+    ``batched``), floating dtype (esm_tpu/utils/validation.py:107-121).
+    NaN/inf rows are legal: missing residues and the padding convention
+    (reference esm/inverse_folding/util.py:96-105)."""
+    arr = coords if hasattr(coords, "ndim") else np.asarray(coords)
+    want = 4 if batched else 3
+    if arr.ndim != want or tuple(arr.shape[-2:]) != (3, 3):
+        raise ValueError(
+            f"{name}: expected {'(B, L, 3, 3)' if batched else '(L, 3, 3)'} "
+            f"N/CA/C backbone coordinates, got shape {tuple(arr.shape)}"
+        )
+    floating = (arr.is_floating_point() if isinstance(arr, torch.Tensor)
+                else np.issubdtype(np.dtype(arr.dtype), np.floating))
+    if not floating:
+        raise TypeError(f"{name}: expected floating coordinates, got {arr.dtype}")
     return arr
 
 

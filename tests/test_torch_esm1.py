@@ -315,14 +315,30 @@ def test_released_sizes(name, shape):
 
 
 def test_inverse_folding_still_raises(tmp_path):
+    """The v1 loader's invariant_gvp branch: ESM-IF1 is ported, so it no
+    longer raises NotImplementedError; what still raises is a state that
+    does not fit the model (the load is strict). A fitting state loads into
+    an IFHandle, and the registry constructor exists."""
     import argparse
 
-    data = {"args": argparse.Namespace(arch="invariant_gvp"), "model": {}}
-    with pytest.raises(NotImplementedError, match="item 9"):
-        pretrained.load_model_and_alphabet_core("esm_if1_gvp4_t16_142M_UR50", data, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        pretrained.random_model_and_alphabet("esm_if1_gvp4_t16_142M_UR50", device="cpu")
-    assert not hasattr(pretrained, "esm_if1_gvp4_t16_142M_UR50")
+    from esm_tpu_torch.models import inverse_folding as tif
+
+    sizes = dict(encoder_embed_dim=32, encoder_layers=1, encoder_attention_heads=2,
+                 encoder_ffn_embed_dim=64, decoder_embed_dim=32, decoder_layers=1,
+                 decoder_attention_heads=2, decoder_ffn_embed_dim=64, gvp_top_k_neighbors=4,
+                 gvp_node_hidden_dim_scalar=16, gvp_node_hidden_dim_vector=4,
+                 gvp_edge_hidden_dim_scalar=8, gvp_edge_hidden_dim_vector=1,
+                 gvp_num_encoder_layers=1)
+    data = {"args": argparse.Namespace(arch="vt_invariant_gvp_transformer", **sizes),
+            "model": {}}
+    with pytest.raises(RuntimeError, match="Missing key"):
+        pretrained.load_model_and_alphabet_core("esm_if1_small", data, device="cpu")
+    cfg = tif.GVPTransformerConfig.from_alphabet(Alphabet.from_architecture("invariant_gvp"),
+                                                 **sizes)
+    data["model"] = tif.init(cfg, torch.Generator().manual_seed(0)).state_dict()
+    handle, _ = pretrained.load_model_and_alphabet_core("esm_if1_small", data, device="cpu")
+    assert isinstance(handle, pretrained.IFHandle) and handle.cfg == cfg
+    assert callable(pretrained.esm_if1_gvp4_t16_142M_UR50)
 
 
 # -- esm-extract ---------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """Import hygiene and device rules of the port (esm_tpu_torch):
   * importing it, and every module in it (the ESM-1 and MSA Transformer
-    modules and the variant-scoring CLI among them), pulls in neither
+    modules, the variant-scoring CLI, the ESM-IF1 modules, the structure
+    reader and the inverse-folding CLIs among them), pulls in neither
     ``jax`` nor ``esm_tpu`` (checked in a fresh interpreter);
   * no source file of the port, nor chip_smoke.py, imports ``esm_tpu.``;
   * entry points given no device run on CUDA, so without a GPU they raise.
@@ -63,11 +64,12 @@ def no_cuda():
     "entry",
     ["resolve_device", "random_model_and_alphabet", "load_model_and_alphabet_local",
      "extract", "pretrain", "random_esmfold", "load_esmfold", "fold",
-     "random_esm1", "random_msa", "predict_variants"],
+     "random_esm1", "random_msa", "predict_variants", "random_if1", "if_sample",
+     "if_score"],
 )
 def test_entry_points_without_device_raise_when_cuda_absent(no_cuda, entry, tmp_path):
     from esm_tpu_torch import pretrained
-    from esm_tpu_torch.cli import extract, fold, predict_variants, pretrain
+    from esm_tpu_torch.cli import extract, fold, if_sample, if_score, predict_variants, pretrain
 
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         if entry == "resolve_device":
@@ -80,6 +82,15 @@ def test_entry_points_without_device_raise_when_cuda_absent(no_cuda, entry, tmp_
             pretrained.random_model_and_alphabet("esm1b_t33_650M_UR50S")
         elif entry == "random_msa":
             pretrained.random_model_and_alphabet("esm_msa1b_t12_100M_UR50S")
+        elif entry == "random_if1":
+            pretrained.random_model_and_alphabet("esm_if1_gvp4_t16_142M_UR50")
+        elif entry == "if_sample":
+            if_sample.run(if_sample.create_parser().parse_args(
+                [str(tmp_path / "s.pdb"), "--model", str(tmp_path / "esm_if1_missing.pt")]))
+        elif entry == "if_score":
+            if_score.run(if_score.create_parser().parse_args(
+                [str(tmp_path / "s.pdb"), str(tmp_path / "v.fasta"),
+                 "--model", str(tmp_path / "esm_if1_missing.pt")]))
         elif entry == "predict_variants":
             (tmp_path / "dms.csv").write_text("mutant\nA1C\n")
             predict_variants.run(predict_variants.create_parser().parse_args(

@@ -425,3 +425,27 @@ def test_triangle_kernels_refuse_gradients(cuda):
         with torch.no_grad():
             call()
     torch.cuda.synchronize()
+
+
+def test_if1_runs_on_cuda_by_default(cuda):
+    """ESM-IF1 built with no device argument lives on the card: its
+    parameters, the teacher-forced logits and the decoded tokens are CUDA
+    tensors, and sample() draws the same sequence for the same seed."""
+    from esm_tpu_torch import pretrained
+    from esm_tpu_torch.models.inverse_folding import model as ifm
+
+    handle, alphabet = pretrained.random_model_and_alphabet("esm_if1_gvp4_t16_142M_UR50", seed=1)
+    assert all(p.device.type == "cuda" for p in handle.model.parameters())
+    rng = np.random.RandomState(0)
+    coords = np.cumsum(rng.normal(0, 1.0, (40, 3, 3)).astype(np.float32), axis=0) * 1.2
+    bc, conf, _, tokens, pmask = ifm.CoordBatchConverter(alphabet)(
+        [(coords, None, "A" * 40)], device="cuda")
+    logits = handle.forward(bc, pmask, conf, tokens[:, :-1])
+    assert logits.device.type == "cuda" and logits.shape == (1, len(alphabet), 40)
+    assert torch.isfinite(logits).all()
+    init = torch.full((2, 41), handle.cfg.mask_idx, dtype=torch.int64, device="cuda")
+    init[:, 0] = handle.cfg.cath_idx
+    drawn = ifm.sample_tokens(handle.model, bc, pmask, conf, init,
+                              torch.Generator(device="cuda").manual_seed(0))
+    assert drawn.device.type == "cuda" and drawn.shape == (2, 41)
+    assert handle.sample(coords, seed=3) == handle.sample(coords, seed=3)
