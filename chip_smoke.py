@@ -118,7 +118,33 @@ Phases, each raising on failure (nothing is caught):
                 PDB and mmCIF and a two-chain PDB, against --nogpu runs of
                 the same commands (scores within 1e-4; one seed sampled twice
                 on the card gives one FASTA);
- 15. summary  — the nvidia-smi line, a JSON line of the ported kernels (K1
+ 15. lora     — LoRA fine-tuning of ESM2-650M at full width and depth: rank
+                16, alpha 16, the default targets (12,165,120 adapter
+                parameters), bf16 compute, flash, remat "dots", B=8 x 1024
+                tokens; the base stored in bf16, then weight-only int8. The
+                adapter gradients of the flash path (K1 with the lse, K2)
+                against the exact path's with seeded nonzero b; K1-lse 66 and
+                K2 33 + 33 launches a step; 6 steps on one batch, the loss
+                falls, the base bit-identical; the merged model's logits
+                against the patched model's; the int8 base's first loss
+                within 2% of the bf16 base's, its peak memory at least 0.5 GB
+                lower, its merge refused; step time, tok/s, peak memory and
+                the optimizer state against [train]'s AdamW state;
+ 16. int8     — the weight-only int8 ESM2-650M forward at [main]'s shape
+                through LMHandle.quantized(): logits against the bf16 handle,
+                parameter bytes below 0.27 of fp32's, 33 K1 launches, seq/s;
+ 17. train-msa — MSA-1b training at full size (B=1 x 128 rows x 257): 3 full
+                and 3 LoRA steps in bf16; card vs CPU at 2 layers, fp32;
+ 18. train-if — ESM-IF1 training at its released size, fp32: card vs CPU on
+                a 120-residue backbone, a step repeated bit for bit, 3 full
+                and 3 LoRA steps on 4 x 250 residues;
+ 19. cli-pretrain-lora — cli.pretrain on the card with --lora 8, with
+                --lora-int8-base and with --adafactor: a resumed run equals
+                the uninterrupted one bit for bit, the saves load; the
+                optimizer state of adafactor at ESM2-650M beside AdamW's.
+                ([cli], [cli-fold] and [cli-variants] also run --int8 against
+                the same command without it.)
+ 20. summary  — the nvidia-smi line, a JSON line of the ported kernels (K1
                 also at the ESM-1b and ESM-1 shapes), and as the last line
                 {"ok": true, "device": {...}}.
 
@@ -839,23 +865,11 @@ def phase_train(card):
     # step-0 gradients: flash path vs exact path, same weights and corruption
     loss_f, g_flash = grads_of(model, flash, batch)
     loss_e, g_exact = grads_of(model, exact, batch)
-    worst_cos, worst_name, sq_f, sq_e = 2.0, "", 0.0, 0.0
-    for name, gf in g_flash.items():
-        ge = g_exact[name]
-        sq_f += float(gf.double().pow(2).sum())
-        sq_e += float(ge.double().pow(2).sum())
-        if not name.endswith("weight"):
-            continue
-        cos = float(torch.nn.functional.cosine_similarity(gf.flatten().double(),
-                                                          ge.flatten().double(), dim=0))
-        if cos < worst_cos:
-            worst_cos, worst_name = cos, name
-    ratio = (sq_f / sq_e) ** 0.5
+    worst_cos, worst_name, ratio = grad_agreement(g_flash, g_exact,
+                                                  names=lambda n: n.endswith("weight"))
     log(f"[train] step-0 loss flash {loss_f:.5f} exact {loss_e:.5f}; gradients flash vs exact: "
         f"{len(g_flash)} tensors, lowest cosine over the weight tensors {worst_cos:.5f} "
         f"({worst_name}), global-norm ratio {ratio:.5f}")
-    if g_flash.keys() != g_exact.keys():
-        raise AssertionError("flash and exact paths give gradients to other parameters")
     if not (worst_cos >= 0.99 and abs(ratio - 1) <= 0.05):
         raise AssertionError(f"flash gradients disagree: cosine {worst_cos} ({worst_name}) "
                              f"< 0.99 or norm ratio {ratio} off by more than 5%")
@@ -1098,6 +1112,23 @@ def phase_cli():
             raise AssertionError(f"extract on the card vs CPU: max abs err {worst} > 2e-4")
         log(f"[cli] esm-extract wrote {len(seqs)} files (lengths {lengths}); "
             f"vs a CPU forward: max abs err {worst:.2e} <= 2e-4")
+
+        # --int8 on the card against the same command without it
+        int8_dir = os.path.join(tmp, "out_int8")
+        extract.run(extract.create_parser().parse_args(
+            [ckpt, fasta, int8_dir, "--include", "mean", "per_tok", "bos", "contacts",
+             "--repr_layers", "0", "-1", "--fp32-precision", "--int8"]))
+        ratio = 0.0
+        for label in seqs:
+            got = torch.load(os.path.join(int8_dir, f"{label}.pt"), weights_only=False)
+            ref = torch.load(os.path.join(out_dir, f"{label}.pt"), weights_only=False)
+            for key in ("representations", "mean_representations"):
+                r, g = ref[key][6], got[key][6]
+                ratio = max(ratio, (g - r).abs().max().item() / (0.15 * (r.abs().max().item() + 1)))
+        log(f"[cli] esm-extract --int8 against the run without it: the representations' largest "
+            f"error is {ratio:.4f} of the bound 0.15 (max|ref| + 1)")
+        if not 0 < ratio < 1:
+            raise AssertionError(f"[cli] esm-extract --int8: error {ratio} x the bound")
 
         # ESM-1b: full width, 6 of its 33 layers, --bucket (the 1022-residue
         # sequence takes 1024 tokens, the learned positions' last rows), on
@@ -1547,6 +1578,23 @@ def phase_cli_fold():
                 log(f"[cli-fold] {where}: {n} PDBs in {seconds:.1f} s, K6 launched {launches} times")
                 if n != len(seqs) or (where == "cuda") != (launches > 0):
                     raise AssertionError(f"cli.fold on {where}: {n} PDBs, K6 x {launches}")
+            # --int8 on the card against the run without it (random weights: no bound)
+            out_dir = os.path.join(tmp, "cuda_int8")
+            zero_counts()
+            n = fold.run(fold.create_parser().parse_args(
+                ["-i", fasta, "-o", out_dir, "-m", ckpt, "--fused-triangle", "--num-recycles",
+                 "0", "--int8"]))
+            launches = ta.triangle_attention_fused.launches
+            int8 = {k: open(os.path.join(out_dir, f"{k}.pdb")).read() for k in seqs}
+            if n != len(seqs) or launches == 0:
+                raise AssertionError(f"cli.fold --int8: {n} PDBs, K6 x {launches}")
+            for k in seqs:
+                ca, ca_ref = pdb_ca(int8[k]), pdb_ca(outs["cuda"][k])
+                if not (np.isfinite(ca).all() and ca.shape == ca_ref.shape):
+                    raise AssertionError(f"cli.fold --int8 {k}: CA atoms {ca.shape}")
+                rmsd = float(np.sqrt(((ca[:, :3] - ca_ref[:, :3]) ** 2).sum(-1).mean()))
+                log(f"[cli-fold] --int8 {k}: CA-RMSD {rmsd:.3f} A from the run without it, mean "
+                    f"pLDDT {ca[:, 3].mean():.2f} vs {ca_ref[:, 3].mean():.2f}; K6 x {launches}")
         finally:
             if prev_cache is None:
                 os.environ.pop("ESM_TPU_CACHE", None)
@@ -1572,6 +1620,13 @@ def phase_cli_fold():
     log(f"[cli-fold] {len(seqs)} sequences (lengths 40, 120, 257 and a 60:50 dimer), esm2_t6_8M "
         f"LM and a 2-block trunk at ESMFold's widths, fp32, one pass, --fused-triangle: card vs "
         f"CPU coordinates within {worst:.4f} A <= {CLI_FOLD_TOL} A, same atoms and records")
+
+
+def pdb_ca(pdb):
+    """(n, 4) x, y, z and B-factor (the pLDDT) of a PDB text's CA atoms."""
+    return np.array([[float(line[i:i + w]) for i, w in ((30, 8), (38, 8), (46, 8), (60, 6))]
+                     for line in pdb.splitlines()
+                     if line.startswith("ATOM") and line[12:16] == " CA "])
 
 
 @contextlib.contextmanager
@@ -1927,9 +1982,11 @@ def phase_cli_variants():
             ("wt-marginals, ESM-1v", [esm1v], "wt-marginals", [], dms, VARIANT_TOL),
             ("pseudo-ppl, ESM-1v", [esm1v], "pseudo-ppl", [], dms_head, PPPL_TOL),
         ]
+        card_scores = {}
         for i, (what, models, strategy, extra, cpu_dms, tol) in enumerate(runs):
             header, rows, printed, sec = run_variants(
                 argv(models, strategy, f"card{i}.csv", dms, *extra), "cuda")
+            card_scores[what] = [float(r[3]) for r in rows]
             cheader, crows, cprinted, csec = run_variants(
                 argv(models, strategy, f"cpu{i}.csv", cpu_dms, *extra), "cpu")
             scores = np.asarray([[float(x) for x in r[3:]] for r in rows])
@@ -1951,6 +2008,21 @@ def phase_cli_variants():
                 crho = [float(x) for x in re.findall(r"= ([0-9.]+)$", "\n".join(cprinted), re.M)]
                 if not (len(rho) == len(crho) == 3 and np.allclose(rho, crho, atol=1e-3)):
                     raise AssertionError(f"[cli-variants] {what}: |rho| {rho} vs CPU {crho}")
+
+        # --int8 on the card against the run without it (random small weights: no bound)
+        from esm_tpu_torch.metrics import spearman
+
+        header, rows, _, sec = run_variants(
+            argv([esm1v], "wt-marginals", "card_int8.csv", dms, "--int8"), "cuda")
+        q = np.asarray([float(r[3]) for r in rows])
+        ref = np.asarray(card_scores["wt-marginals, ESM-1v"])
+        if not (len(q) == len(ref) and np.isfinite(q).all()):
+            raise AssertionError(f"[cli-variants] --int8: {len(q)} scores, finite "
+                                 f"{np.isfinite(q).all()}")
+        log(f"[cli-variants] wt-marginals, ESM-1v, --int8 on the card in {sec:.1f} s: largest "
+            f"score difference from the run without it {np.abs(q - ref).max():.4f} (scores up "
+            f"to {np.abs(ref).max():.3f}), Spearman over the {len(q)} mutants "
+            f"{spearman(q, ref):.4f}")
 
 
 # ESM-IF1 card vs CPU (fp32 on both, TF32 off): the encoder output, the
@@ -2347,6 +2419,500 @@ def phase_cli_if(model):
             f"(t={time.perf_counter() - t0:.1f} s)")
 
 
+# ---------------------------------------------------------------------------
+# Weight-only int8, LoRA and the fine-tuning trainers
+# ---------------------------------------------------------------------------
+
+LORA_RANK = 16
+LORA_LR = 1e-5  # the adapters' AdamW rate on the random init's fixed batch (PERF.md)
+LORA_PARAMS_650M = 12_165_120  # 33 x (4 x 16 x 2560 + 2 x 16 x 6400)
+INT8_PARAM_RATIO = 0.27  # int8 / fp32 parameter bytes of ESM2-650M: the linears at 1/4
+INT8_MEMORY_SAVING = 0.5e9  # the int8 base's LoRA step peak below the bf16 base's, bytes
+TRAIN_TOL = 1e-4  # [train-msa], [train-if]: card vs CPU gradients, share of the largest
+
+
+def grad_agreement(g_a, g_b, names=None):
+    """(lowest cosine over the tensors that ``names`` selects, its name,
+    global-norm ratio |g_a| / |g_b|) of two gradient dicts."""
+    import torch
+
+    if g_a.keys() != g_b.keys():
+        raise AssertionError("the two paths give gradients to other parameters")
+    worst_cos, worst_name, sq_a, sq_b = 2.0, "", 0.0, 0.0
+    for name, ga in g_a.items():
+        gb = g_b[name]
+        sq_a += float(ga.double().pow(2).sum())
+        sq_b += float(gb.double().pow(2).sum())
+        if names is not None and not names(name):
+            continue
+        cos = float(torch.nn.functional.cosine_similarity(ga.flatten().double(),
+                                                          gb.flatten().double(), dim=0))
+        if cos < worst_cos:
+            worst_cos, worst_name = cos, name
+    return worst_cos, worst_name, (sq_a / sq_b) ** 0.5
+
+
+def adapter_grads(base, adapters, cfg, batch):
+    """Loss and adapter gradients of one LoRA loss over the frozen base."""
+    from esm_tpu_torch import training
+
+    adapters.zero_grad(set_to_none=True)
+    with training.frozen_and_patched(base, adapters, 1.0):
+        loss, _ = training.mlm_loss(base, cfg, *batch)
+        loss.backward()
+    grads = {n: p.grad.detach().clone() for n, p in adapters.named_parameters()}
+    adapters.zero_grad(set_to_none=True)
+    return loss.item(), grads
+
+
+def lora_steps(tag, base, cfg, batch, steps, apply_fn=None):
+    """``steps`` LoRA steps (rank 16, the default targets, AdamW at LORA_LR)
+    on one batch and corruption. Returns (losses, seconds a step after the
+    first, peak bytes, adapters, state)."""
+    import torch
+    from esm_tpu_torch import lora, training
+
+    adapters = lora.init_lora(torch.Generator(device="cuda").manual_seed(8), base,
+                              rank=LORA_RANK)
+    tx = training.make_optimizer(LORA_LR, warmup_steps=1, total_steps=1000)
+    state = training.init_state(adapters, tx)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, metrics = training.train_step_lora_corrupted(state, base, cfg, tx, *batch,
+                                                            apply_fn=apply_fn)
+        losses.append(metrics["loss"].item())  # synchronises
+        step_s.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[{tag}] LoRA losses over {steps} steps: " + ", ".join(f"{x:.5f}" for x in losses))
+    return losses, float(np.mean(step_s[1:])), peak, adapters, state
+
+
+def phase_lora(card):
+    """LoRA fine-tuning of ESM2-650M at full width and depth (seeded): the base
+    stored in bf16, then weight-only int8 (--lora-int8-base's configuration);
+    bf16 compute, flash attention and remat "dots", rank 16, alpha 16, the
+    default targets, B=8 x 1024 tokens ([train]'s shape)."""
+    import dataclasses
+
+    import torch
+    from esm_tpu_torch import lora, pretrained, training
+    from esm_tpu_torch.models import esm2
+
+    B, L = 8, 1022
+    runs = {}
+    for kind in ("bf16", "int8"):
+        handle, alphabet = pretrained.random_model_and_alphabet(
+            "esm2_t33_650M_UR50D", seed=5, device="cuda")
+        base, n_layers = lora.store_base(handle.model, int8=kind == "int8"), handle.num_layers
+        del handle
+        cfg = dataclasses.replace(base.cfg, compute_dtype=torch.bfloat16, use_flash=True,
+                                  remat=True, remat_policy="dots")
+        tokens = torch.from_numpy(bench_tokens(alphabet, B, L, seed=6)).cuda()
+        corrupted, target_mask = training._corrupt_batch(
+            cfg, torch.Generator(device="cuda").manual_seed(7), tokens)
+        batch = (corrupted, tokens, target_mask)
+        before = {k: v.cpu().clone() for k, v in base.state_dict().items()}
+        if kind == "bf16":
+            probe = lora.init_lora(torch.Generator(device="cuda").manual_seed(8), base,
+                                   rank=LORA_RANK)
+            n_adapters = lora.num_params(probe)
+            log(f"[lora] ESM2-650M, bf16 base, rank {LORA_RANK}: {n_adapters:,} adapter "
+                f"parameters (expected {LORA_PARAMS_650M:,}); B={B} x {L + 2} tokens, "
+                f"{int(target_mask.sum())} masked targets")
+            if n_adapters != LORA_PARAMS_650M:
+                raise AssertionError(f"[lora] {n_adapters} adapter parameters")
+            with torch.no_grad():
+                gen = torch.Generator(device="cuda").manual_seed(9)
+                for _, a in probe.adapters():
+                    a.lora_b.normal_(0.0, 0.02, generator=gen)
+            loss_f, g_flash = adapter_grads(base, probe, cfg, batch)
+            loss_e, g_exact = adapter_grads(base, probe, dataclasses.replace(cfg, use_flash=False),
+                                            batch)
+            cos, worst, ratio = grad_agreement(g_flash, g_exact)
+            log(f"[lora] adapter gradients, seeded nonzero b, flash vs exact: loss {loss_f:.5f} / "
+                f"{loss_e:.5f}, lowest cosine {cos:.5f} ({worst}), global-norm ratio {ratio:.5f}")
+            if not (cos >= 0.99 and abs(ratio - 1) <= 0.05):
+                raise AssertionError(f"[lora] flash gradients disagree: cosine {cos} ({worst}), "
+                                     f"ratio {ratio}")
+            del g_flash, g_exact
+            # merge against patch with these adapters: a few steps' deltas at LORA_LR
+            # are below a bf16 weight's resolution, and merging rounds them away
+            with torch.no_grad():
+                plain = dataclasses.replace(cfg, remat=False)
+                with lora.patch(base, probe):
+                    patched = esm2.apply(base, plain, tokens)["logits"]
+                merged = lora.merge(base, probe)
+                hold_flash("lora", esm2.apply(merged, plain, tokens)["logits"], patched)
+            log("[lora] the merged bf16 model's logits (seeded nonzero b) held against the "
+                "patched model's")
+            del probe, merged, patched
+            torch.cuda.empty_cache()
+        zero_counts()
+        losses, sec, peak, adapters, state = lora_steps(f"lora {kind}", base, cfg, batch,
+                                                        TRAIN_STEPS)
+        counts = read_counts()
+        per_step = {k: v / TRAIN_STEPS for k, v in counts.items()}
+        want = {"flash_attention": 0, "flash_attention_with_lse": 2 * n_layers,
+                "flash_attention_bwd.dq": n_layers, "flash_attention_bwd.dkv": n_layers,
+                "triangle_attention_fused": 0, "tri_mul_stage1": 0, "tri_mul_epilogue": 0}
+        log(f"[lora] {kind} base: launches per step {per_step} (expected {want})")
+        if per_step != want:
+            raise AssertionError(f"[lora] launches per step {per_step}, expected {want}")
+        if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+            raise AssertionError(f"[lora] {kind} base: losses not finite or not falling: {losses}")
+        if not all(torch.equal(t.cpu(), before[k]) for k, t in base.state_dict().items()):
+            raise AssertionError(f"[lora] the {kind} base changed during the steps")
+        n_base = sum(p.numel() for p in base.parameters())
+        log(f"[lora] {kind} base: {sec * 1e3:.1f} ms/step, {B * (L + 2) / sec:.1f} tok/s, peak "
+            f"memory {peak / 1e9:.3f} GB (torch.cuda.max_memory_allocated), optimizer state "
+            f"{state.opt_state_bytes() / 1e6:.1f} MB against [train]'s AdamW state "
+            f"{8 * n_base / 1e9:.3f} GB; the base bit-identical after the steps "
+            f"(ESM2-650M, B={B}, L={L}; {card})")
+        runs[kind] = dict(losses=losses, peak=peak, sec=sec)
+        if kind == "bf16":
+            with torch.no_grad():
+                plain = dataclasses.replace(cfg, remat=False)
+                with lora.patch(base, adapters):
+                    patched = esm2.apply(base, plain, tokens)["logits"]
+                merged = esm2.apply(lora.merge(base, adapters), plain, tokens)["logits"]
+            err = (merged - patched).abs().max().item()
+            agree = (merged.argmax(-1) == patched.argmax(-1)).float().mean().item()
+            log(f"[lora] the trained adapters merged into the bf16 base against the patched "
+                f"model (no bound): max abs err {err:.4f}, argmax agreement {agree:.5f}")
+            del merged, patched
+        else:
+            try:
+                lora.merge(base, adapters)
+            except ValueError as err:
+                log(f"[lora] merge over the int8 base refuses: {err}")
+            else:
+                raise AssertionError("[lora] merge over an int8 base did not refuse")
+        del base, adapters, state, batch, before
+        torch.cuda.empty_cache()
+    first = runs["int8"]["losses"][0] / runs["bf16"]["losses"][0]
+    saved = runs["bf16"]["peak"] - runs["int8"]["peak"]
+    log(f"[lora] int8 base against the bf16 base: first loss ratio {first:.5f}, peak memory "
+        f"{saved / 1e9:.3f} GB lower, step time ratio "
+        f"{runs['int8']['sec'] / runs['bf16']['sec']:.3f}")
+    if not abs(first - 1) <= 0.02:
+        raise AssertionError(f"[lora] the int8 base's first loss is {first} x the bf16 base's")
+    if not saved >= INT8_MEMORY_SAVING:
+        raise AssertionError(f"[lora] the int8 base saves {saved / 1e9} GB of peak memory")
+
+
+def phase_int8(card):
+    """The weight-only int8 ESM2-650M forward at [main]'s shape (B=32, 1024
+    tokens, bf16, flash) through LMHandle.quantized(), against the bf16
+    handle in the same run."""
+    import torch
+    from esm_tpu_torch import pretrained
+    from esm_tpu_torch.quantization import param_bytes
+
+    B, L = 32, 1022
+    handle, alphabet = pretrained.random_model_and_alphabet(
+        "esm2_t33_650M_UR50D", seed=0, device="cuda")
+    quant = handle.quantized()
+    ratio = param_bytes(quant.model) / param_bytes(handle.model)
+    flash = handle.with_options(compute_dtype=torch.bfloat16, use_flash=True)
+    qflash = quant.with_options(compute_dtype=torch.bfloat16, use_flash=True)
+    tokens = torch.from_numpy(bench_tokens(alphabet, B, L)).cuda()
+    zero_counts()
+    logits_q = qflash(tokens)["logits"]
+    torch.cuda.synchronize()
+    counts = read_counts()
+    logits = flash(tokens)["logits"]
+    scale = logits.abs().max().item()
+    err = (logits_q - logits).abs().max().item()
+    agree = (logits_q.argmax(-1) == logits.argmax(-1)).float().mean().item()
+    log(f"[int8] ESM2-650M int8 forward B={B} T={L + 2}: K1 launched "
+        f"{counts['flash_attention']} times; parameter bytes int8 / fp32 {ratio:.4f} "
+        f"(< {INT8_PARAM_RATIO}); logits vs the bf16 handle: max abs err {err:.4f} (bound "
+        f"{0.15 * (scale + 1):.3f}), argmax agreement {agree:.5f}")
+    if counts["flash_attention"] != handle.num_layers or sum(counts.values()) != handle.num_layers:
+        raise AssertionError(f"[int8] launches {counts}")
+    if not (torch.isfinite(logits_q).all() and err < 0.15 * (scale + 1) and agree > 0.95):
+        raise AssertionError(f"[int8] logits off: err {err}, agreement {agree}")
+    if not ratio < INT8_PARAM_RATIO:
+        raise AssertionError(f"[int8] parameter bytes ratio {ratio}")
+    rates = {}
+    for name, h in (("bf16", flash), ("int8", qflash)):
+        h(tokens)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            h(tokens)["logits"]
+        torch.cuda.synchronize()
+        rates[name] = B * 3 / (time.perf_counter() - t0)
+    log(f"[int8] flash path: int8 {rates['int8']:.3f} seq/s, bf16 {rates['bf16']:.3f} seq/s "
+        f"([main]'s handle, this run); int8 / bf16 = {rates['int8'] / rates['bf16']:.3f} "
+        f"(ESM2-650M, B={B}, L={L}; {card})")
+    del handle, quant, flash, qflash, logits, logits_q
+    torch.cuda.empty_cache()
+
+
+def msa_tokens(alphabet, rows, length, seed):
+    from esm_tpu_torch.data import MSABatchConverter
+
+    return MSABatchConverter(alphabet)([seeded_msa(rows, length, seed)])[2]
+
+
+def timed_steps(step, n):
+    """Losses and seconds a step (after the first) of ``n`` calls of ``step()``,
+    which returns (state, metrics), and the peak memory over them."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        losses.append(step()[1]["loss"].item())
+        step_s.append(time.perf_counter() - t0)
+    return losses, float(np.mean(step_s[1:])), torch.cuda.max_memory_allocated()
+
+
+def card_vs_cpu_grads(tag, cpu_model, card_model, loss_fn, tol):
+    """One loss and its gradients on the CPU and on the card (fp32, TF32 off),
+    and the same on the card again. Returns (loss error relative to the CPU's
+    loss, largest gradient error as a share of the largest value, whether the
+    card repeated itself bit for bit)."""
+    import torch
+
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        results = []
+        for model in (cpu_model, card_model, card_model):
+            model.zero_grad(set_to_none=True)
+            loss = loss_fn(model)
+            loss.backward()
+            results.append((loss.item(), {
+                n: (p.grad if p.grad is not None else torch.zeros_like(p)).detach().cpu().clone()
+                for n, p in model.named_parameters()}))
+            model.zero_grad(set_to_none=True)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    (l_cpu, g_cpu), (l_card, g_card), (l_again, g_again) = results
+    loss_err = abs(l_card - l_cpu) / abs(l_cpu)
+    grad_err = max(rel_err(g_card[n], g) for n, g in g_cpu.items())
+    repeat = l_card == l_again and all(torch.equal(g, g_again[n]) for n, g in g_card.items())
+    log(f"[{tag}] card vs CPU (fp32, TF32 off): loss {l_card:.7f} vs {l_cpu:.7f} (relative err "
+        f"{loss_err:.2e}), gradients {grad_err:.2e} of the largest (<= {tol}); the card's "
+        f"step repeated bit for bit: {repeat}")
+    return loss_err, grad_err, repeat
+
+
+def phase_train_msa(card):
+    """MSA Transformer training at MSA-1b's size (12 x 768, seeded), B=1 x
+    R=128 rows x C=257: 3 train_step_msa steps (bf16 compute, fp32 master
+    weights), 3 LoRA steps with msa_transformer.apply over the bf16 base;
+    one loss and its gradients on the card against the CPU at 2 of 12
+    layers, R=16, C=65, fp32."""
+    import copy
+    import dataclasses
+
+    import torch
+    from esm_tpu_torch import lora, pretrained, training
+    from esm_tpu_torch.models import msa_transformer as msa
+
+    handle, alphabet = pretrained.random_model_and_alphabet(
+        "esm_msa1b_t12_100M_UR50S", seed=50, device="cuda")
+    cfg = dataclasses.replace(handle.cfg, compute_dtype=torch.bfloat16)
+    tokens = msa_tokens(alphabet, 128, 256, seed=51).cuda()
+    corrupted, target_mask = training._corrupt_batch(
+        cfg, torch.Generator(device="cuda").manual_seed(52), tokens)
+    batch = (corrupted, tokens, target_mask)
+    tx = training.make_optimizer(1e-5, warmup_steps=1, total_steps=1000)
+    state = training.init_state(handle.model, tx)
+    losses, sec, peak = timed_steps(lambda: training.train_step_corrupted(
+        state, cfg, tx, *batch, apply_fn=msa.apply), 3)
+    log(f"[train-msa] MSA-1b, full parameters, bf16 compute, B=1 x R={tokens.shape[1]} x "
+        f"C={tokens.shape[2]}: losses " + ", ".join(f"{x:.5f}" for x in losses)
+        + f"; {sec * 1e3:.1f} ms/step, peak memory {peak / 1e9:.3f} GB ({card})")
+    lora.store_base(handle.model)
+    llosses, lsec, lpeak, _, _ = lora_steps("train-msa", handle.model, cfg, batch, 3,
+                                            apply_fn=msa.apply)
+    log(f"[train-msa] LoRA over the bf16 base: {lsec * 1e3:.1f} ms/step, peak memory "
+        f"{lpeak / 1e9:.3f} GB")
+    if not (all(np.isfinite(losses)) and all(np.isfinite(llosses))):
+        raise AssertionError(f"[train-msa] losses {losses}, LoRA {llosses}")
+    del handle, state, batch
+    torch.cuda.empty_cache()
+
+    small = dataclasses.replace(cfg, num_layers=2, compute_dtype=torch.float32)
+    cpu_model = msa.init(small, torch.Generator().manual_seed(53), device="cpu")
+    toks = msa_tokens(alphabet, 16, 64, seed=54)
+    c, m = training._corrupt_batch(small, torch.Generator().manual_seed(55), toks)
+
+    def loss_fn(model):
+        d = next(model.parameters()).device
+        return training.mlm_loss(model, small, c.to(d), toks.to(d), m.to(d), msa.apply)[0]
+
+    loss_err, grad_err, _ = card_vs_cpu_grads("train-msa", cpu_model,
+                                              copy.deepcopy(cpu_model).cuda(), loss_fn, TRAIN_TOL)
+    if not (loss_err <= TRAIN_TOL and grad_err <= TRAIN_TOL):
+        raise AssertionError(f"[train-msa] card vs CPU: loss {loss_err}, gradients {grad_err}")
+
+
+def if_batch(alphabet, lengths, seed, device):
+    from esm_tpu_torch.models.inverse_folding import util
+
+    items = [(ideal_backbone(n, seed + i), None, random_protein(n, seed + 100 + i))
+             for i, n in enumerate(lengths)]
+    coords, conf, _, tokens, pmask = util.CoordBatchConverter(alphabet)(items, device=device)
+    return coords, pmask, conf, tokens
+
+
+def phase_train_if(card):
+    """ESM-IF1 fine-tuning at its released size (seeded), fp32 with TF32 off:
+    one loss and its gradients on the card against the CPU on a 120-residue
+    backbone, repeated bit for bit on the card; 3 train_step_if and 3
+    train_step_if_lora steps on 4 synthetic backbones of 250 residues."""
+    import copy
+
+    import torch
+    from esm_tpu_torch import lora, pretrained, training
+
+    handle, alphabet = pretrained.random_model_and_alphabet(
+        "esm_if1_gvp4_t16_142M_UR50", seed=60, device="cuda")
+    model, cfg = handle.model, handle.cfg
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != IF1_PARAMS:
+        raise AssertionError(f"[train-if] {n_params} parameters, expected {IF1_PARAMS}")
+    one = if_batch(alphabet, [120], seed=61, device="cpu")
+
+    def loss_fn(m):
+        return training._if_loss(m, cfg, tuple(t.to(m.device) for t in one))[0]
+
+    loss_err, grad_err, repeat = card_vs_cpu_grads(
+        "train-if", copy.deepcopy(model).cpu(), model, loss_fn, TRAIN_TOL)
+    if not (loss_err <= 1e-5 and grad_err <= TRAIN_TOL and repeat):
+        raise AssertionError(f"[train-if] card vs CPU: loss {loss_err}, gradients {grad_err}, "
+                             f"repeat {repeat}")
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        batch = if_batch(alphabet, [250] * 4, seed=62, device="cuda")
+        tx = training.make_optimizer(1e-5, warmup_steps=1, total_steps=1000)
+        state = training.init_state(model, tx)
+        losses, sec, peak = timed_steps(
+            lambda: training.train_step_if(state, cfg, tx, *batch), 3)
+        log(f"[train-if] full parameters, 4 x 250 residues, fp32: losses "
+            + ", ".join(f"{x:.5f}" for x in losses)
+            + f"; {sec * 1e3:.1f} ms/step, peak memory {peak / 1e9:.3f} GB ({card})")
+        before = {k: v.clone() for k, v in model.state_dict().items()}
+        adapters = lora.init_lora(torch.Generator(device="cuda").manual_seed(63), model,
+                                  rank=LORA_RANK)
+        ltx = training.make_optimizer(LORA_LR, warmup_steps=1, total_steps=1000)
+        lstate = training.init_state(adapters, ltx)
+        llosses, lsec, lpeak = timed_steps(
+            lambda: training.train_step_if_lora(lstate, model, cfg, ltx, *batch), 3)
+        log(f"[train-if] LoRA, rank {LORA_RANK} ({lora.num_params(adapters):,} adapter "
+            f"parameters): losses " + ", ".join(f"{x:.5f}" for x in llosses)
+            + f"; {lsec * 1e3:.1f} ms/step, peak memory {lpeak / 1e9:.3f} GB")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    if not (all(np.isfinite(losses)) and all(np.isfinite(llosses))):
+        raise AssertionError(f"[train-if] losses {losses}, LoRA {llosses}")
+    if not all(torch.equal(v, before[k]) for k, v in model.state_dict().items()):
+        raise AssertionError("[train-if] the LoRA steps changed the base")
+    del handle, model, state, lstate, batch, before
+    torch.cuda.empty_cache()
+
+
+def run_pretrain(argv):
+    from esm_tpu_torch.cli import pretrain
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        state = pretrain.run(pretrain.create_parser().parse_args(argv))
+    return state, buf.getvalue(), time.perf_counter() - t0
+
+
+def same_state(a, b):
+    """Whether two TrainStates hold the same tensors, bit for bit."""
+    import dataclasses
+
+    import torch
+
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    if sa.keys() != sb.keys() or a.step != b.step or a.opt_state.count != b.opt_state.count:
+        return False
+    for f in dataclasses.fields(a.opt_state):
+        da, db = getattr(a.opt_state, f.name), getattr(b.opt_state, f.name)
+        if isinstance(da, dict) and (da.keys() != db.keys()
+                                     or not all(torch.equal(da[k], db[k]) for k in da)):
+            return False
+    return all(torch.equal(sa[k], sb[k]) for k in sa)
+
+
+def phase_cli_pretrain_lora():
+    """esm_tpu_torch.cli.pretrain on the card at its default model (6 x 320),
+    4 steps each with --lora 8, --lora 8 --lora-int8-base and --adafactor:
+    --save-every 2 --stop-after 2, then --resume, equals the uninterrupted
+    run bit for bit; the merged bf16-base save loads into an ESM2, the int8
+    run saves the adapters. Then adafactor's optimizer state at ESM2-650M
+    beside AdamW's, computed at init on the meta device."""
+    from esm_tpu_torch import lora, training
+    from esm_tpu_torch.io.checkpoint import load_params
+    from esm_tpu_torch.models import esm2
+
+    rng = np.random.RandomState(70)
+    with tempfile.TemporaryDirectory() as tmp:
+        fasta = os.path.join(tmp, "train.fasta")
+        with open(fasta, "w") as f:
+            for i in range(48):
+                seq = "".join(rng.choice(list("ACDEFGHIKLMNPQRSTVWY"), rng.randint(50, 600)))
+                f.write(f">s{i}\n{seq}\n")
+        for name, flags in (("lora", ["--lora", "8"]),
+                            ("lora-int8", ["--lora", "8", "--lora-int8-base"]),
+                            ("adafactor", ["--adafactor"])):
+            common = ["--fasta", fasta, "--steps", "4", "--log-every", "1", "--warmup-steps", "1",
+                      "--toks-per-batch", "4096", "--seed", "4"] + flags
+            straight, out, sec = run_pretrain(
+                common + ["--checkpoint-dir", os.path.join(tmp, name, "a")])
+            ckpt_b = os.path.join(tmp, name, "b")
+            run_pretrain(common + ["--checkpoint-dir", ckpt_b, "--save-every", "2",
+                                   "--stop-after", "2"])
+            resumed, out_b, _ = run_pretrain(common + ["--checkpoint-dir", ckpt_b, "--resume"])
+            losses = [float(x) for x in re.findall(r"loss\s+([0-9.naif]+)", out)]
+            same = same_state(straight, resumed)
+            saved = load_params(os.path.join(tmp, name, "a"))
+            if name == "lora":
+                cli_size = esm2.ESM2Config(**esm2.ESM2_SIZES["esm2_t6_8M_UR50D"])  # the defaults
+                esm2.ESM2(cli_size, device="cuda").load_state_dict(saved, strict=True)
+                what = f"the merged bf16 model saved ({len(saved)} tensors, loads into an ESM2)"
+            elif name == "lora-int8":
+                if saved.keys() != straight.model.state_dict().keys():
+                    raise AssertionError("[cli-pretrain-lora] the int8 run did not save adapters")
+                what = f"the adapters saved ({lora.num_params(straight.model):,} parameters)"
+            else:
+                what = f"adafactor's state {straight.opt_state_bytes() / 1e3:.1f} kB"
+            on_card = next(straight.model.parameters()).device.type == "cuda"
+            log(f"[cli-pretrain-lora] {' '.join(flags)}: 4 steps in {sec:.1f} s, losses "
+                + ", ".join(f"{x:.4f}" for x in losses)
+                + f"; resumed after step 2 equals the uninterrupted run bit for bit: {same}; "
+                f"{what}; on the card: {on_card}")
+            if not (same and on_card and len(losses) == 4 and all(np.isfinite(losses))
+                    and "resumed from" in out_b):
+                raise AssertionError(f"[cli-pretrain-lora] {flags}: losses {losses}, resume "
+                                     f"equal {same}, on the card {on_card}")
+
+    meta = esm2.ESM2(esm2.ESM2Config(**esm2.ESM2_SIZES["esm2_t33_650M_UR50D"]), device="meta")
+    sizes = {}
+    for name, factored in (("AdamW", False), ("adafactor", True)):
+        sizes[name] = training.init_state(
+            meta, training.make_optimizer(factored=factored)).opt_state_bytes()
+    n = sum(p.numel() for p in meta.parameters())
+    log(f"[cli-pretrain-lora] optimizer state of ESM2-650M ({n / 1e6:.1f}M parameters, at "
+        f"init): AdamW {sizes['AdamW'] / 1e9:.3f} GB, adafactor {sizes['adafactor'] / 1e6:.2f} "
+        f"MB ({sizes['adafactor'] / sizes['AdamW']:.5f} of AdamW's)")
+
+
 def main():
     import torch
 
@@ -2374,6 +2940,14 @@ def main():
     t_if1 = time.perf_counter()
     phase_cli_if(phase_if1(card))
     log(f"[if1] [if1] and [cli-if] took {time.perf_counter() - t_if1:.1f} s")
+    t_new = time.perf_counter()
+    phase_lora(card)
+    phase_int8(card)
+    phase_train_msa(card)
+    phase_train_if(card)
+    phase_cli_pretrain_lora()
+    log(f"[lora] [lora], [int8], [train-msa], [train-if] and [cli-pretrain-lora] took "
+        f"{time.perf_counter() - t_new:.1f} s")
     log(f"[summary] all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(smi)
     kernels = [k1] + k1_esm1 + backward + [k6] + trimul

@@ -9,7 +9,7 @@ default, ``.npz`` with --npz.
 Runs on the GPU; --nogpu runs on the CPU, and without a GPU the run raises
 unless --nogpu is given. --fp32-precision turns TF32 off for matmuls and
 cuDNN (otherwise both may use it). --profile-trace writes a torch.profiler
-trace. --int8 is not ported yet.
+trace. --int8 quantizes the linear layers' weights to int8 (weight-only).
 """
 
 from __future__ import annotations
@@ -75,7 +75,7 @@ def create_parser():
     )
     parser.add_argument(
         "--int8", action="store_true",
-        help="weight-only int8 quantization (not ported yet)",
+        help="weight-only int8 quantization of the linear layers",
     )
     parser.add_argument(
         "--serial", action="store_true",
@@ -90,8 +90,6 @@ def create_parser():
 
 
 def run(args):
-    if args.int8:
-        raise NotImplementedError("--int8: weight-only int8 is not ported yet")
     tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     allow = not args.fp32_precision
     torch.backends.cuda.matmul.allow_tf32 = allow
@@ -105,9 +103,12 @@ def run(args):
 def _run(args):
     from .. import pretrained
     from ..data import FastaBatchedDataset
+    from ..quantization import quantize_params
 
     device = pretrained.resolve_device("cpu" if args.nogpu else None)
     model, alphabet = pretrained.load_model_and_alphabet(args.model_location, device=device)
+    if args.int8:  # in place: the loaded weights are not needed in fp32
+        quantize_params(model.model)
 
     profiler = None
     if args.profile_trace:

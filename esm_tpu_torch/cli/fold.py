@@ -7,7 +7,8 @@ advice. Same flags and outputs. Runs on the GPU; --cpu-only runs on the CPU,
 and without a GPU the run raises unless --cpu-only is given.
 --fused-triangle selects kernel K6 for triangle attention; --bf16-lm and
 --fp16-lm set the LM's dtype (exact attention); --profile-trace writes a
-torch.profiler trace. --plan and --int8 are not ported yet and raise.
+torch.profiler trace. --int8 quantizes the LM's and trunk's linear layers
+to int8 (weight-only). --plan is not ported yet and raises.
 
     python -m esm_tpu_torch.cli.fold -i seqs.fasta -o pdbs/ -m esmfold.pt --bf16-trunk
 """
@@ -81,7 +82,7 @@ def create_parser():
                         help="capture a torch.profiler trace of the run into LOGDIR "
                         "(Chrome trace JSON)")
     parser.add_argument("--int8", action="store_true",
-                        help="weight-only int8 LM and trunk (not ported yet)")
+                        help="weight-only int8 LM and trunk")
     parser.add_argument("--in-flight", type=int, default=2,
                         help="batches kept in flight on the device (overlaps PDB writing of "
                         "batch k with folding of batch k+1); each holds its outputs")
@@ -109,9 +110,6 @@ def run(args):
         raise NotImplementedError(
             "--plan: the memory plan (esm_tpu/parallel/memory_plan.py) was fitted to a 16 GB "
             "TPU chip and is not ported yet (ROADMAP Queue 1, item 13)")
-    if args.int8:
-        raise NotImplementedError(
-            "--int8: weight-only int8 is not ported yet (ROADMAP Queue 1, item 10)")
     if args.fp16_lm and args.bf16_lm:
         raise SystemExit("esm-fold: pass at most one of --fp16-lm / --bf16-lm")
     device = pretrained.resolve_device("cpu" if args.cpu_only else None)
@@ -136,6 +134,10 @@ def run(args):
         trunk["use_flash_tri"] = True
     lm_dtype = torch.float16 if args.fp16_lm else torch.bfloat16 if args.bf16_lm else None
     handle = handle.with_options(lm_dtype=lm_dtype, **trunk)
+    if args.int8:  # LM and trunk, in place; lookup tables untouched
+        from ..quantization import quantize_params
+
+        quantize_params(handle.model)
 
     args.pdb.mkdir(exist_ok=True, parents=True)
     num_completed = 0

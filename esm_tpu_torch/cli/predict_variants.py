@@ -13,7 +13,8 @@ Masked-marginals runs only the positions the scan mutates: the scores are
 those of a run over every position. Log-softmax runs in fp32.
 
 Runs on the GPU; --nogpu runs on the CPU, and without a GPU the run raises
-unless --nogpu is given. --int8 is not ported yet. Run it as
+unless --nogpu is given; --int8 quantizes the linear layers' weights to
+int8 (weight-only). Run it as
 ``python -m esm_tpu_torch.cli.predict_variants``.
 """
 
@@ -56,7 +57,7 @@ def create_parser():
     )
     parser.add_argument(
         "--int8", action="store_true",
-        help="weight-only int8 quantization (not ported yet)",
+        help="weight-only int8 quantization of the linear layers",
     )
     return parser
 
@@ -162,10 +163,8 @@ def _positions(mutations, offset_idx, sequence):
 
 
 def run(args):
-    if args.int8:
-        raise NotImplementedError(
-            "--int8: weight-only int8 is not ported yet (ROADMAP Queue 1, item 10)")
     from .. import pretrained
+    from ..quantization import quantize_params
 
     device = pretrained.resolve_device("cpu" if args.nogpu else None)
     header, rows = read_table(args.dms_input)
@@ -175,6 +174,8 @@ def run(args):
 
     for model_location in args.model_location:
         model, alphabet = pretrained.load_model_and_alphabet(model_location, device=device)
+        if args.int8:  # in place: the loaded weights are not needed in fp32
+            quantize_params(model.model)
         batch_converter = alphabet.get_batch_converter()
         if model.kind == "msa":
             if args.scoring_strategy != "masked-marginals":

@@ -10,15 +10,22 @@ corruption generator are functions of (seed, step) alone.
 
     python -m esm_tpu_torch.cli.pretrain --fasta seqs.fasta --steps 100
 
+--lora RANK fine-tunes rank-RANK LoRA adapters (esm_tpu_torch.lora) on a
+frozen base: bf16 compute, the flash path and remat "dots" ("full" with
+--lora-full-remat), the base stored in bf16 (weight-only int8 with
+--lora-int8-base), the adapters drawn from seed + 3, scaled by
+alpha / rank; the final save is the merged model, or the adapters alone
+over an int8 base. --adafactor trains with adafactor instead of AdamW.
+
 Runs on the GPU; --cpu runs on the CPU, and without a GPU the run raises
-unless --cpu is given. Not ported yet, and raising NotImplementedError:
---lora and its options, and --adafactor. The JAX example's memory plan and
-mesh-scaling warnings were fitted to a 16 GB TPU and are not carried over.
+unless --cpu is given. The JAX example's memory plan and mesh-scaling
+warnings were fitted to a 16 GB TPU and are not carried over.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import os
 import time
@@ -65,13 +72,29 @@ def create_parser():
         "microbatches (exact big-batch equivalence)",
     )
     p.add_argument("--grad-clip", type=float, default=None, help="global-norm gradient clip")
-    p.add_argument("--lora", type=int, default=0, metavar="RANK",
-                   help="LoRA fine-tuning (not ported yet)")
-    p.add_argument("--lora-alpha", type=float, default=None, help="with --lora (not ported yet)")
-    p.add_argument("--lora-int8-base", action="store_true", help="with --lora (not ported yet)")
-    p.add_argument("--lora-full-remat", action="store_true", help="with --lora (not ported yet)")
-    p.add_argument("--adafactor", action="store_true",
-                   help="factored second-moment optimizer (not ported yet)")
+    p.add_argument(
+        "--lora", type=int, default=0, metavar="RANK",
+        help="parameter-efficient fine-tuning: freeze the base model and train "
+        "rank-RANK LoRA adapters on the attention/MLP linears (esm_tpu_torch.lora); "
+        "the optimizer state covers only the adapters",
+    )
+    p.add_argument(
+        "--lora-alpha", type=float, default=None,
+        help="LoRA alpha; the adapter delta is scaled by alpha/rank (default: alpha = rank)",
+    )
+    p.add_argument(
+        "--lora-int8-base", action="store_true",
+        help="with --lora: store the frozen base weight-only int8 instead of bf16",
+    )
+    p.add_argument(
+        "--lora-full-remat", action="store_true",
+        help="with --lora: save nothing per layer on the forward (remat_policy 'full'): "
+        "least activation memory, about a third more operations",
+    )
+    p.add_argument(
+        "--adafactor", action="store_true",
+        help="factored second-moment optimizer (state ~params/1000 instead of 2x params)",
+    )
     p.add_argument(
         "--bf16-moments", action="store_true",
         help="store AdamW first moments in bfloat16 (halves their memory)",
@@ -100,28 +123,32 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(value & ((1 << 63) - 1))
 
 
-def _refuse_unported(args) -> None:
-    lora = [f for f, on in (("--lora", args.lora), ("--lora-alpha", args.lora_alpha is not None),
-                            ("--lora-int8-base", args.lora_int8_base),
-                            ("--lora-full-remat", args.lora_full_remat)) if on]
-    if lora:
-        raise NotImplementedError(
-            f"{', '.join(lora)}: LoRA fine-tuning is not ported yet (ROADMAP Queue 1, item 10)"
+def _lora_base(args, cfg, model):
+    """The --lora configuration (esm_tpu's measured LoRA recipe): bf16
+    compute, flash attention and remat; the frozen base in bf16, or
+    weight-only int8 over the fp32 weights. Returns (cfg, scale)."""
+    from ..lora import store_base
+
+    if args.accum_steps > 1:
+        raise SystemExit(
+            "--lora does not compose with --accum-steps yet; LoRA's memory savings "
+            "usually make accumulation unnecessary"
         )
-    if args.adafactor:
-        raise NotImplementedError(
-            "--adafactor: make_optimizer(factored=True) is not ported yet (ROADMAP Queue 1)"
-        )
+    cfg = dataclasses.replace(cfg, compute_dtype=torch.bfloat16, use_flash=True, remat=True,
+                              remat_policy="full" if args.lora_full_remat else "dots")
+    store_base(model, int8=args.lora_int8_base)
+    alpha = args.lora_alpha if args.lora_alpha is not None else float(args.lora)
+    return cfg, alpha / args.lora
 
 
 def run(args):
     """Train as the flags say. Returns the final ``training.TrainState``."""
     from .. import pretrained, training
     from ..data import Alphabet, FastaBatchedDataset
+    from .. import lora
     from ..io.checkpoint import load_train_state, save_params, save_train_state
     from ..models import esm2
 
-    _refuse_unported(args)
     device = pretrained.resolve_device("cpu" if args.cpu else None)
     if args.init_from:
         handle, alphabet = pretrained.load_model_and_alphabet(args.init_from, device=device)
@@ -144,13 +171,28 @@ def run(args):
     converter = alphabet.get_batch_converter(args.truncation_seq_length, pad_to_multiple=128)
     print(f"{len(dataset)} sequences, {len(batches)} batches/epoch")
 
+    base = lora_scale = None
+    if args.lora:
+        cfg, lora_scale = _lora_base(args, cfg, model)
+        base = model
+
     warmup = min(args.warmup_steps, max(1, args.steps // 5))
     tx = training.make_optimizer(
         args.lr, warmup_steps=warmup, total_steps=max(args.steps, warmup + 1),
         grad_clip_norm=args.grad_clip,
         mu_dtype=torch.bfloat16 if args.bf16_moments else None,
+        factored=args.adafactor,
     )
-    state = training.init_state(model, tx)
+    if args.lora:
+        adapters = lora.init_lora(torch.Generator(device=device).manual_seed(args.seed + 3),
+                                  base, rank=args.lora)
+        n_base = sum(p.numel() for p in base.parameters())
+        print(f"LoRA rank {args.lora}: {lora.num_params(adapters) / 1e6:.2f}M trainable "
+              f"adapters on a frozen {n_base / 1e6:.0f}M base"
+              + (" (int8)" if args.lora_int8_base else " (bf16)"))
+        state = training.init_state(adapters, tx)
+    else:
+        state = training.init_state(model, tx)
 
     start_step = 0
     state_dir = f"{args.checkpoint_dir}-state" if args.checkpoint_dir else None
@@ -169,11 +211,15 @@ def run(args):
 
     def run_eval(step):
         nll = cnt = 0.0
-        for j, toks in enumerate(eval_batches):
-            sums = training.eval_step(state.model, cfg, step_generator(args.seed + 2, j, device),
-                                      toks.to(device))
-            nll += float(sums["nll_sum"].sum())
-            cnt += float(sums["count"].sum())
+        patched = (lora.patch(base, state.model, scale=lora_scale) if args.lora
+                   else contextlib.nullcontext(state.model))
+        with patched as eval_model:
+            for j, toks in enumerate(eval_batches):
+                sums = training.eval_step(eval_model, cfg,
+                                          step_generator(args.seed + 2, j, device),
+                                          toks.to(device))
+                nll += float(sums["nll_sum"].sum())
+                cnt += float(sums["count"].sum())
         print(f"step {step:5d}  eval masked-ppl {np.exp(nll / max(cnt, 1)):8.3f}")
 
     perm_cache = {}
@@ -200,7 +246,10 @@ def run(args):
             toks = torch.cat([toks, toks[:1].repeat(pad, 1)])
         toks = toks.to(device)
         gen = step_generator(args.seed + 1, step, device)
-        if args.accum_steps > 1:
+        if args.lora:
+            state, metrics = training.train_step_lora(state, base, cfg, tx, gen, toks,
+                                                      scale=lora_scale)
+        elif args.accum_steps > 1:
             state, metrics = training.train_step_accum(state, cfg, tx, gen, toks,
                                                        accum_steps=args.accum_steps)
         else:
@@ -224,8 +273,18 @@ def run(args):
     if eval_batches is not None and (not args.eval_every or last_step % args.eval_every):
         run_eval(last_step)
     if args.checkpoint_dir:
-        save_params(args.checkpoint_dir, state.model)
-        print(f"saved params to {args.checkpoint_dir}")
+        if not args.lora:
+            save_params(args.checkpoint_dir, state.model)
+            print(f"saved params to {args.checkpoint_dir}")
+        elif args.lora_int8_base:
+            # an int8 base is not merged (lora.merge refuses): ship the adapters,
+            # which inference attaches to the frozen base with lora.patch
+            save_params(args.checkpoint_dir, state.model)
+            print(f"saved LoRA adapters to {args.checkpoint_dir} "
+                  "(int8 base stays unmerged; apply with lora.patch)")
+        else:
+            save_params(args.checkpoint_dir, lora.merge(base, state.model, scale=lora_scale))
+            print(f"saved MERGED params to {args.checkpoint_dir}")
     return state
 
 

@@ -12,6 +12,7 @@ released checkpoint in the reference's ``.pt`` layout is loaded by
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from pathlib import Path
 from typing import Dict, Optional
@@ -48,16 +49,25 @@ def load_params(path, model: Optional[torch.nn.Module] = None):
     return model
 
 
+def _moments(opt) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The optimizer state's tensor dicts by field: AdamW's ``mu``/``nu``,
+    adafactor's ``v_row``/``v_col``/``v``."""
+    return {f.name: getattr(opt, f.name) for f in dataclasses.fields(opt)
+            if isinstance(getattr(opt, f.name), dict)}
+
+
 def save_train_state(path, state) -> None:
-    """Persist a whole ``training.TrainState`` (parameters, optimizer moments
-    and counts, step) mid-run to ``<path>/train_state.pt``. Restored with
+    """Persist a whole ``training.TrainState`` (parameters, or a LoRA's
+    adapters; the optimizer's moments or adafactor's statistics, and its
+    count; the step) mid-run to ``<path>/train_state.pt``. Restored with
     :func:`load_train_state`, and with the step seeding the batch order and
     the corruption, a resumed run repeats the uninterrupted one bit for bit."""
     opt = state.opt_state
     _save(
         {
             "params": _cpu(state.model.state_dict()),
-            "opt_state": {"count": opt.count, "mu": _cpu(opt.mu), "nu": _cpu(opt.nu)},
+            "opt_state": {"count": opt.count,
+                          **{k: _cpu(v) for k, v in _moments(opt).items()}},
             "step": state.step,
         },
         Path(path) / STATE_FILE,
@@ -71,8 +81,8 @@ def load_train_state(path, template):
     blob = torch.load(Path(path) / STATE_FILE, map_location="cpu", weights_only=True)
     template.model.load_state_dict(blob["params"], strict=True)
     opt = template.opt_state
-    for key in ("mu", "nu"):
-        dst, src = getattr(opt, key), blob["opt_state"][key]
+    for key, dst in _moments(opt).items():
+        src = blob["opt_state"].get(key, {})
         if dst.keys() != src.keys():
             raise ValueError(f"saved {key} covers other parameters than the template's")
         for name, t in src.items():

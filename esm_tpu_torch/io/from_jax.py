@@ -23,11 +23,19 @@ rules of esm_tpu/io/export.py:445-505: each GVP's wh/ws/wv/wg as present,
 tuple LNs under ``scalar_norm``, the GVP conv layers' ``norm0``/``norm1``
 as ``norm.0``/``norm.1``, the embedding GVP and its LN as ``.0``/``.1``,
 and the two ``embed_positions._float_tensor`` buffers.
+
+A weight-only int8 kernel (esm_tpu/quantization.py) becomes an int8
+``weight`` beside its fp32 ``scale``: load such a state dict into a model
+given the int8 layout by ``quantization.adopt_int8_layout``.
+``lora_from_jax`` carries a LoRA adapter tree (esm_tpu/lora.py) onto the
+port's ``lora.LoRA`` module, and :func:`jax_leaf` names the esm_tpu
+parameter leaf that each of the port's modules belongs to.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import re
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,14 +50,13 @@ def _t(x) -> torch.Tensor:
 
 def _linear(sd: Dict, key: str, p, i: Optional[int] = None) -> None:
     k = np.asarray(p["kernel"])
-    if k.dtype == np.int8:
-        raise NotImplementedError("int8 parameters are not ported yet")
     if i is not None:
         k = k[i]
     sd[f"{key}.weight"] = _t(k.T)
-    if "bias" in p:
-        b = np.asarray(p["bias"])
-        sd[f"{key}.bias"] = _t(b[i] if i is not None else b)
+    for name in ("bias", "scale"):  # "scale": a weight-only int8 kernel's
+        if name in p:
+            a = np.asarray(p[name])
+            sd[f"{key}.{name}"] = _t(a[i] if i is not None else a)
 
 
 def _ln(sd: Dict, key: str, p, i: Optional[int] = None) -> None:
@@ -122,6 +129,8 @@ def esm1_state_dict_from_jax(params, cfg) -> Dict[str, torch.Tensor]:
     else:
         sd["embed_positions._float_tensor"] = torch.zeros(1)
         sd["embed_out"] = _t(np.asarray(params["embed_out"]["kernel"]).T)  # stored (V, D)
+        if "scale" in params["embed_out"]:  # a weight-only int8 kernel
+            sd["embed_out_scale"] = _t(params["embed_out"]["scale"])
         if "bias" in params["embed_out"]:
             sd["embed_out_bias"] = _t(params["embed_out"]["bias"])
     return sd
@@ -311,3 +320,85 @@ def if1_state_dict_from_jax(params, cfg) -> Dict[str, torch.Tensor]:
     _ln(sd, "decoder.layer_norm", dec["layer_norm"])
     _linear(sd, "decoder.output_projection", dec["output_projection"])
     return sd
+
+
+# The port's module lists that esm_tpu stacks into one leaf with a leading
+# layer axis (driven by lax.scan): the language models' layers (also those
+# of ESMFold's LM) and ESMFold's trunk blocks. ESM-IF1's layers and the
+# structure module's stay Python lists there, one leaf per layer.
+_STACKED = ("layers", "esm.layers", "trunk.blocks")
+# Port module names that esm_tpu spells otherwise: the Sequential indices of
+# ESMFold's MLPs and pLDDT head, ESM-IF1's graph-embedding GVPs.
+_RENAMES = (
+    (re.compile(r"^(esm_[sz]_mlp)\.0(?=\.|$)"), r"\1.norm"),
+    (re.compile(r"^(esm_[sz]_mlp)\.1(?=\.|$)"), r"\1.fc1"),
+    (re.compile(r"^(esm_[sz]_mlp)\.3(?=\.|$)"), r"\1.fc2"),
+    (re.compile(r"^lddt_head\.0(?=\.|$)"), r"lddt_head.norm"),
+    (re.compile(r"^lddt_head\.([123])(?=\.|$)"), r"lddt_head.fc\1"),
+    (re.compile(r"(^|\.)(mlp_seq|mlp_pair)\.mlp\.0(?=\.|$)"), r"\1\2.norm"),
+    (re.compile(r"(^|\.)(mlp_seq|mlp_pair)\.mlp\.1(?=\.|$)"), r"\1\2.fc1"),
+    (re.compile(r"(^|\.)(mlp_seq|mlp_pair)\.mlp\.3(?=\.|$)"), r"\1\2.fc2"),
+    (re.compile(r"(^|\.)embed_(node|edge)\.0(?=\.|$)"), r"\1embed_\2_gvp"),
+)
+
+
+def jax_leaf(name: str) -> Tuple[Tuple, Optional[int]]:
+    """The esm_tpu node that the port's module or parameter ``name`` (relative
+    to a model's root) belongs to: (its path as esm_tpu/lora.py spells paths,
+    dict keys as str and list indices as int; the layer's index within a
+    stacked leaf, or None). ``layers.3.self_attn.q_proj`` is
+    (("layers", "self_attn", "q_proj"), 3). Rules that esm_tpu applies per
+    leaf (quantize_params' ``min_size``, init_lora's order of draws,
+    adafactor's block RMS) take the port's tensors in groups by this path."""
+    layer = None
+    for prefix in _STACKED:
+        head, sep, rest = name.partition(prefix + ".")
+        if head == "" and sep:
+            idx, _, tail = rest.partition(".")
+            if idx.isdigit():
+                layer = int(idx)
+                name = prefix + ("." + tail if tail else "")
+            break
+    for pattern, repl in _RENAMES:
+        name = pattern.sub(repl, name)
+    return tuple(int(p) if p.isdigit() else p for p in name.split(".")), layer
+
+
+def lora_from_jax(adapters, model):
+    """A LoRA adapter tree of esm_tpu/lora.py (numpy or JAX arrays; stacked
+    (num_layers, d_in, r) factors, list-stacked layers with ``{}`` in the
+    slots left out) -> the port's ``lora.LoRA`` for ``model``, one
+    (d_in, r) / (r, d_out) pair per adapted ``nn.Linear``. Raises KeyError
+    when an adapter has no linear in ``model``."""
+    from ..lora import LoRA
+
+    nodes = {}
+
+    def collect(path, node):
+        if isinstance(node, dict) and "lora_a" in node:
+            nodes[path] = node
+        elif isinstance(node, dict):
+            for k, v in node.items():
+                collect(path + (k,), v)
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                collect(path + (i,), v)
+
+    collect((), adapters)
+    factors, used = {}, set()
+    for name, module in model.named_modules():
+        if not isinstance(module, torch.nn.Linear):
+            continue
+        path, layer = jax_leaf(name)
+        node = nodes.get(path)
+        if node is None:
+            continue
+        used.add(path)
+        a, b = (np.asarray(node[k]) for k in ("lora_a", "lora_b"))
+        if layer is not None:
+            a, b = a[layer], b[layer]
+        factors[name] = (_t(a), _t(b))
+    missing = sorted(set(nodes) - used, key=str)
+    if missing:
+        raise KeyError(f"adapters with no linear in the model: {missing}")
+    return LoRA(factors)

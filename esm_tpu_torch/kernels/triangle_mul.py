@@ -33,6 +33,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..ops.common import materialize_weight
 from ._grad import refuse_grad
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -51,7 +52,7 @@ def _ln_rows(x32: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: fl
 
 def stage1_weights(mod, dtype) -> Tuple[torch.Tensor, ...]:
     """(W4 (4C, C), b4 (4C,)) in ``dtype``, LN scale and bias (C,) fp32."""
-    w4 = torch.cat([getattr(mod, n).weight for n in _GATES], dim=0).to(dtype).contiguous()
+    w4 = torch.cat([materialize_weight(getattr(mod, n), dtype) for n in _GATES], dim=0).contiguous()
     b4 = torch.cat([getattr(mod, n).bias for n in _GATES]).to(dtype).contiguous()
     ln = mod.layer_norm_in
     return w4, b4, ln.weight.float().contiguous(), ln.bias.float().contiguous()
@@ -62,7 +63,7 @@ def epilogue_weights(mod, dtype) -> Tuple[torch.Tensor, ...]:
     out = []
     for name in ("linear_g", "linear_z"):
         lin = getattr(mod, name)
-        out += [lin.weight.to(dtype).contiguous(), lin.bias.to(dtype).contiguous()]
+        out += [materialize_weight(lin, dtype).contiguous(), lin.bias.to(dtype).contiguous()]
     for ln in (mod.layer_norm_in, mod.layer_norm_out):
         out += [ln.weight.float().contiguous(), ln.bias.float().contiguous()]
     return tuple(out)

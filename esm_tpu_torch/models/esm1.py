@@ -40,7 +40,13 @@ from ..ops.positional import (
     learned_positional_embedding,
     sinusoidal_positional_embedding,
 )
-from .lm_common import LayerStatic, TransformerLayer, normalize_repr_layers, transformer_stack_apply
+from .lm_common import (
+    LayerStatic,
+    TransformerLayer,
+    embedding_lookup,
+    normalize_repr_layers,
+    transformer_stack_apply,
+)
 
 
 @dataclass(frozen=True)
@@ -196,7 +202,7 @@ def embed(model: ESM1, cfg: ESM1Config, tokens: torch.Tensor) -> torch.Tensor:
     positions (reference esm/model/esm1.py:116-140). Runs in fp32, returns
     the compute dtype."""
     padding_mask = tokens == cfg.padding_idx
-    x = torch.nn.functional.embedding(tokens, model.embed_tokens.weight)
+    x = embedding_lookup(model.embed_tokens.weight, tokens)
     if not cfg.is_1b:
         x = x * math.sqrt(cfg.embed_dim)
     if cfg.token_dropout:
@@ -294,7 +300,10 @@ def apply(
     else:
         if return_representations:
             result["representations"] = torch.cat([h0[None], hiddens], dim=0)
-        logits = torch.matmul(x.float(), model.embed_out.float().t())
+        w = model.embed_out.float()
+        if model.embed_out.dtype == torch.int8:  # weight-only int8 (quantization.py)
+            w = w * model.embed_out_scale[:, None]
+        logits = torch.matmul(x.float(), w.t())
         if cfg.final_bias:
             logits = logits + model.embed_out_bias.float()
     if reps is not None:

@@ -26,6 +26,7 @@ from ..ops.common import (
     init_layer_norm,
     init_linear_torch_default,
     layer_norm,
+    materialize_weight,
     new_embedding,
     new_layer_norm,
 )
@@ -38,6 +39,7 @@ from ..ops.heads import (
 )
 from .lm_common import (
     LayerStatic,
+    embedding_lookup,
     TransformerLayer,
     normalize_repr_layers,
     transformer_layer_apply,
@@ -155,10 +157,7 @@ def embed_tokens(model: ESM2, cfg: ESM2Config, tokens: torch.Tensor) -> torch.Te
     """Token embedding with mask-token dropout rescale (reference
     esm/model/esm2.py:84-95). Runs in fp32, returns the compute dtype."""
     padding_mask = tokens == cfg.padding_idx
-    # F.embedding, not weight[tokens]: its backward sums each row's gradient
-    # in a fixed order (indexing's backward adds atomically on the CPU), so a
-    # training step, and a resumed run, repeats bit for bit
-    x = torch.nn.functional.embedding(tokens, model.embed_tokens.weight)
+    x = embedding_lookup(model.embed_tokens.weight, tokens)
 
     if cfg.token_dropout:
         is_mask = (tokens == cfg.mask_idx)[..., None]
@@ -296,7 +295,7 @@ def _stack_with_streaming_contacts(
     if cfg.append_eos:
         eos_keep = (tokens != cfg.eos_idx).float()
         eos_pair = eos_keep[:, None, :] * eos_keep[:, :, None]
-    reg_w = model.contact_head.regression.weight.float().reshape(
+    reg_w = materialize_weight(model.contact_head.regression, torch.float32).reshape(
         cfg.num_layers, cfg.attention_heads
     )
 

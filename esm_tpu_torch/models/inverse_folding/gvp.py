@@ -14,7 +14,8 @@ count (esm_tpu gvp.py:135-150, a segment_sum there). The sum is
 order on CUDA (it sorts the indices and adds each row's messages in edge
 order, where ``index_add_`` adds with atomics in whatever order they land),
 so a forward repeats bit for bit and a seeded sample repeats token for
-token. There is no kernel here: the JAX package has no Pallas kernel for
+token; the per-edge gathers index likewise, so a training step's gradients
+repeat too. There is no kernel here: the JAX package has no Pallas kernel for
 this model.
 """
 
@@ -94,10 +95,12 @@ class TupleLayerNorm(nn.Module):
 
 def _gather_nodes(s, v, idx):
     """Per-edge node features: s (B, L, ns), v (B, L, nv, 3), idx (B, E) ->
-    (B, E, ns), (B, E, nv, 3)."""
-    gs = torch.gather(s, 1, idx[..., None].expand(-1, -1, s.shape[-1]))
-    gv = torch.gather(v, 1, idx[..., None, None].expand(-1, -1, *v.shape[-2:]))
-    return gs, gv
+    (B, E, ns), (B, E, nv, 3). Advanced indexing, not ``torch.gather``: its
+    backward is the order-fixed ``index_put_(accumulate=True)`` where
+    gather's adds with atomics on CUDA, so a training step repeats bit for
+    bit too."""
+    rows = torch.arange(idx.shape[0], device=idx.device)[:, None]
+    return s[rows, idx], v[rows, idx]
 
 
 class GVPConv(nn.Module):

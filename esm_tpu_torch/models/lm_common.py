@@ -116,6 +116,17 @@ class TransformerLayer(nn.Module):
         return self
 
 
+def embedding_lookup(weight: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``weight[tokens]`` with a backward that sums each row's gradients in a
+    fixed order, so a training step, and a resumed run, repeats bit for bit:
+    on the CPU ``F.embedding``'s backward does (indexing's adds atomically
+    there), on CUDA indexing's, an ``index_put_(accumulate=True)`` that sorts
+    the rows (``F.embedding``'s adds atomically there)."""
+    if weight.device.type == "cpu":
+        return torch.nn.functional.embedding(tokens, weight)
+    return weight[tokens]
+
+
 def transformer_layer_apply(
     layer: TransformerLayer,
     x: torch.Tensor,

@@ -33,7 +33,7 @@ from ..ops.common import (
 )
 from ..ops.heads import ContactPredictionHead, RobertaLMHead, contact_head, roberta_lm_head
 from ..ops.positional import learned_positional_embedding
-from .lm_common import normalize_repr_layers
+from .lm_common import embedding_lookup, normalize_repr_layers
 
 MAX_MSA_ROWS = 1024  # rows of the MSA position embedding (reference msa_transformer.py:102-107)
 
@@ -229,7 +229,7 @@ def apply(
     b, r, c = tokens.shape
     padding_mask = tokens == cfg.padding_idx  # (B, R, C)
 
-    x = torch.nn.functional.embedding(tokens, model.embed_tokens.weight)
+    x = embedding_lookup(model.embed_tokens.weight, tokens)
     x = x + learned_positional_embedding(
         model.embed_positions, tokens.reshape(b * r, c), cfg.padding_idx, cfg.max_positions
     ).reshape(x.shape)

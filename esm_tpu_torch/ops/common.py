@@ -27,14 +27,63 @@ def gelu_erf(x: torch.Tensor) -> torch.Tensor:
     return x * 0.5 * (1.0 + torch.erf(x / math.sqrt(2.0)))
 
 
-def linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-    """x @ weight.T + bias, with the weight cast to x's dtype. The int8 and
-    LoRA branches of esm_tpu's ``linear`` are not ported yet and raise."""
+class _Int8Linear(torch.autograd.Function):
+    """``F.linear(x, W_q) * scale`` for a weight-only int8 weight W_q (out,
+    in) with per-output-channel fp32 scales. The backward saves W_q and the
+    scales, not the dequantized weight in x's dtype, and dequantizes again:
+    an int8 base then keeps its size until the backward (autograd would hold
+    the cast copy of ``F.linear``'s weight for the whole step). The weight
+    and the scales take no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w_q, scale):
+        ctx.save_for_backward(w_q, scale)
+        return F.linear(x, w_q.to(x.dtype)) * scale.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        w_q, scale = ctx.saved_tensors
+        return torch.matmul(dy * scale.to(dy.dtype), w_q.to(dy.dtype)), None, None
+
+
+def materialize_weight(layer: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
+    """The (out, in) weight as a dense ``dtype`` matrix (esm_tpu/ops/common.py
+    ``materialize_kernel``, transposed): dequantizes a weight-only int8
+    weight (esm_tpu_torch/quantization.py), and folds in the delta of LoRA
+    factors attached by esm_tpu_torch/lora.py, for the consumers that
+    concatenate or hand weights to a kernel instead of calling
+    :func:`linear` (the fused tri-mul projections, K7 and K8)."""
     w = layer.weight
-    if w.dtype == torch.int8 or hasattr(layer, "lora_a"):
-        raise NotImplementedError("int8 and LoRA linear layers are not ported yet")
+    if w.dtype == torch.int8:
+        w = w.to(dtype) * layer.scale.to(dtype)[:, None]
+    else:
+        w = w.to(dtype)
+    lora = layer.__dict__.get("lora")
+    if lora is not None:
+        a, b, scale = lora
+        w = w + torch.matmul(a.to(dtype), (b * scale).to(dtype)).t()
+    return w
+
+
+def linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """x @ weight.T + bias, with the weight cast to x's dtype. A weight-only
+    int8 weight (esm_tpu_torch/quantization.py) is cast and its
+    per-output-channel ``scale`` applied after the product; LoRA factors
+    attached by esm_tpu_torch/lora.py's ``patch`` add
+    ``(x @ a) @ (b * scale)`` after the bias, the terms in esm_tpu's order."""
+    w = layer.weight
     b = layer.bias
-    return F.linear(x, w.to(x.dtype), None if b is None else b.to(x.dtype))
+    if w.dtype == torch.int8:
+        y = _Int8Linear.apply(x, w, layer.scale)
+        if b is not None:
+            y = y + b.to(y.dtype)
+    else:
+        y = F.linear(x, w.to(x.dtype), None if b is None else b.to(x.dtype))
+    lora = layer.__dict__.get("lora")
+    if lora is not None:
+        a, b_lora, scale = lora
+        y = y + torch.matmul(torch.matmul(x, a.to(x.dtype)), (b_lora * scale).to(x.dtype))
+    return y
 
 
 def layer_norm(ln: nn.LayerNorm, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

@@ -10,7 +10,14 @@ from typing import Optional
 import torch
 from torch import nn
 
-from .common import gelu_erf, layer_norm, linear, new_layer_norm, new_linear
+from .common import (
+    gelu_erf,
+    layer_norm,
+    linear,
+    materialize_weight,
+    new_layer_norm,
+    new_linear,
+)
 
 
 class RobertaLMHead(nn.Module):
@@ -84,7 +91,7 @@ def contact_head(
 
     b, layers, heads, seqlen, _ = attentions.shape
     a = attentions.reshape(b, layers * heads, seqlen, seqlen)
-    w = head.regression.weight.float()[0]  # (L*H,)
+    w = materialize_weight(head.regression, torch.float32)[0]  # (L*H,)
     logits = weighted_apc_symmetrize(a.float(), w)
     bias = head.regression.bias
     if bias is not None:

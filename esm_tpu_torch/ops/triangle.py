@@ -25,7 +25,14 @@ from typing import Optional
 import torch
 from torch import nn
 
-from .common import layer_norm, linear, new_layer_norm, new_linear, softmax_fp32
+from .common import (
+    layer_norm,
+    linear,
+    materialize_weight,
+    new_layer_norm,
+    new_linear,
+    softmax_fp32,
+)
 
 
 class TriangleMultiplication(nn.Module):
@@ -83,7 +90,7 @@ def triangle_multiplicative_update(
     mask = mask[..., None].to(z.dtype)
     zn = layer_norm(mod.layer_norm_in, z)
     c = zn.shape[-1]
-    w = torch.cat([getattr(mod, n).weight for n in _FIVE], dim=0).to(zn.dtype)
+    w = torch.cat([materialize_weight(getattr(mod, n), zn.dtype) for n in _FIVE], dim=0)
     bias = torch.cat([getattr(mod, n).bias for n in _FIVE]).to(zn.dtype)
     p = torch.nn.functional.linear(zn, w) + bias
     a_g, a_p, b_g, b_p, g_l = p.split(c, dim=-1)

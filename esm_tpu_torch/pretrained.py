@@ -23,6 +23,7 @@ back to the CPU on its own.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import os
 import re
@@ -205,6 +206,15 @@ class LMHandle:
         (the MSA Transformer has no flash path: compute_dtype and
         max_tokens_per_msa)."""
         return LMHandle(self.kind, dataclasses.replace(self.cfg, **kw), self.model,
+                        self.alphabet)
+
+    def quantized(self, **kw) -> "LMHandle":
+        """A weight-only int8 handle (esm_tpu_torch/quantization.py) on a
+        quantized copy of the weights: the linears' weights at a quarter of
+        their fp32 size, same API. ``kw``: ``quantize_params``' options."""
+        from .quantization import quantize_params
+
+        return LMHandle(self.kind, self.cfg, quantize_params(copy.deepcopy(self.model), **kw),
                         self.alphabet)
 
     @torch.no_grad()
@@ -555,6 +565,14 @@ class ESMFoldHandle:
         if trunk_updates:
             cfg = dataclasses.replace(cfg, trunk=dataclasses.replace(cfg.trunk, **trunk_updates))
         return ESMFoldHandle(cfg, self.model, self.alphabet)
+
+    def quantized(self, **kw) -> "ESMFoldHandle":
+        """Weight-only int8 LM and trunk on a quantized copy of the weights
+        (esm-fold --int8)."""
+        from .quantization import quantize_params
+
+        return ESMFoldHandle(self.cfg, quantize_params(copy.deepcopy(self.model), **kw),
+                             self.alphabet)
 
 
 def _fast(cfg):

@@ -1,38 +1,50 @@
-"""Masked-LM training of ESM-2: single device, full parameters.
+"""Training: masked-LM steps for the language models, LoRA, ESM-IF1.
 
-Port of esm_tpu/training.py:22-246 and :501-516: BERT-style 15% masking
-(80% <mask> / 10% random residue / 10% kept), cross-entropy on the masked
-positions, AdamW with a warmup-cosine schedule, exact gradient accumulation
-and masked-perplexity evaluation.
+Port of esm_tpu/training.py (:22-516 apart from the fold, sequence-parallel
+and pipelined steps): BERT-style 15% masking (80% <mask> / 10% random
+residue / 10% kept), cross-entropy on the masked positions, AdamW with a
+warmup-cosine schedule or adafactor, exact gradient accumulation and
+masked-perplexity evaluation; the MSA Transformer's step
+(:func:`train_step_msa`), LoRA steps over a frozen base
+(:func:`train_step_lora`, :func:`train_step_if_lora`) and ESM-IF1's
+teacher-forced sequence step (:func:`train_step_if`).
 
 What differs from the JAX package, and why:
-  * The parameters live in the ``ESM2`` module (fp32 master weights) and a
-    step updates them, and the optimizer moments, in place: no second copy
-    of 650M parameters is made per step. ``TrainState`` holds the module.
+  * The parameters live in the module (fp32 master weights, or a LoRA
+    module of adapters) and a step updates them, and the optimizer state,
+    in place: no second copy of the parameters is made per step.
+    ``TrainState`` holds the module. A LoRA step freezes the base (no
+    parameter of it gets a ``.grad``) and attaches the adapters for the
+    duration of the step (esm_tpu_torch/lora.py).
   * ``jax.random`` keys become explicit ``torch.Generator``s: the bits
     differ from JAX's, so the corruption is tested on its own terms, and
-    :func:`train_step_corrupted` takes a given corruption (the tests feed
-    it JAX's).
-  * The optimizer is written out here (:class:`AdamW`) in optax's order of
-    operations (clip_by_global_norm, scale_by_adam with ``mu_dtype``,
-    add_decayed_weights under the decay mask, scale by the schedule), so a
-    step equals the optax step on the same gradients. torch.optim's AdamW
-    and clip_grad_norm_ compute other roundings (and clip_grad_norm_ adds
-    1e-6 to the norm).
-  * adafactor (``factored=True``), LoRA and the MSA, IF1, fold, sequence-
-    parallel and pipelined steps are not ported yet (ROADMAP Queue 1).
+    the ``*_corrupted`` steps take a given corruption (the tests feed them
+    JAX's).
+  * The optimizers are written out here (:class:`AdamW`, :class:`Adafactor`)
+    in optax 0.2.6's order of operations, so a step equals the optax step
+    on the same gradients. torch.optim's AdamW and clip_grad_norm_ compute
+    other roundings (and clip_grad_norm_ adds 1e-6 to the norm).
+    Adafactor's block RMS values are taken over esm_tpu's leaves, which
+    stack the layers of the language models and of ESMFold's trunk
+    (``io.from_jax.jax_leaf``): over one parameter's tensors in all layers.
+  * Not ported yet (ROADMAP Queue 1): the fold steps (``train_step_fold``,
+    ``train_step_fold_lora``, ``split_fold_params``) and the sequence-
+    parallel and pipelined steps.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
+from . import lora as _lora
+from .io.from_jax import jax_leaf
 from .models import esm2
 
 
@@ -44,10 +56,24 @@ class AdamWState:
 
 
 @dataclass
+class AdafactorState:
+    count: int                     # updates applied so far
+    v_row: Dict[str, torch.Tensor]  # factored parameters: per-row statistics
+    v_col: Dict[str, torch.Tensor]  # factored parameters: per-column statistics
+    v: Dict[str, torch.Tensor]      # the other parameters: second moments
+
+
+@dataclass
 class TrainState:
-    model: esm2.ESM2              # the parameters, updated in place
-    opt_state: AdamWState
+    model: nn.Module              # the parameters (or a LoRA's adapters), updated in place
+    opt_state: object             # AdamWState or AdafactorState
     step: int
+
+    def opt_state_bytes(self) -> int:
+        """Bytes of the optimizer's tensors (moments or factored statistics)."""
+        dicts = [getattr(self.opt_state, f.name) for f in fields(self.opt_state)]
+        return sum(t.numel() * t.element_size()
+                   for d in dicts if isinstance(d, dict) for t in d.values())
 
 
 def decay_mask(model: nn.Module) -> Dict[str, bool]:
@@ -58,6 +84,20 @@ def decay_mask(model: nn.Module) -> Dict[str, bool]:
     linear = {f"{name}.weight" if name else "weight"
               for name, m in model.named_modules() if isinstance(m, nn.Linear)}
     return {name: name in linear and p.dim() >= 2 for name, p in model.named_parameters()}
+
+
+def _grads(params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Each parameter's ``.grad``, zeros where it has none (as under jax.grad)."""
+    return {n: p.grad if p.grad is not None else torch.zeros_like(p) for n, p in params.items()}
+
+
+def _clip_by_global_norm(grads: Dict[str, torch.Tensor], max_norm: Optional[float]):
+    """optax.clip_by_global_norm."""
+    if max_norm is None:
+        return grads
+    norm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
+    keep = norm < max_norm
+    return {n: torch.where(keep, g, (g / norm) * max_norm) for n, g in grads.items()}
 
 
 def warmup_cosine_schedule(peak: float, warmup_steps: int,
@@ -106,13 +146,7 @@ class AdamW:
     def update(self, model: nn.Module, state: AdamWState) -> None:
         """One step: the parameters and ``state`` change in place."""
         params = dict(model.named_parameters())
-        grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
-                 for n, p in params.items()}
-        if self.grad_clip_norm is not None:
-            norm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
-            keep = norm < self.grad_clip_norm
-            grads = {n: torch.where(keep, g, (g / norm) * self.grad_clip_norm)
-                     for n, g in grads.items()}
+        grads = _clip_by_global_norm(_grads(params), self.grad_clip_norm)
         decay = decay_mask(model) if self.weight_decay else {}
         count = state.count + 1
         # bias corrections in fp32, as optax computes them
@@ -136,6 +170,142 @@ class AdamW:
         state.count = count
 
 
+class Adafactor:
+    """optax.chain(clip_by_global_norm(grad_clip_norm), adafactor(schedule,
+    weight_decay_rate, weight_decay_mask=decay_mask)) with optax's defaults:
+    scale_by_factored_rms (decay 0.8, eps 1e-30; a tensor is factored when
+    its two largest dimensions are both at least 128), clip_by_block_rms(1),
+    the learning rate, scale_by_param_block_rms (at least 1e-3),
+    add_decayed_weights (after the learning rate, so not multiplied by it),
+    scale(-1).
+
+    A "block" is one esm_tpu leaf: the RMS values of the clip and of the
+    parameter scale are taken over one parameter's tensors in all the
+    layers that esm_tpu stacks (``io.from_jax.jax_leaf``). The factored
+    statistics are per layer, over a linear's (in, out) view, as esm_tpu's
+    (num_layers, in, out) leaves give them."""
+
+    decay_rate, eps, min_dim_size_to_factor = 0.8, 1e-30, 128
+    clipping_threshold, min_scale = 1.0, 1e-3
+
+    def __init__(self, learning_rate: Callable[[int], float], *,
+                 weight_decay_rate: Optional[float] = None,
+                 grad_clip_norm: Optional[float] = None):
+        self.learning_rate = learning_rate
+        self.weight_decay_rate = weight_decay_rate
+        self.grad_clip_norm = grad_clip_norm
+
+    @staticmethod
+    def _layout(model: nn.Module):
+        """name -> (esm_tpu leaf path, stacked, transposed) for each parameter:
+        a linear's weight is esm_tpu's kernel transposed."""
+        from .quantization import RAW_KERNELS
+
+        kernels = {f"{name}.weight" if name else "weight"
+                   for name, m in model.named_modules() if isinstance(m, nn.Linear)}
+        out = {}
+        for name, p in model.named_parameters():
+            path, layer = jax_leaf(name)
+            out[name] = (path, layer is not None,
+                         name in kernels or name.rpartition(".")[2] in RAW_KERNELS)
+        return out
+
+    def _factored_dims(self, shape, stacked: bool):
+        """optax's choice of the two largest axes, on esm_tpu's leaf shape,
+        returned as axes of one layer's (view of the) tensor, or None."""
+        if len(shape) < 2:
+            return None
+        sorted_dims = np.argsort(shape)
+        if shape[sorted_dims[-2]] < self.min_dim_size_to_factor:
+            return None
+        d1, d0 = int(sorted_dims[-2]), int(sorted_dims[-1])
+        if stacked:
+            if 0 in (d1, d0):
+                raise NotImplementedError("adafactor factoring over the stacked layer axis")
+            d1, d0 = d1 - 1, d0 - 1
+        return d1, d0
+
+    def _plan(self, model: nn.Module):
+        """name -> (leaf path, transposed, factored dims), and each leaf's
+        layer count."""
+        layout = self._layout(model)
+        counts: Dict[tuple, int] = {}
+        for path, _, _ in layout.values():
+            counts[path] = counts.get(path, 0) + 1
+        params = dict(model.named_parameters())
+        plan = {}
+        for name, (path, stacked, transposed) in layout.items():
+            shape = tuple(params[name].shape[::-1] if transposed else params[name].shape)
+            leaf_shape = ((counts[path],) + shape) if stacked else shape
+            plan[name] = (path, transposed, self._factored_dims(leaf_shape, stacked))
+        return plan
+
+    def init(self, model: nn.Module) -> AdafactorState:
+        plan = self._plan(model)
+        v_row, v_col, v = {}, {}, {}
+        for name, p in model.named_parameters():
+            _, transposed, dims = plan[name]
+            view = p.t() if transposed else p
+            if dims is None:
+                v[name] = torch.zeros_like(view)
+            else:
+                d1, d0 = dims
+                v_row[name] = torch.zeros_like(view.select(d0, 0))
+                v_col[name] = torch.zeros_like(view.select(d1, 0))
+        return AdafactorState(0, v_row, v_col, v)
+
+    @torch.no_grad()
+    def update(self, model: nn.Module, state: AdafactorState) -> None:
+        """One step: the parameters and ``state`` change in place."""
+        params = dict(model.named_parameters())
+        grads = _clip_by_global_norm(_grads(params), self.grad_clip_norm)
+        plan = self._plan(model)
+        # optax's decay rate, in fp32: 1 - (count + 1) ** -0.8
+        t = np.float32(state.count + 1)
+        rate = float(np.float32(1.0) - t ** np.float32(-self.decay_rate))
+        keep = float(np.float32(1.0) - np.float32(rate))
+
+        # scale_by_factored_rms, per tensor (in esm_tpu's (in, out) view)
+        updates = {}
+        for name, p in params.items():
+            _, transposed, dims = plan[name]
+            g = grads[name].t() if transposed else grads[name]
+            g_sq = g * g + self.eps
+            if dims is None:
+                v = rate * state.v[name] + keep * g_sq
+                state.v[name] = v
+                u = g * v ** -0.5
+            else:
+                d1, d0 = dims
+                v_row = rate * state.v_row[name] + keep * g_sq.mean(dim=d0)
+                v_col = rate * state.v_col[name] + keep * g_sq.mean(dim=d1)
+                state.v_row[name], state.v_col[name] = v_row, v_col
+                reduced_d1 = d1 - 1 if d1 > d0 else d1
+                row_factor = (v_row / v_row.mean(dim=reduced_d1, keepdim=True)) ** -0.5
+                col_factor = v_col ** -0.5
+                u = g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
+            updates[name] = u.t() if transposed else u
+
+        # clip_by_block_rms and scale_by_param_block_rms, over esm_tpu's leaves
+        leaves: Dict[tuple, list] = {}
+        for name in params:
+            leaves.setdefault(plan[name][0], []).append(name)
+        lr = self.learning_rate(state.count)
+        decay = decay_mask(model) if self.weight_decay_rate else {}
+        for names in leaves.values():
+            n = sum(params[k].numel() for k in names)
+            u_rms = torch.sqrt(sum(torch.sum(updates[k] * updates[k]) for k in names) / n)
+            clip = torch.clamp(u_rms / self.clipping_threshold, min=1.0)
+            p_rms = torch.sqrt(sum(torch.sum(params[k] * params[k]) for k in names) / n)
+            p_scale = torch.where(p_rms <= self.min_scale, self.min_scale, p_rms)
+            for k in names:
+                u = (lr * (updates[k] / clip)) * p_scale
+                if decay.get(k, False):
+                    u = u + self.weight_decay_rate * params[k]
+                params[k].add_(-u)
+        state.count += 1
+
+
 def make_optimizer(
     learning_rate: float = 1e-4,
     weight_decay: float = 0.01,
@@ -144,21 +314,24 @@ def make_optimizer(
     grad_clip_norm: Optional[float] = None,
     mu_dtype: Optional[torch.dtype] = None,
     factored: bool = False,
-) -> AdamW:
+):
     """AdamW (b1 0.9, b2 0.98, eps 1e-8) with the warmup-cosine schedule
     (learning rate 0 at step 0). ``grad_clip_norm`` prepends global-norm
     clipping; ``mu_dtype`` (e.g. ``torch.bfloat16``) stores the first moments
-    in that type."""
+    in that type. ``factored=True`` switches to :class:`Adafactor` (row and
+    column second-moment statistics: optimizer state ~params/1000), weight
+    decay under the same mask."""
+    schedule = warmup_cosine_schedule(learning_rate, warmup_steps, total_steps)
     if factored:
-        raise NotImplementedError(
-            "factored=True (adafactor) is not ported yet: ROADMAP Queue 1, "
-            "'make_optimizer(factored=True)'"
-        )
-    return AdamW(warmup_cosine_schedule(learning_rate, warmup_steps, total_steps),
-                 weight_decay=weight_decay, grad_clip_norm=grad_clip_norm, mu_dtype=mu_dtype)
+        return Adafactor(schedule, weight_decay_rate=weight_decay or None,
+                         grad_clip_norm=grad_clip_norm)
+    return AdamW(schedule, weight_decay=weight_decay, grad_clip_norm=grad_clip_norm,
+                 mu_dtype=mu_dtype)
 
 
-def init_state(model: esm2.ESM2, tx: AdamW) -> TrainState:
+def init_state(model: nn.Module, tx) -> TrainState:
+    """A fresh state over ``model``'s parameters (a LoRA module's adapters for
+    the LoRA steps)."""
     return TrainState(model, tx.init(model), 0)
 
 
@@ -188,7 +361,8 @@ def mask_tokens(
     return corrupted, selected
 
 
-def _corrupt_batch(cfg: esm2.ESM2Config, generator: torch.Generator, tokens: torch.Tensor):
+def _corrupt_batch(cfg, generator: torch.Generator, tokens: torch.Tensor):
+    """``cfg``: any language model's config (ESM-2, ESM-1, MSA Transformer)."""
     special = (
         (tokens == cfg.padding_idx)
         | (tokens == cfg.cls_idx)
@@ -198,9 +372,11 @@ def _corrupt_batch(cfg: esm2.ESM2Config, generator: torch.Generator, tokens: tor
                        special_mask=special)
 
 
-def _mlm_terms(model, cfg, corrupted, targets, target_mask):
-    """Per-position masked-CE terms: (nll.w, correct.w, w), each (B, T)."""
-    logits = esm2.apply(model, cfg, corrupted)["logits"]
+def _mlm_terms(model, cfg, corrupted, targets, target_mask, apply_fn=None):
+    """Per-position masked-CE terms: (nll.w, correct.w, w), each shaped like
+    the tokens. ``apply_fn`` is the family's apply (esm2.apply by default;
+    esm1.apply, msa_transformer.apply)."""
+    logits = (apply_fn or esm2.apply)(model, cfg, corrupted)["logits"]
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
     w = target_mask.to(nll.dtype)
@@ -208,30 +384,66 @@ def _mlm_terms(model, cfg, corrupted, targets, target_mask):
     return nll * w, correct, w
 
 
-def mlm_loss_sums(model, cfg, corrupted, targets, target_mask) -> Tuple[torch.Tensor, dict]:
+def mlm_loss_sums(model, cfg, corrupted, targets, target_mask,
+                  apply_fn=None) -> Tuple[torch.Tensor, dict]:
     """Unnormalised masked CE: (sum of the NLL over the masked positions,
     {"correct", "count"}). Linear in the batch, so sums from microbatches add
     exactly: the basis of gradient accumulation."""
-    nll_w, correct, w = _mlm_terms(model, cfg, corrupted, targets, target_mask)
+    nll_w, correct, w = _mlm_terms(model, cfg, corrupted, targets, target_mask, apply_fn)
     return nll_w.sum(), {"correct": correct.sum(), "count": w.sum()}
 
 
-def mlm_loss(model, cfg, corrupted, targets, target_mask) -> Tuple[torch.Tensor, dict]:
-    nll_sum, aux = mlm_loss_sums(model, cfg, corrupted, targets, target_mask)
+def mlm_loss(model, cfg, corrupted, targets, target_mask,
+             apply_fn=None) -> Tuple[torch.Tensor, dict]:
+    nll_sum, aux = mlm_loss_sums(model, cfg, corrupted, targets, target_mask, apply_fn)
     denom = aux["count"].clamp_min(1.0)
     loss = nll_sum / denom
     return loss, {"loss": loss, "acc": aux["correct"] / denom, "num_masked": aux["count"]}
 
 
+def _step(state: TrainState, tx, loss_fn, context=None) -> Tuple[TrainState, dict]:
+    """Loss and gradients of ``loss_fn()`` -> (loss, metrics), both under
+    ``context`` (the backward, and remat's recompute, need what the forward
+    had), then one update of ``state.model``'s parameters. Metrics stay on
+    the device."""
+    model = state.model
+    model.zero_grad(set_to_none=True)
+    with context or contextlib.nullcontext():
+        loss, metrics = loss_fn()
+        loss.backward()
+    tx.update(model, state.opt_state)
+    model.zero_grad(set_to_none=True)
+    return TrainState(model, state.opt_state, state.step + 1), {
+        k: v.detach() for k, v in metrics.items()
+    }
+
+
+@contextlib.contextmanager
+def frozen_and_patched(base: nn.Module, adapters: _lora.LoRA, scale: float):
+    """``base`` with ``adapters`` attached and no parameter requiring a
+    gradient (esm_tpu's stop_gradient on the base), as a LoRA step runs its
+    loss and backward; restored on exit."""
+    flags = [(p, p.requires_grad) for p in base.parameters()]
+    for p, _ in flags:
+        p.requires_grad_(False)
+    try:
+        with _lora.patch(base, adapters, scale=scale):
+            yield base
+    finally:
+        for p, flag in flags:
+            p.requires_grad_(flag)
+
+
 def train_step_corrupted(
     state: TrainState,
-    cfg: esm2.ESM2Config,
-    tx: AdamW,
+    cfg,
+    tx,
     corrupted: torch.Tensor,
     targets: torch.Tensor,
     target_mask: torch.Tensor,
     *,
     accum_steps: int = 1,
+    apply_fn=None,
 ) -> Tuple[TrainState, dict]:
     """Loss, gradients and one optimizer update on a given corruption. With
     ``accum_steps`` > 1 the batch runs as that many sequential microbatches:
@@ -242,25 +454,24 @@ def train_step_corrupted(
         raise ValueError(
             f"batch {corrupted.shape[0]} not divisible by accum_steps={accum_steps}"
         )
+    if accum_steps == 1:
+        return _step(state, tx, lambda: mlm_loss(state.model, cfg, corrupted, targets,
+                                                 target_mask, apply_fn))
     model = state.model
     model.zero_grad(set_to_none=True)
-    if accum_steps == 1:
-        loss, metrics = mlm_loss(model, cfg, corrupted, targets, target_mask)
-        loss.backward()
-    else:
-        nll = correct = count = 0.0
-        for c, t, m in zip(corrupted.chunk(accum_steps), targets.chunk(accum_steps),
-                           target_mask.chunk(accum_steps)):
-            nll_sum, aux = mlm_loss_sums(model, cfg, c, t, m)
-            nll_sum.backward()
-            nll = nll + nll_sum.detach()
-            correct = correct + aux["correct"]
-            count = count + aux["count"]
-        denom = count.clamp_min(1.0)
-        for p in model.parameters():
-            if p.grad is not None:
-                p.grad.div_(denom)
-        metrics = {"loss": nll / denom, "acc": correct / denom, "num_masked": count}
+    nll = correct = count = 0.0
+    for c, t, m in zip(corrupted.chunk(accum_steps), targets.chunk(accum_steps),
+                       target_mask.chunk(accum_steps)):
+        nll_sum, aux = mlm_loss_sums(model, cfg, c, t, m, apply_fn)
+        nll_sum.backward()
+        nll = nll + nll_sum.detach()
+        correct = correct + aux["correct"]
+        count = count + aux["count"]
+    denom = count.clamp_min(1.0)
+    for p in model.parameters():
+        if p.grad is not None:
+            p.grad.div_(denom)
+    metrics = {"loss": nll / denom, "acc": correct / denom, "num_masked": count}
     tx.update(model, state.opt_state)
     model.zero_grad(set_to_none=True)
     return TrainState(model, state.opt_state, state.step + 1), {
@@ -268,7 +479,7 @@ def train_step_corrupted(
     }
 
 
-def train_step(state: TrainState, cfg: esm2.ESM2Config, tx: AdamW,
+def train_step(state: TrainState, cfg: esm2.ESM2Config, tx,
                generator: torch.Generator, tokens: torch.Tensor) -> Tuple[TrainState, dict]:
     """One MLM step on a (B, T) token batch: corrupt with ``generator``, then
     :func:`train_step_corrupted`."""
@@ -276,7 +487,7 @@ def train_step(state: TrainState, cfg: esm2.ESM2Config, tx: AdamW,
     return train_step_corrupted(state, cfg, tx, corrupted, tokens, target_mask)
 
 
-def train_step_accum(state: TrainState, cfg: esm2.ESM2Config, tx: AdamW,
+def train_step_accum(state: TrainState, cfg: esm2.ESM2Config, tx,
                      generator: torch.Generator, tokens: torch.Tensor, *,
                      accum_steps: int) -> Tuple[TrainState, dict]:
     """:func:`train_step` over ``accum_steps`` microbatches: peak activation
@@ -287,8 +498,101 @@ def train_step_accum(state: TrainState, cfg: esm2.ESM2Config, tx: AdamW,
                                 accum_steps=accum_steps)
 
 
+def train_step_msa(state: TrainState, cfg, tx, generator: torch.Generator,
+                   tokens: torch.Tensor) -> Tuple[TrainState, dict]:
+    """One MLM step of the MSA Transformer on (B, R, C) MSA tokens: the same
+    objective (masking uniform over rows and columns; the per-row cls tokens
+    and padding never selected). ``cfg`` is an MSATransformerConfig."""
+    from .models import msa_transformer
+
+    corrupted, target_mask = _corrupt_batch(cfg, generator, tokens)
+    return train_step_corrupted(state, cfg, tx, corrupted, tokens, target_mask,
+                                apply_fn=msa_transformer.apply)
+
+
+def train_step_lora_corrupted(
+    state: TrainState,
+    base: nn.Module,
+    cfg,
+    tx,
+    corrupted: torch.Tensor,
+    targets: torch.Tensor,
+    target_mask: torch.Tensor,
+    *,
+    scale: float = 1.0,
+    apply_fn=None,
+) -> Tuple[TrainState, dict]:
+    """:func:`train_step_lora` on a given corruption."""
+    return _step(state, tx,
+                 lambda: mlm_loss(base, cfg, corrupted, targets, target_mask, apply_fn),
+                 frozen_and_patched(base, state.model, scale))
+
+
+def train_step_lora(
+    state: TrainState,
+    base: nn.Module,
+    cfg,
+    tx,
+    generator: torch.Generator,
+    tokens: torch.Tensor,
+    *,
+    scale: float = 1.0,
+    apply_fn=None,
+) -> Tuple[TrainState, dict]:
+    """One parameter-efficient MLM step: ``state.model`` is the LoRA module
+    (esm_tpu_torch/lora.py), ``base`` the frozen base (fp32, bf16 or
+    weight-only int8). Only the adapters get gradients, and the optimizer
+    state covers only them; ``scale`` is the LoRA alpha / rank. ``apply_fn``
+    swaps the family, e.g. ``msa_transformer.apply`` with an
+    MSATransformerConfig and (B, R, C) tokens."""
+    corrupted, target_mask = _corrupt_batch(cfg, generator, tokens)
+    return train_step_lora_corrupted(state, base, cfg, tx, corrupted, tokens, target_mask,
+                                     scale=scale, apply_fn=apply_fn)
+
+
+def if_loss_sums(model, cfg, coords, padding_mask, confidence, tokens) -> Tuple[torch.Tensor, dict]:
+    """Teacher-forced sequence cross-entropy sums of ESM-IF1 (the batched form
+    of the reference's per-sequence scoring objective,
+    esm/inverse_folding/util.py:106-121) on CoordBatchConverter batches:
+    (sum of the NLL over the non-pad targets, {"correct", "count"}), so
+    microbatch sums add exactly."""
+    prev, target = tokens[:, :-1], tokens[:, 1:]
+    logits = model(coords, padding_mask, confidence, prev)  # (B, V, T)
+    logp = torch.log_softmax(logits.float(), dim=1)
+    nll = -torch.gather(logp, 1, target[:, None, :])[:, 0]
+    w = (target != cfg.padding_idx).to(nll.dtype)
+    correct = (logits.argmax(1) == target) * w
+    return (nll * w).sum(), {"correct": correct.sum(), "count": w.sum()}
+
+
+def _if_loss(model, cfg, batch) -> Tuple[torch.Tensor, dict]:
+    nll, aux = if_loss_sums(model, cfg, *batch)
+    denom = aux["count"].clamp_min(1.0)
+    loss = nll / denom
+    return loss, {"loss": loss, "acc": aux["correct"] / denom, "num_targets": aux["count"]}
+
+
+def train_step_if(state: TrainState, cfg, tx, coords, padding_mask, confidence,
+                  tokens) -> Tuple[TrainState, dict]:
+    """One inverse-folding fine-tuning step, full parameters: teacher-forced
+    CE on (backbone, sequence) pairs from CoordBatchConverter. ``cfg`` is the
+    GVPTransformerConfig."""
+    batch = (coords, padding_mask, confidence, tokens)
+    return _step(state, tx, lambda: _if_loss(state.model, cfg, batch))
+
+
+def train_step_if_lora(state: TrainState, base: nn.Module, cfg, tx, coords, padding_mask,
+                       confidence, tokens, *, scale: float = 1.0) -> Tuple[TrainState, dict]:
+    """:func:`train_step_if` with ``state.model`` a LoRA module over the
+    frozen ESM-IF1 ``base`` (the default targets cover the encoder's and
+    decoder's attention and MLP linears)."""
+    batch = (coords, padding_mask, confidence, tokens)
+    return _step(state, tx, lambda: _if_loss(base, cfg, batch),
+                 frozen_and_patched(base, state.model, scale))
+
+
 @torch.no_grad()
-def eval_step(model: esm2.ESM2, cfg: esm2.ESM2Config, generator: torch.Generator,
+def eval_step(model: nn.Module, cfg, generator: torch.Generator,
               tokens: torch.Tensor) -> Dict[str, torch.Tensor]:
     """Masked-LM evaluation on one batch: the training corruption
     (deterministic given ``generator``), returning per-sequence sums

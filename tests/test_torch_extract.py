@@ -103,10 +103,35 @@ def test_extract_mean_only_uses_device_means(ckpt, tmp_path):
         )
 
 
-def test_extract_int8_is_not_ported(ckpt, tmp_path):
+def test_extract_int8(ckpt, tmp_path, monkeypatch):
+    """--int8 (ported since it raised) against esm_tpu's --int8 at 1e-4, and
+    against the fp32 run within esm_tpu's int8 bound, 0.15 (max|ref| + 1).
+    Both packages quantize with min_size=1: at this size the default
+    threshold would select no linear."""
+    import functools
+
+    import esm_tpu.quantization as jq
+    import esm_tpu_torch.quantization as tq
+
+    monkeypatch.setattr(jq, "quantize_params", functools.partial(jq.quantize_params, min_size=1))
+    monkeypatch.setattr(tq, "quantize_params", functools.partial(tq.quantize_params, min_size=1))
     root, path, fasta = ckpt
-    with pytest.raises(NotImplementedError):
-        torch_extract.run(_args(path, fasta, tmp_path / "o", ["--int8"]))
+    jax_extract.run(_args(path, fasta, tmp_path / "jax", ["--int8"]))
+    torch_extract.run(_args(path, fasta, tmp_path / "int8", ["--int8"]))
+    torch_extract.run(_args(path, fasta, tmp_path / "fp32", []))
+    moved = 0.0
+    for label in LABELS:
+        ref = _load(tmp_path / "jax" / f"{label}.pt", False)
+        out = _load(tmp_path / "int8" / f"{label}.pt", False)
+        f32 = _load(tmp_path / "fp32" / f"{label}.pt", False)
+        for key in ref:
+            if key != "label":
+                np.testing.assert_allclose(out[key], ref[key], err_msg=key, **TOL)
+        for key in ("representations_2", "mean_representations_2"):
+            err = np.abs(out[key] - f32[key]).max()
+            assert err < 0.15 * (np.abs(f32[key]).max() + 1), (key, err)
+            moved = max(moved, err)
+    assert moved > 0  # the int8 weights were used
 
 
 def test_extract_profile_trace(ckpt, tmp_path):

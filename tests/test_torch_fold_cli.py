@@ -113,13 +113,51 @@ def test_fold_cli_skips_a_batch_that_runs_out_of_memory(cache, tmp_path, monkeyp
     assert "Failed (OOM) on sequence short" in caplog.text
 
 
-@pytest.mark.parametrize("flag,item", [("--plan", "item 13"), ("--int8", "item 10")])
+@pytest.mark.parametrize("flag,item", [("--plan", "item 13")])
 def test_fold_cli_unported_flags_raise(cache, tmp_path, flag, item):
     _, path, fasta = cache
     args = fold.create_parser().parse_args(
         ["-i", str(fasta), "-o", str(tmp_path / "pdb"), "-m", str(path), "--cpu-only", flag])
     with pytest.raises(NotImplementedError, match=item):
         fold.run(args)
+
+
+def _ca(pdb: str) -> np.ndarray:
+    return np.array([[float(line[30:38]), float(line[38:46]), float(line[46:54])]
+                     for line in pdb.splitlines()
+                     if line.startswith("ATOM") and line[12:16] == " CA "])
+
+
+def test_fold_cli_int8(cache, tmp_path, monkeypatch):
+    """--int8 (ported since it raised): the CLI's PDBs equal those of
+    ``ESMFoldHandle.quantized()`` byte for byte, and their CA coordinates
+    stay within esm_tpu's int8 bound of the fp32 run's, 0.15 (max|ref| + 1)
+    (a 1-block trunk: the LM's and the trunk's linears at int8). Quantized
+    with min_size=1 (the default selects no linear at this size)."""
+    import functools
+
+    from esm_tpu_torch import quantization
+
+    monkeypatch.setattr(quantization, "quantize_params",
+                        functools.partial(quantization.quantize_params, min_size=1))
+    _, path, fasta = cache
+    outs = {}
+    for tag, extra in (("int8", ["--int8"]), ("fp32", [])):
+        outs[tag] = tmp_path / tag
+        args = fold.create_parser().parse_args(
+            ["-i", str(fasta), "-o", str(outs[tag]), "-m", str(path), "--cpu-only",
+             "--num-recycles", "1", *extra])
+        assert fold.run(args) == len(SEQS)
+    handle = pretrained.load_esmfold(str(path), device="cpu").quantized(min_size=1)
+    assert handle.model.trunk.blocks[0].tri_mul_out.linear_z.weight.dtype == torch.int8
+    ordered = sorted(SEQS.items(), key=lambda kv: len(kv[1]))
+    for headers, seqs in fold.create_batched_sequence_dataset(ordered, args.max_tokens_per_batch):
+        for header, want in zip(headers, handle.infer_pdbs(seqs, num_recycles=1)):
+            pdb = (outs["int8"] / f"{header}.pdb").read_text()
+            assert pdb == want
+            ca, ca32 = _ca(pdb), _ca((outs["fp32"] / f"{header}.pdb").read_text())
+            err = np.abs(ca - ca32).max()
+            assert 0 < err < 0.15 * (np.abs(ca32).max() + 1), (header, err, np.abs(ca32).max())
 
 
 def test_handle_options(cache):

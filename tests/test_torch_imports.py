@@ -1,9 +1,11 @@
 """Import hygiene and device rules of the port (esm_tpu_torch):
   * importing it, and every module in it (the ESM-1 and MSA Transformer
     modules, the variant-scoring CLI, the ESM-IF1 modules, the structure
-    reader and the inverse-folding CLIs among them), pulls in neither
-    ``jax`` nor ``esm_tpu`` (checked in a fresh interpreter);
-  * no source file of the port, nor chip_smoke.py, imports ``esm_tpu.``;
+    reader, the inverse-folding CLIs, ``lora`` and ``quantization`` among
+    them), pulls in neither ``jax``, ``optax`` nor ``esm_tpu`` (checked in
+    a fresh interpreter);
+  * no source file of the port, nor chip_smoke.py, imports ``jax``,
+    ``optax`` or ``esm_tpu``;
   * entry points given no device run on CUDA, so without a GPU they raise.
 """
 
@@ -29,8 +31,8 @@ def test_import_leaves_out_jax_and_esm_tpu():
         "import sys, importlib\n"
         "import esm_tpu_torch\n"
         f"for m in {MODULES!r}: importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'esm_tpu' or m.startswith('esm_tpu.'))\n"
+        "assert {'esm_tpu_torch.lora', 'esm_tpu_torch.quantization'} <= set(sys.modules)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'optax', 'esm_tpu'))\n"
         "assert not bad, bad\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
@@ -51,7 +53,7 @@ def test_no_source_imports_the_jax_package(path):
             names = [node.module or ""]
         for name in names:
             root = name.split(".")[0]
-            assert root not in ("jax", "jaxlib", "esm_tpu"), f"{path}: imports {name}"
+            assert root not in ("jax", "jaxlib", "optax", "esm_tpu"), f"{path}: imports {name}"
 
 
 @pytest.fixture
@@ -65,7 +67,7 @@ def no_cuda():
     ["resolve_device", "random_model_and_alphabet", "load_model_and_alphabet_local",
      "extract", "pretrain", "random_esmfold", "load_esmfold", "fold",
      "random_esm1", "random_msa", "predict_variants", "random_if1", "if_sample",
-     "if_score"],
+     "if_score", "pretrain_lora", "extract_int8"],
 )
 def test_entry_points_without_device_raise_when_cuda_absent(no_cuda, entry, tmp_path):
     from esm_tpu_torch import pretrained
@@ -104,13 +106,15 @@ def test_entry_points_without_device_raise_when_cuda_absent(no_cuda, entry, tmp_
         elif entry == "fold":
             fold.run(fold.create_parser().parse_args(
                 ["-i", str(tmp_path / "x.fasta"), "-o", str(tmp_path / "pdb")]))
-        elif entry == "pretrain":
+        elif entry in ("pretrain", "pretrain_lora"):
+            lora = ["--lora", "4", "--lora-int8-base"] if entry == "pretrain_lora" else []
             pretrain.run(pretrain.create_parser().parse_args(
-                ["--fasta", str(tmp_path / "x.fasta"), "--steps", "1"]))
+                ["--fasta", str(tmp_path / "x.fasta"), "--steps", "1"] + lora))
         else:
             args = extract.create_parser().parse_args(
                 [str(tmp_path / "esm2_missing.pt"), str(tmp_path / "x.fasta"),
                  str(tmp_path / "out"), "--include", "mean"]
+                + (["--int8"] if entry == "extract_int8" else [])
             )
             extract.run(args)
 

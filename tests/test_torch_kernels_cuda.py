@@ -449,3 +449,67 @@ def test_if1_runs_on_cuda_by_default(cuda):
                               torch.Generator(device="cuda").manual_seed(0))
     assert drawn.device.type == "cuda" and drawn.shape == (2, 41)
     assert handle.sample(coords, seed=3) == handle.sample(coords, seed=3)
+
+
+def test_lora_step_gradients_through_k1_k2(cuda):
+    """A LoRA step's adapter gradients on the flash path (K1 with the lse
+    forward, K2 backward, bf16) against the exact path's, nonzero b: cosine
+    at least 0.99 and norm ratio within 5% (chip_smoke.py [train]'s
+    bounds), with K2 launched once a layer."""
+    import dataclasses
+
+    from esm_tpu_torch import lora, training
+    from esm_tpu_torch.data import Alphabet
+    from esm_tpu_torch.models import esm2
+
+    alphabet = Alphabet.from_architecture("ESM-1b")
+    cfg = esm2.ESM2Config.from_alphabet(alphabet, num_layers=4, embed_dim=320,
+                                        attention_heads=20, compute_dtype=torch.bfloat16,
+                                        remat=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = esm2.init(cfg, gen, device="cuda")
+    adapters = lora.init_lora(gen, model, rank=8)
+    with torch.no_grad():
+        for _, a in adapters.adapters():
+            a.lora_b.normal_(0, 0.02, generator=gen)
+    rng = np.random.RandomState(1)
+    toks = torch.from_numpy(rng.randint(4, 24, (4, 200))).cuda()
+    toks[:, 0] = alphabet.cls_idx
+    toks[:, -1] = alphabet.eos_idx
+    toks[1, 150:] = alphabet.padding_idx
+    corrupted, target_mask = training._corrupt_batch(cfg, gen, toks)
+    grads = {}
+    for use_flash in (True, False):
+        c = dataclasses.replace(cfg, use_flash=use_flash)
+        fa.flash_attention_bwd.launches_dq = 0
+        with training.frozen_and_patched(model, adapters, 1.0):
+            loss, _ = training.mlm_loss(model, c, corrupted, toks, target_mask)
+            loss.backward()
+        if use_flash:
+            assert fa.flash_attention_bwd.launches_dq == cfg.num_layers
+        grads[use_flash] = torch.cat([p.grad.flatten().double() for p in adapters.parameters()])
+        adapters.zero_grad(set_to_none=True)
+    cos = torch.nn.functional.cosine_similarity(grads[True], grads[False], dim=0).item()
+    ratio = (grads[True].norm() / grads[False].norm()).item()
+    assert cos >= 0.99 and abs(ratio - 1) <= 0.05, (cos, ratio)
+
+
+def test_int8_linear_on_cuda_equals_cpu(cuda):
+    """The weight-only int8 linear (and its backward) on the card equals
+    its CPU result (fp32, TF32 off: 1e-5 of the largest value)."""
+    from esm_tpu_torch.ops.common import init_linear_torch_default, linear, new_linear
+    from esm_tpu_torch.quantization import quantize_linear
+
+    layer = quantize_linear(init_linear_torch_default(new_linear(256, 384),
+                                                      torch.Generator().manual_seed(0)))
+    x = torch.randn(8, 100, 256, generator=torch.Generator().manual_seed(1), requires_grad=True)
+    y = linear(layer, x)
+    y.square().sum().backward()
+    layer_c = quantize_linear(init_linear_torch_default(new_linear(256, 384),
+                                                        torch.Generator().manual_seed(0))).cuda()
+    assert layer_c.weight.dtype == torch.int8
+    xc = x.detach().cuda().requires_grad_()
+    yc = linear(layer_c, xc)
+    yc.square().sum().backward()
+    assert _rel_err(yc.cpu(), y) <= 1e-5
+    assert _rel_err(xc.grad.cpu(), x.grad) <= 1e-5

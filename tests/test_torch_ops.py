@@ -58,11 +58,24 @@ def test_linear(bias):
     )
 
 
-def test_linear_int8_is_not_ported():
-    layer = tc.new_linear(4, 4)
-    layer.weight = torch.nn.Parameter(torch.zeros(4, 4, dtype=torch.int8), requires_grad=False)
-    with pytest.raises(NotImplementedError):
-        tc.linear(layer, torch.zeros(1, 4))
+def test_linear_int8_matches_jax():
+    """A weight-only int8 linear (ported since it raised): esm_tpu's
+    quantize_linear and the port's give equal int8 values and scales, and
+    the two linears agree on the same input."""
+    from esm_tpu.quantization import quantize_linear as jquantize
+    from esm_tpu_torch.quantization import quantize_linear
+
+    layer, params = _linear_pair(24, 40)
+    qparams = jquantize(params)
+    quantize_linear(layer)
+    assert layer.weight.dtype == torch.int8 and not layer.weight.requires_grad
+    np.testing.assert_array_equal(layer.weight.numpy(), np.asarray(qparams["kernel"]).T)
+    np.testing.assert_array_equal(layer.scale.numpy(), np.asarray(qparams["scale"]))
+    x = _r(3, 5, 24)
+    np.testing.assert_allclose(
+        tc.linear(layer, torch.from_numpy(x)).detach().numpy(),
+        np.asarray(jc.linear(qparams, jnp.asarray(x))), **TOL,
+    )
 
 
 @pytest.mark.parametrize("eps", [1e-5, 1e-12])

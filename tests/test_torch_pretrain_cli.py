@@ -1,7 +1,7 @@
 """The port's pretraining CLI (esm_tpu_torch.cli.pretrain) end to end on the
 CPU, at a tiny size (2 layers x 64 wide x 4 heads) over seeded FASTA files
 written to tmp_path: bit-exact resume, accumulation with evaluation, saved
-parameters, and the flags that are not ported yet.
+parameters, and one step with each of the LoRA flags and --adafactor.
 """
 
 import math
@@ -76,13 +76,37 @@ def test_accum_eval_and_saved_params(tmp_path, capsys):
 
 @pytest.mark.parametrize(
     "flag",
-    [["--lora", "4"], ["--lora-alpha", "8"], ["--lora-int8-base"], ["--lora-full-remat"],
-     ["--adafactor"]],
-    ids=lambda f: f[0],
+    [["--lora", "4"], ["--lora", "4", "--lora-alpha", "8"], ["--lora", "4", "--lora-int8-base"],
+     ["--lora", "4", "--lora-full-remat"], ["--adafactor"]],
+    ids=lambda f: f[-1] if f[-1].startswith("--") else f[-2],
 )
-def test_unported_flags_raise(tmp_path, flag):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        _run(tmp_path, "d", flag, 1)
+def test_lora_and_adafactor_flags(tmp_path, capsys, flag):
+    """Each flag that raised before it was ported runs one step: LoRA trains
+    rank-4 adapters only (2 layers x 6 linears) over a bf16 or int8 base and
+    saves the merged model or, over int8, the adapters; --adafactor trains
+    with adafactor."""
+    from esm_tpu_torch import lora, training
+
+    state = _run(tmp_path, "d", flag, 1)
+    out = capsys.readouterr().out
+    assert state.step == 1 and re.search(r"step\s+1\s+loss\s+[0-9.]+", out), out
+    saved = load_params(tmp_path / "d" / "ckpt")
+    if "--adafactor" in flag:
+        assert isinstance(state.opt_state, training.AdafactorState)
+        assert saved.keys() == state.model.state_dict().keys()
+        return
+    assert isinstance(state.model, lora.LoRA)
+    assert lora.num_params(state.model) == 2 * (4 * (64 * 4 + 4 * 64)
+                                                + (64 * 4 + 4 * 256) + (256 * 4 + 4 * 64))
+    assert "LoRA rank 4" in out
+    if "--lora-int8-base" in flag:
+        assert "saved LoRA adapters" in out
+        assert saved.keys() == state.model.state_dict().keys()
+    else:
+        assert "saved MERGED params" in out
+        merged = esm2.ESM2(esm2.ESM2Config(num_layers=2, embed_dim=64, attention_heads=4))
+        merged.load_state_dict(saved, strict=True)
+        assert saved["layers.0.fc1.weight"].dtype == torch.bfloat16
 
 
 def test_resume_without_saved_state_exits(tmp_path):

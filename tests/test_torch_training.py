@@ -138,9 +138,33 @@ def test_schedule_is_optax_warmup_cosine():
         np.testing.assert_allclose(sched(step), float(ref(step)), rtol=1e-6, atol=1e-10)
 
 
-def test_factored_optimizer_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        training.make_optimizer(factored=True)
+def test_factored_optimizer_matches_optax(setup):
+    """make_optimizer(factored=True), once a raise, is optax.adafactor: two
+    steps on the same random gradients within 1e-6 (at width 64 no tensor
+    factors; tests/test_torch_trainers.py covers the factored statistics)."""
+    rng = np.random.RandomState(6)
+    jgrads = [jax.tree.map(lambda x: rng.randn(*x.shape).astype(np.float32), setup["params"])
+              for _ in range(2)]
+    kw = dict(warmup_steps=1, total_steps=10, factored=True)
+    tx = jtraining.make_optimizer(1e-2, **kw)
+    params = setup["params"]
+    opt = tx.init(params)
+    for g in jgrads:
+        updates, opt = tx.update(jax.tree.map(jnp.asarray, g), opt, params)
+        params = optax.apply_updates(params, updates)
+
+    model = _model(setup)
+    ttx = training.make_optimizer(1e-2, **kw)
+    state = training.init_state(model, ttx)
+    assert isinstance(state.opt_state, training.AdafactorState)
+    for g in jgrads:
+        named = _as_torch_names(g, setup, model)
+        for n, p in model.named_parameters():
+            p.grad = named[n].clone()
+        ttx.update(model, state.opt_state)
+    ref = _as_torch_names(params, setup, model)
+    for n, p in model.named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(), ref[n].numpy(), atol=1e-6, err_msg=n)
 
 
 def test_accum_matches_full_batch(setup):

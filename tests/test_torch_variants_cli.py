@@ -4,7 +4,7 @@ scoring strategy on an ESM-1v-shaped and an ESM-1 checkpoint, the MSA
 Transformer's masked-marginals on an a3m with insertions, the ensemble's
 --eval-column report; the CSV's columns, in order, and its scores at 1e-4
 absolute and relative (fp32 on both sides). Also: spearman equals JAX's,
---int8 raises, and the CLI module runs without importing pandas.
+--int8 equals JAX's --int8, and the CLI module runs without importing pandas.
 """
 
 import contextlib
@@ -152,11 +152,26 @@ def test_spearman_equals_jax():
         spearman([1.0], [2.0])
 
 
-def test_int8_raises(files):
-    args = tcli.create_parser().parse_args(
-        _argv(files, [files["esm1v_small"]], "wt-marginals", files["tmp"] / "x.csv", "--int8"))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tcli.run(args)
+def test_int8_matches_jax(files, monkeypatch):
+    """--int8 (ported since it raised): the port's scores equal esm_tpu's
+    --int8 scores at 1e-4 and stay near the fp32 run's. Both packages
+    quantize with min_size=1 (the default selects no linear at this size)."""
+    import functools
+
+    import esm_tpu.quantization as jq
+    import esm_tpu_torch.quantization as tq
+
+    monkeypatch.setattr(jq, "quantize_params", functools.partial(jq.quantize_params, min_size=1))
+    monkeypatch.setattr(tq, "quantize_params", functools.partial(tq.quantize_params, min_size=1))
+    models = [files["esm1v_small"]]
+    outs = _run_both(files, models, "wt-marginals", "int8", "--int8")
+    _compare(outs, models)
+    (_, f32_rows), _ = _run_both(files, models, "wt-marginals", "int8_f32")["port"]
+    (_, rows), _ = outs["port"]
+    int8 = np.array([float(r[4]) for r in rows])
+    f32 = np.array([float(r[4]) for r in f32_rows])
+    err = np.abs(int8 - f32).max()
+    assert 0 < err < 0.15 * (np.abs(f32).max() + 1), err
 
 
 def test_cli_runs_without_pandas(files):
