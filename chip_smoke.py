@@ -144,7 +144,32 @@ Phases, each raising on failure (nothing is caught):
                 optimizer state of adafactor at ESM2-650M beside AdamW's.
                 ([cli], [cli-fold] and [cli-variants] also run --int8 against
                 the same command without it.)
- 20. summary  — the nvidia-smi line, a JSON line of the ported kernels (K1
+ 20. train-fold — ESMFold fine-tuning at ESMFold v1's released widths
+                (ESM2-3B LM in bf16 through K1, frozen; 48 trunk blocks c_s
+                1024 c_z 128 in fp32 on the plain triangle paths; seeded, the
+                zero-initialized layers re-drawn), B=1, one seeded NeRF
+                backbone of FOLD_TRAIN_L residues, training.train_step_fold
+                with fold_optimizer: step 0 repeated bit for bit from one
+                state, 6 steps whose loss falls, K1 36 launches a step and
+                K6/K7/K8 none, ms a step (CUDA events) and peak memory, one
+                step with 3 recycles, 4 LoRA steps (rank 8, the trunk and
+                heads) with a lower peak and the base unchanged; card vs CPU
+                gradients at 2 trunk blocks and 2 LM layers, fp32;
+ 21. cli-fold-finetune — esm_tpu_torch.examples.esmfold_finetune on three
+                seeded PDB backbones of unequal length, --lora
+                --lm-aux-weight 0.1, 4 steps on the card against --cpu;
+ 22. ss-finetune — esm_tpu_torch.examples.finetune_secondary_structure
+                --synthetic 64 on the card: the frozen LM's loss falls (K1
+                once a layer a step); --train-lm: K1 with the lse and K2's
+                two passes once a layer a step;
+ 23. int8-15b — ESM2-15B (48 x 5120) on seeded weights built layer by layer
+                in weight-only int8 beside a bf16 copy: a B=1 L=1022 forward
+                through K1 (48 launches) held to the bf16 copy's and to a
+                streamed fp32 forward's under esm_tpu's int8 bound of the
+                largest error, and against fp32 no worse than the bf16 copy
+                by INT8_ERR_RATIO (largest error) and INT8_AGREE_DROP
+                (argmax agreement); parameter bytes, peak memory, seq/s;
+ 24. summary  — the nvidia-smi line, a JSON line of the ported kernels (K1
                 also at the ESM-1b and ESM-1 shapes), and as the last line
                 {"ok": true, "device": {...}}.
 
@@ -1211,15 +1236,16 @@ def phase_cli_pretrain():
             "tensors, all finite")
 
 
-def redraw_zero_layers(model, seed):
+def redraw_zero_layers(model, seed, device="cuda"):
     """Every all-zero parameter of the trunk and heads (the init's
     zero-initialized residual-branch outputs, g_proj, the IPA head weights,
     LN biases), re-drawn with seeded noise: weight matrices ~ N(0,
     1/(4 fan_in)), the rest ~ N(0, 0.01); without it the triangle ops would
-    add exactly zero. The LM is left as it is. Returns the count."""
+    add exactly zero. The LM is left as it is. ``device``: the model's.
+    Returns the count."""
     import torch
 
-    gen = torch.Generator(device="cuda").manual_seed(seed)
+    gen = torch.Generator(device=device).manual_seed(seed)
     n = 0
     with torch.no_grad():
         for name, p in model.named_parameters():
@@ -2674,15 +2700,18 @@ def timed_steps(step, n):
     return losses, float(np.mean(step_s[1:])), torch.cuda.max_memory_allocated()
 
 
-def card_vs_cpu_grads(tag, cpu_model, card_model, loss_fn, tol):
+def card_and_cpu_grads(cpu_model, card_model, loss_fn):
     """One loss and its gradients on the CPU and on the card (fp32, TF32 off),
-    and the same on the card again. Returns (loss error relative to the CPU's
-    loss, largest gradient error as a share of the largest value, whether the
-    card repeated itself bit for bit)."""
+    and the same on the card again. The CPU runs on one thread, so its sums
+    take one order whatever the machine's core count: with all cores the
+    reference's own gradients moved by up to 1.5e-4 of the largest between
+    machines ([train-if]). Returns (CPU loss, CPU gradients, card loss, card
+    gradients, whether the card repeated itself bit for bit)."""
     import torch
 
-    prev = torch.backends.cuda.matmul.allow_tf32
+    prev = torch.backends.cuda.matmul.allow_tf32, torch.get_num_threads()
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(1)
     try:
         results = []
         for model in (cpu_model, card_model, card_model):
@@ -2694,14 +2723,23 @@ def card_vs_cpu_grads(tag, cpu_model, card_model, loss_fn, tol):
                 for n, p in model.named_parameters()}))
             model.zero_grad(set_to_none=True)
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
+        torch.backends.cuda.matmul.allow_tf32 = prev[0]
+        torch.set_num_threads(prev[1])
     (l_cpu, g_cpu), (l_card, g_card), (l_again, g_again) = results
-    loss_err = abs(l_card - l_cpu) / abs(l_cpu)
-    grad_err = max(rel_err(g_card[n], g) for n, g in g_cpu.items())
     repeat = l_card == l_again and all(torch.equal(g, g_again[n]) for n, g in g_card.items())
-    log(f"[{tag}] card vs CPU (fp32, TF32 off): loss {l_card:.7f} vs {l_cpu:.7f} (relative err "
-        f"{loss_err:.2e}), gradients {grad_err:.2e} of the largest (<= {tol}); the card's "
-        f"step repeated bit for bit: {repeat}")
+    return l_cpu, g_cpu, l_card, g_card, repeat
+
+
+def card_vs_cpu_grads(tag, cpu_model, card_model, loss_fn, tol):
+    """:func:`card_and_cpu_grads`, logged. Returns (loss error relative to
+    the CPU's loss, largest gradient error as a share of the largest value,
+    whether the card repeated itself bit for bit)."""
+    l_cpu, g_cpu, l_card, g_card, repeat = card_and_cpu_grads(cpu_model, card_model, loss_fn)
+    loss_err = abs(l_card - l_cpu) / abs(l_cpu)
+    grad_err, where = max((rel_err(g_card[n], g), n) for n, g in g_cpu.items())
+    log(f"[{tag}] card vs CPU (fp32, TF32 off, the CPU on one thread): loss {l_card:.7f} vs "
+        f"{l_cpu:.7f} (relative err {loss_err:.2e}), gradients {grad_err:.2e} of the largest "
+        f"(worst {where}; <= {tol}); the card's step repeated bit for bit: {repeat}")
     return loss_err, grad_err, repeat
 
 
@@ -2913,6 +2951,422 @@ def phase_cli_pretrain_lora():
         f"MB ({sizes['adafactor'] / sizes['AdamW']:.5f} of AdamW's)")
 
 
+# ---------------------------------------------------------------------------
+# ESMFold fine-tuning, the fine-tuning examples and ESM2-15B in int8
+# ---------------------------------------------------------------------------
+
+FOLD_TRAIN_L = 128     # the largest of L in {128, 256} whose step fits the card (PERF.md)
+FOLD_TRAIN_LR = 1e-5   # fold_optimizer's rate in [train-fold]: at 1e-4 the loss of this
+                       # random init jumped 2.82 -> 9.05 at step 2 (PERF.md §6)
+FOLD_LORA_LR = 1e-4    # the adapters' rate: 1e-3 raised the loss at step 1 (PERF.md §6)
+FOLD_LORA_RANK = 8
+# [train-fold] card vs CPU at 2 trunk blocks and 2 LM layers, fp32, TF32 off:
+# per tensor, the largest gradient error over the tensor's largest |gradient|
+# (or 1e-3 of the largest over all tensors, for tensors whose gradient is zero
+# but for rounding); the loss relative
+FOLD_GRAD_TOL = 2e-4
+# [cli-fold-finetune]: the example's printed losses, card vs --cpu, relative
+# (fp32 on both; Adam's first update lr g / (|g| + 1e-8) lets the rounding of
+# near-zero gradients decide a share of lr on those elements)
+FINETUNE_LOSS_TOL = 1e-3
+ESM2_15B_PARAMS = 15_129_100_194  # esm2_t48_15B_UR50D, counted from the port's module shapes
+# [int8-15b], both against a streamed fp32 forward of the same weights: the
+# int8 logits' largest error at most INT8_ERR_RATIO times the bf16 copy's, and
+# their argmax agreement at most INT8_AGREE_DROP below the bf16 copy's (read
+# 1.187x and 0.042 on the H100, PERF.md §6). esm_tpu's agreement above 0.95
+# (its 2-layer test's) cannot hold at 48 random layers: the bf16 copy itself
+# agrees with fp32 at 0.959.
+INT8_ERR_RATIO = 1.4
+INT8_AGREE_DROP = 0.06
+
+
+def fold_train_batch(length, seed, device):
+    """(aa, mask, coords, coord_mask) of one seeded NeRF backbone and a random
+    sequence of ``length`` residues, B=1."""
+    import torch
+    from esm_tpu_torch.models import esmfold as ef
+
+    aa, mask, _, _, _ = ef.batch_encode_sequences([random_protein(length, seed + 1)],
+                                                  residue_index_offset=None, chain_linker=None)
+    coords = ideal_backbone(length, seed)[None]
+    return tuple(torch.from_numpy(np.asarray(x)).to(device) for x in
+                 (aa, mask.astype(np.float32), coords, np.ones((1, length), np.float32)))
+
+
+def fold_grad_errors(got, want):
+    """Per-tensor errors as FOLD_GRAD_TOL measures them; returns (worst, its name)."""
+    scale = max(g.abs().max().item() for g in want.values())
+    worst, where = 0.0, ""
+    for name, g in want.items():
+        err = (got[name] - g).abs().max().item() / max(g.abs().max().item(), 1e-3 * scale)
+        if err > worst:
+            worst, where = err, name
+    return worst, where
+
+
+def plain_pair_ops_ms(model, cfg, length):
+    """ms of one forward + backward of the trunk's plain triangle attention
+    (starting node) and of its tri-mul (outgoing), block 0's weights, on a
+    seeded (1, L, L, c_z) fp32 pair tensor with the trunk's mask: what each
+    of their 96 calls a step costs the fold step (CUDA events)."""
+    import torch
+    from esm_tpu_torch.ops import triangle
+
+    block = model.trunk.blocks[0]
+    gen = torch.Generator(device="cuda").manual_seed(87)
+    z = torch.randn(1, length, length, cfg.trunk.pairwise_state_dim, device="cuda",
+                    generator=gen).requires_grad_(True)
+    mask = torch.ones(1, length, length, device="cuda")
+    calls = {
+        "tri_att": lambda: triangle.triangle_attention(
+            block.tri_att_start, z, num_heads=cfg.trunk.pair_heads, starting=True, mask=mask),
+        "tri_mul": lambda: triangle.triangle_multiplicative_update(
+            block.tri_mul_out, z, outgoing=True, mask=mask),
+    }
+    out = {k: cuda_time_ms(lambda: fn().sum().backward(), iters=10, warmup=2)
+           for k, fn in calls.items()}
+    model.zero_grad(set_to_none=True)
+    return out
+
+
+def phase_train_fold(card):
+    """ESMFold fine-tuning at ESMFold v1's released widths (ESM2-3B LM in bf16
+    through K1, 48 trunk blocks c_s 1024 c_z 128 in fp32 on the plain
+    triangle paths, 8 structure-module blocks; seeded, the zero-initialized
+    layers re-drawn), B=1 on one NeRF backbone of FOLD_TRAIN_L residues:
+    one step from a saved state twice (bit for bit), 5 more steps (the loss
+    falls; K1 36 launches a step, K6/K7/K8 none), one step with 3 recycles,
+    4 LoRA steps (rank 8) over the trained weights; then card vs CPU
+    gradients at 2 trunk blocks and 2 LM layers, fp32."""
+    import copy
+    import dataclasses
+
+    import torch
+    from esm_tpu_torch import lora, pretrained, training
+    from esm_tpu_torch.models import esmfold as ef
+    from esm_tpu_torch.utils import profiling
+
+    t0 = time.perf_counter()
+    handle = pretrained.random_esmfold("esmfold_v1", seed=80, device="cuda",
+                                       lm_dtype=torch.bfloat16, use_flash=True)
+    cfg, model = handle.cfg, handle.model
+    redraw_zero_layers(model, seed=81)
+    trainable = training.split_fold_params(model)
+    n_train = sum(p.numel() for p in trainable.values())
+    L = FOLD_TRAIN_L
+    batch = fold_train_batch(L, seed=82, device="cuda")
+    log(f"[train-fold] ESMFold v1 (ESM2-3B LM bf16 with K1, frozen; trunk {cfg.trunk.num_blocks} "
+        f"blocks c_s {cfg.trunk.sequence_state_dim} c_z {cfg.trunk.pairwise_state_dim} fp32, "
+        f"plain triangle paths; {n_train / 1e6:.1f}M trainable parameters), B=1 L={L}, "
+        f"fold_optimizer lr {FOLD_TRAIN_LR}; built in {time.perf_counter() - t0:.1f} s")
+    if cfg.trunk.use_flash_tri or cfg.trunk.compute_dtype != torch.float32:
+        raise AssertionError(f"[train-fold] trunk options {cfg.trunk}")
+    tx = training.fold_optimizer(FOLD_TRAIN_LR)
+    state = training.init_state(model, tx)
+
+    def step(num_recycles=0):
+        nonlocal state
+        sec, (state, metrics) = profiling.timed(
+            lambda: training.train_step_fold(state, cfg, tx, *batch, num_recycles=num_recycles),
+            iters=1, warmup=0)
+        return metrics["loss"].item(), sec
+
+    # step 0 twice from one state: bit for bit
+    saved = {n: p.detach().clone() for n, p in trainable.items()}
+    zero_counts()
+    loss0, _ = step()
+    counts0 = read_counts()
+    first = {n: p.detach().clone() for n, p in trainable.items()}
+    first_mu = {n: m.clone() for n, m in state.opt_state.mu.items()}
+    with torch.no_grad():
+        for n, p in trainable.items():
+            p.copy_(saved[n])
+    state = training.init_state(model, tx)
+    loss_again, _ = step()
+    repeat = (loss_again == loss0
+              and all(torch.equal(p, first[n]) for n, p in trainable.items())
+              and all(torch.equal(m, first_mu[n]) for n, m in state.opt_state.mu.items()))
+    del saved, first, first_mu
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    losses, secs = [loss0], []
+    for _ in range(TRAIN_STEPS - 1):
+        loss, sec = step()
+        losses.append(loss)
+        secs.append(sec)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    per_step = {k: v / (TRAIN_STEPS - 1) for k, v in counts.items()}
+    want = {"flash_attention": cfg.esm.num_layers, "flash_attention_with_lse": 0,
+            "flash_attention_bwd.dq": 0, "flash_attention_bwd.dkv": 0,
+            "triangle_attention_fused": 0, "tri_mul_stage1": 0, "tri_mul_epilogue": 0}
+    ms = 1e3 * float(np.mean(secs))
+    log(f"[train-fold] losses over {TRAIN_STEPS} steps: " + ", ".join(f"{x:.5f}" for x in losses)
+        + f"; step 0 repeated bit for bit from the same state: {repeat}")
+    log(f"[train-fold] launches per step {per_step} (step 0: {counts0}; expected {want})")
+    log(f"[train-fold] full step, num_recycles 0: {ms:.1f} ms a step (CUDA events, mean of "
+        f"steps 1-{len(secs)}), peak memory {peak / 1e9:.3f} GB over them "
+        f"(torch.cuda.max_memory_allocated; ESMFold v1 B=1 L={L}; {card})")
+    if per_step != want or counts0 != want:
+        raise AssertionError(f"[train-fold] launches per step {per_step}, step 0 {counts0}")
+    if not (repeat and all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"[train-fold] repeat {repeat}, losses {losses}")
+
+    profile(f"one [train-fold] step (L={L})", lambda: step(), top=12, by_op=True)
+    pair_ms = plain_pair_ops_ms(model, cfg, L)
+    log(f"[train-fold] the plain pair ops at B=1, L={L}, c_z {cfg.trunk.pairwise_state_dim}, "
+        f"fp32, forward + backward a call: triangle attention {pair_ms['tri_att']:.3f} ms, "
+        f"tri-mul {pair_ms['tri_mul']:.3f} ms; 96 calls of each a step: "
+        f"{96 * pair_ms['tri_att']:.1f} ms and {96 * pair_ms['tri_mul']:.1f} ms of the "
+        f"{ms:.1f} ms step ({card})")
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    loss_r, sec_r = step(num_recycles=3)
+    counts_r = read_counts()
+    peak_r = torch.cuda.max_memory_allocated()
+    log(f"[train-fold] full step, num_recycles 3: {1e3 * sec_r:.1f} ms, peak memory "
+        f"{peak_r / 1e9:.3f} GB, loss {loss_r:.5f}, launches {counts_r}")
+    if counts_r != want or not np.isfinite(loss_r):
+        raise AssertionError(f"[train-fold] 3 recycles: launches {counts_r}, loss {loss_r}")
+    del state, tx
+    model.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+
+    before = {n: p.detach().cpu() for n, p in trainable.items()}  # off the card: not in the peak
+    adapters = lora.init_lora(torch.Generator(device="cuda").manual_seed(83), model,
+                              rank=FOLD_LORA_RANK, targets=lora.fold_targets)
+    ltx = training.fold_optimizer(FOLD_LORA_LR)
+    lstate = training.init_state(adapters, ltx)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    llosses, lsecs = [], []
+    for _ in range(4):
+        sec, (lstate, m) = profiling.timed(
+            lambda: training.train_step_fold_lora(lstate, model, cfg, ltx, *batch),
+            iters=1, warmup=0)
+        llosses.append(m["loss"].item())
+        lsecs.append(sec)
+    lcounts = read_counts()
+    lpeak = torch.cuda.max_memory_allocated()
+    unchanged = all(torch.equal(p.cpu(), before[n]) for n, p in trainable.items())
+    log(f"[train-fold] LoRA rank {FOLD_LORA_RANK} over the trunk and heads "
+        f"({lora.num_params(adapters):,} adapter parameters), lr {FOLD_LORA_LR}: losses "
+        + ", ".join(f"{x:.5f}" for x in llosses)
+        + f"; {1e3 * float(np.mean(lsecs[1:])):.1f} ms a step, peak memory {lpeak / 1e9:.3f} GB "
+        f"(full step {peak / 1e9:.3f} GB); base unchanged: {unchanged}; launches {lcounts}")
+    if not (unchanged and lpeak < peak and llosses[-1] < llosses[0]
+            and lcounts["flash_attention"] == 4 * cfg.esm.num_layers):
+        raise AssertionError(f"[train-fold] LoRA: base unchanged {unchanged}, peak {lpeak} vs "
+                             f"{peak}, losses {llosses}, launches {lcounts}")
+    del handle, model, adapters, lstate, before, trainable
+    torch.cuda.empty_cache()
+
+    # card vs CPU at a cut depth, fp32 with TF32 off
+    small = dataclasses.replace(
+        cfg, esm=dataclasses.replace(cfg.esm, num_layers=2, compute_dtype=torch.float32,
+                                     use_flash=False),
+        trunk=dataclasses.replace(cfg.trunk, num_blocks=2))
+    cpu_model = ef.init_esmfold(small, torch.Generator().manual_seed(84), device="cpu")
+    redraw_zero_layers(cpu_model, seed=85, device="cpu")
+    training.split_fold_params(cpu_model)
+    cpu_batch = fold_train_batch(48, seed=86, device="cpu") + (None,)
+
+    def loss_fn(m):
+        return training._fold_loss(m, small, tuple(None if t is None else t.to(m.device)
+                                                   for t in cpu_batch), None, 1)[0]
+
+    l_cpu, g_cpu, l_card, g_card, repeat_small = card_and_cpu_grads(
+        cpu_model, copy.deepcopy(cpu_model).cuda(), loss_fn)
+    loss_err = abs(l_card - l_cpu) / abs(l_cpu)
+    err, where = fold_grad_errors(g_card, g_cpu)
+    log(f"[train-fold] card vs CPU, 2 trunk blocks and 2 LM layers at the released widths, "
+        f"L=48, 1 recycle, fp32 (TF32 off, the CPU on one thread): loss {l_card:.7f} vs "
+        f"{l_cpu:.7f} (relative {loss_err:.2e}), gradients per tensor {err:.2e} of the "
+        f"tensor's largest (worst {where}; bound {FOLD_GRAD_TOL}); the card repeated bit for "
+        f"bit: {repeat_small}")
+    if not (loss_err <= 1e-5 and err <= FOLD_GRAD_TOL and repeat_small):
+        raise AssertionError(f"[train-fold] card vs CPU: loss {loss_err}, gradients {err}, "
+                             f"repeat {repeat_small}")
+    return dict(L=L, ms=ms, peak=peak, ms_r3=1e3 * sec_r, peak_r3=peak_r, lora_peak=lpeak,
+                lora_ms=1e3 * float(np.mean(lsecs[1:])))
+
+
+def run_fold_finetune(argv):
+    from esm_tpu_torch.examples import esmfold_finetune
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        _, losses = esmfold_finetune.main(esmfold_finetune.create_parser().parse_args(argv))
+    return losses, buf.getvalue(), time.perf_counter() - t0
+
+
+def phase_cli_fold_finetune():
+    """esm_tpu_torch.examples.esmfold_finetune on three seeded NeRF backbones
+    of unequal length written as PDB files, 4 steps with --lora and
+    --lm-aux-weight 0.1 on the card and with --cpu (the tiny default model):
+    the printed losses agree within FINETUNE_LOSS_TOL."""
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, n in enumerate((40, 57, 73)):
+            write_backbone(os.path.join(tmp, f"b{i}.pdb"),
+                           {"A": (ideal_backbone(n, 90 + i), random_protein(n, 95 + i))}, "pdb")
+        common = ["--pdbs", tmp, "--steps", "4", "--log-every", "1", "--batch-size", "2",
+                  "--lora", "--lm-aux-weight", "0.1", "--lr", "1e-3"]
+        card, out, sec = run_fold_finetune(common)
+        cpu, _, sec_cpu = run_fold_finetune(common + ["--cpu"])
+    err = max(abs(a - b) / abs(b) for a, b in zip(card, cpu))
+    log(f"[cli-fold-finetune] 3 PDB backbones (40, 57, 73 residues), B=2, --lora "
+        f"--lm-aux-weight 0.1, 4 steps: card {sec:.1f} s, losses "
+        + ", ".join(f"{x:.6f}" for x in card) + f"; CPU {sec_cpu:.1f} s, losses "
+        + ", ".join(f"{x:.6f}" for x in cpu)
+        + f"; largest relative difference {err:.2e} (bound {FINETUNE_LOSS_TOL})")
+    if not ("merged LoRA adapters" in out and len(card) == 4 and all(np.isfinite(card))
+            and err <= FINETUNE_LOSS_TOL):
+        raise AssertionError(f"[cli-fold-finetune] card {card}, CPU {cpu}")
+
+
+def phase_ss_finetune(card):
+    """esm_tpu_torch.examples.finetune_secondary_structure on the card with
+    --synthetic 64 at its default LM (6 x 320, seeded): the frozen LM (K1 once
+    a layer a step) for 40 steps, the loss falls; --train-lm for 4 steps: K1
+    with the lse once a layer and K2's dq and dk/dv passes once a layer a
+    step."""
+    from esm_tpu_torch.examples import finetune_secondary_structure as ss
+
+    runs = {}
+    for name, flags, steps in (("frozen LM", [], 40), ("--train-lm", ["--train-lm"], 4)):
+        args = ss.create_parser().parse_args(
+            ["--synthetic", "64", "--steps", str(steps), "--log-every", str(steps)] + flags)
+        buf = io.StringIO()
+        zero_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            model, _, losses = ss.run(args)
+        sec = time.perf_counter() - t0
+        counts = read_counts()
+        n_layers = model.lm.cfg.num_layers
+        per_step = {k: v / steps for k, v in counts.items() if v}
+        want = ({"flash_attention": n_layers} if not flags else
+                {"flash_attention_with_lse": n_layers, "flash_attention_bwd.dq": n_layers,
+                 "flash_attention_bwd.dkv": n_layers})
+        log(f"[ss-finetune] {name}: {steps} steps in {sec:.1f} s, loss {losses[0]:.4f} -> "
+            f"{losses[-1]:.4f} (mean of the first and last 5 steps: {np.mean(losses[:5]):.4f} "
+            f"-> {np.mean(losses[-5:]):.4f}); launches per step {per_step} (expected {want}; "
+            f"{card})")
+        if per_step != want or not all(np.isfinite(losses)):
+            raise AssertionError(f"[ss-finetune] {name}: launches {per_step}, losses {losses}")
+        runs[name] = losses
+    frozen = runs["frozen LM"]
+    if not np.mean(frozen[-5:]) < np.mean(frozen[:5]):
+        raise AssertionError(f"[ss-finetune] the frozen-LM loss did not fall: {frozen}")
+
+
+def streamed_fp32_logits(model_name, seed, tokens):
+    """The fp32 logits of seeded_esm2's weights (TF32 off, exact attention),
+    drawing the weights again from the seed one layer at a time, so no fp32
+    copy of the model is held."""
+    import dataclasses
+
+    import torch
+    from esm_tpu_torch.examples.esm2_15b_int8_single_chip import seeded_parts
+    from esm_tpu_torch.models import esm2
+    from esm_tpu_torch.models.lm_common import transformer_layer_apply
+    from esm_tpu_torch.ops.common import layer_norm
+    from esm_tpu_torch.ops.heads import roberta_lm_head
+
+    parts = seeded_parts(model_name, seed, "cuda")
+    cfg, shell = next(parts)
+    cfg = dataclasses.replace(cfg, compute_dtype=torch.float32, use_flash=False)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            x = esm2.embed_tokens(shell, cfg, tokens)
+            pad = tokens == cfg.padding_idx
+            for layer in parts:
+                x, _ = transformer_layer_apply(layer, x, static=cfg.layer_static(),
+                                               key_padding_mask=pad)
+                del layer
+            x = layer_norm(shell.emb_layer_norm_after, x)
+            return roberta_lm_head(shell.lm_head, x.float(), shell.embed_tokens.weight)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def phase_int8_15b(card):
+    """ESM2-15B (48 x 5120, 40 heads) on seeded weights built one layer at a
+    time on the card (esm_tpu_torch.examples.esm2_15b_int8_single_chip: no
+    fp32 copy of the model), in weight-only int8, beside a bf16 copy of the
+    same weights: one B=1, L=1022 forward of each through K1 (48 launches),
+    the int8 logits held to the bf16 ones, and to an fp32 forward of the same
+    weights, under esm_tpu's int8 bound of the largest error, 0.15 (max|ref|
+    + 1); against fp32, the int8 error and argmax agreement are held to the
+    bf16 copy's within INT8_ERR_RATIO and INT8_AGREE_DROP."""
+    import torch
+    from esm_tpu_torch.examples.esm2_15b_int8_single_chip import seeded_esm2
+    from esm_tpu_torch.quantization import param_bytes
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    handle, twin, alphabet = seeded_esm2("esm2_t48_15B_UR50D", 100, "cuda", bf16_copy=True)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_peak = torch.cuda.max_memory_allocated()
+    n = sum(p.numel() for p in handle.model.parameters())
+    tokens = torch.from_numpy(bench_tokens(alphabet, 1, 1022, seed=101)).cuda()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    with torch.no_grad():
+        got = handle(tokens)["logits"]
+        torch.cuda.synchronize()
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        ref = twin(tokens)["logits"]
+        scale = ref.float().abs().max().item()
+        err = (got.float() - ref.float()).abs().max().item()
+        agree = (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
+        sec = cuda_time_ms(lambda: handle(tokens)["logits"], iters=3, warmup=1) / 1e3
+        sec_bf16 = cuda_time_ms(lambda: twin(tokens)["logits"], iters=3, warmup=1) / 1e3
+    f32 = streamed_fp32_logits("esm2_t48_15B_UR50D", 100, tokens)
+    scale32 = f32.abs().max().item()
+    err32 = (got.float() - f32).abs().max().item()
+    agree32 = (got.argmax(-1) == f32.argmax(-1)).float().mean().item()
+    err16 = (ref.float() - f32).abs().max().item()
+    agree16 = (ref.argmax(-1) == f32.argmax(-1)).float().mean().item()
+    top2 = ref.float().topk(2, dim=-1).values
+    margin = (top2[..., 0] - top2[..., 1])[0]
+    flips = (got.argmax(-1) != ref.argmax(-1))[0]
+    pb, pb16 = param_bytes(handle.model), param_bytes(twin.model)
+    log(f"[int8-15b] ESM2-15B ({n:,} parameters), seeded, built layer by layer in "
+        f"{build_s:.1f} s (peak {build_peak / 1e9:.2f} GB with the bf16 copy); parameter "
+        f"bytes int8 {pb / 1e9:.3f} GB, bf16 copy {pb16 / 1e9:.3f} GB")
+    log(f"[int8-15b] B=1 T=1024 forward: K1 launched {counts['flash_attention']} times; "
+        f"peak memory {peak / 1e9:.3f} GB (both models resident); int8 {1 / sec:.3f} seq/s "
+        f"({sec * 1e3:.1f} ms), bf16 {1 / sec_bf16:.3f} seq/s ({sec_bf16 * 1e3:.1f} ms) ({card})")
+    log(f"[int8-15b] int8 logits against the bf16 copy: max abs err {err:.4f} (bound "
+        f"{0.15 * (scale + 1):.3f}), argmax agreement {agree:.5f}; against an fp32 forward of "
+        f"the same weights (drawn again one layer at a time, TF32 off): max abs err "
+        f"{err32:.4f} (bound {0.15 * (scale32 + 1):.3f}), argmax agreement {agree32:.5f}; the "
+        f"bf16 copy against fp32: {err16:.4f}, {agree16:.5f}")
+    log(f"[int8-15b] against fp32, int8 vs the bf16 copy: largest error {err32 / err16:.4f}x "
+        f"(bound {INT8_ERR_RATIO}x), argmax agreement {agree16 - agree32:.5f} lower (bound "
+        f"{INT8_AGREE_DROP}); the bf16 logits' top-2 margin has median "
+        f"{margin.median().item():.4f}, and the int8 flips lie at margins up to "
+        f"{margin[flips].max().item() if flips.any() else 0.0:.4f}")
+    if n != ESM2_15B_PARAMS:
+        raise AssertionError(f"[int8-15b] {n} parameters, expected {ESM2_15B_PARAMS}")
+    if counts["flash_attention"] != 48 or sum(counts.values()) != 48:
+        raise AssertionError(f"[int8-15b] launches {counts}")
+    if not (torch.isfinite(got).all() and err < 0.15 * (scale + 1)
+            and err32 < 0.15 * (scale32 + 1) and err32 <= INT8_ERR_RATIO * err16
+            and agree32 >= agree16 - INT8_AGREE_DROP):
+        raise AssertionError(f"[int8-15b] logits off: err {err} (bf16), {err32} (fp32, bf16's "
+                             f"{err16}), agreement with fp32 {agree32} (bf16's {agree16})")
+    del handle, twin, got, ref
+    torch.cuda.empty_cache()
+    return dict(bytes=pb, peak=peak, seq_s=1 / sec)
+
+
 def main():
     import torch
 
@@ -2948,6 +3402,13 @@ def main():
     phase_cli_pretrain_lora()
     log(f"[lora] [lora], [int8], [train-msa], [train-if] and [cli-pretrain-lora] took "
         f"{time.perf_counter() - t_new:.1f} s")
+    t_fold = time.perf_counter()
+    phase_train_fold(card)
+    phase_cli_fold_finetune()
+    phase_ss_finetune(card)
+    phase_int8_15b(card)
+    log(f"[train-fold] [train-fold], [cli-fold-finetune], [ss-finetune] and [int8-15b] took "
+        f"{time.perf_counter() - t_fold:.1f} s")
     log(f"[summary] all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(smi)
     kernels = [k1] + k1_esm1 + backward + [k6] + trimul

@@ -80,6 +80,13 @@ class LoRA(nn.Module):
         return ((n, m) for n, m in self.named_modules() if isinstance(m, Adapter))
 
 
+def fold_targets(path: Tuple) -> bool:
+    """ESMFold's adapters: every linear of the trunk and the heads, none in
+    the frozen LM (esm_tpu's example adapts every linear of the trainable
+    subtree, ``targets=lambda path: True`` over ``split_fold_params``)."""
+    return path[0] != "esm"
+
+
 def _wants(targets: Targets, path: Tuple) -> bool:
     if callable(targets):
         return bool(targets(path))

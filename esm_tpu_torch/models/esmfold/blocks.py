@@ -15,6 +15,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from ..lm_common import embedding_lookup
 from ...ops.common import layer_norm, linear, new_embedding, new_layer_norm, new_linear, softmax_fp32
 from ...ops.triangle import (
     TriangleAttention,
@@ -145,7 +146,7 @@ def relative_position(
     if mask is not None:
         pair_mask = mask[:, None, :] * mask[:, :, None]
         diff = torch.where(pair_mask.bool(), diff, torch.zeros_like(diff))
-    return torch.nn.functional.embedding(diff, mod.embedding.weight)
+    return embedding_lookup(mod.embedding.weight, diff)
 
 
 def triangular_self_attention_block(

@@ -27,6 +27,7 @@ from ...data import residue_constants as rc
 from ...data.alphabet import Alphabet
 from ...ops.common import layer_norm, linear, new_embedding, new_layer_norm, new_linear
 from .. import esm2
+from ..lm_common import embedding_lookup
 from .blocks import mlp_apply, mlp_layers
 from .protein import (
     categorical_lddt,
@@ -130,7 +131,6 @@ def _lm_representations(model: esm2.ESM2, esm_cfg: esm2.ESM2Config, esmaa: torch
     return esm_s[:, 1:l + 1], esm_z
 
 
-@torch.no_grad()
 def apply(
     model: ESMFold,
     cfg: ESMFoldConfig,
@@ -155,8 +155,11 @@ def apply(
     esmaa = model.af2_to_esm[torch.where(mask == 1, aa + 1, torch.zeros_like(aa))]
     if masking_pattern is not None:
         esmaa = torch.where(masking_pattern == 1, cfg.esm.mask_idx, esmaa)
-    esm_s, esm_z = _lm_representations(model.esm, cfg.esm, esmaa,
-                                       need_attn_map=cfg.use_esm_attn_map)
+    # the LM is frozen: no gradient reaches it (esm_tpu stops it at esm_s
+    # and esm_z), so its activations are not kept
+    with torch.no_grad():
+        esm_s, esm_z = _lm_representations(model.esm, cfg.esm, esmaa,
+                                           need_attn_map=cfg.use_esm_attn_map)
     esm_s = esm_s.float()
 
     # softmax-weighted combination over the LM's layers (esmfold.py:200)
@@ -168,7 +171,7 @@ def apply(
         s_z_0 = mlp_apply(model.esm_z_mlp, esm_z.float())
     else:
         s_z_0 = s_s_0.new_zeros((b, l, l, cfg.trunk.pairwise_state_dim))
-    s_s_0 = s_s_0 + torch.nn.functional.embedding(aa, model.embedding.weight)
+    s_s_0 = s_s_0 + embedding_lookup(model.embedding.weight, aa)
 
     structure = folding_trunk_apply(model.trunk, cfg.trunk, s_s_0, s_z_0, aa, residx, mask,
                                     no_recycles=num_recycles)
@@ -287,6 +290,7 @@ def auto_frugal(batch: int, L: int) -> bool:
     return batch * L * L * _NON_FRUGAL_BYTES_PER_PAIR > _AUTO_FRUGAL_HELD_BYTES
 
 
+@torch.no_grad()
 def infer(
     model: ESMFold,
     cfg: ESMFoldConfig,

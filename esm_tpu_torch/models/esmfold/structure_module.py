@@ -247,8 +247,12 @@ def frames_to_atom14(frames: rg.Rigid, aatype: torch.Tensor) -> torch.Tensor:
     """Literature positions placed by each atom's rigid-group frame (openfold
     feats.frames_and_literature_positions_to_atom14_pos)."""
     group = table("restype_atom14_to_rigid_group", aatype)  # (..., 14)
-    rots = torch.gather(frames.rots, -3, group[..., None, None].expand(group.shape + (3, 3)))
-    trans = torch.gather(frames.trans, -2, group[..., None].expand(group.shape + (3,)))
+    # each atom's frame picked by a one-hot sum over the 8 groups: exact
+    # (one term is nonzero), and its backward is a sum in a fixed order where
+    # torch.gather's scatter-adds the 14 atoms' gradients into 8 groups
+    one_hot = torch.nn.functional.one_hot(group, frames.rots.shape[-3]).to(frames.trans.dtype)
+    rots = (one_hot[..., None, None] * frames.rots[..., None, :, :, :]).sum(-3)
+    trans = (one_hot[..., None] * frames.trans[..., None, :, :]).sum(-2)
     pred = rg.apply(rg.Rigid(rots, trans), table("restype_atom14_rigid_group_positions", aatype))
     return pred * table("restype_atom14_mask", aatype)[..., None]
 
@@ -290,6 +294,7 @@ def structure_module_apply(
             "positions": frames_to_atom14(all_frames, aatype),
             "states": s,
         })
+        rigids = rg.stop_rot_gradient(rigids)
     out = {k: torch.stack([o[k] for o in outputs]) for k in outputs[0]}
     out["single"] = s
     return out

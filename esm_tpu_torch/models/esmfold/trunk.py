@@ -6,7 +6,9 @@ triangular self-attention blocks, and recycling with the LN'd previous s/z
 plus the distogram bins of the previous structure's CB atoms, the structure
 module after every pass. The JAX package scans over stacked block params
 and recycles; here the blocks are an ``nn.ModuleList`` and both loops are
-Python loops. Inference only: nothing is differentiated.
+Python loops. The gradient is stopped on the recycled carry, as in esm_tpu:
+every pass but the last reaches the loss only through that carry, so those
+passes run without autograd and keep no activations.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 from torch import nn
 
 from ...ops.common import layer_norm, linear, new_embedding, new_layer_norm, new_linear
+from ..lm_common import embedding_lookup
 from .blocks import (
     RelativePosition,
     TriangularSelfAttentionBlock,
@@ -103,7 +106,6 @@ def trunk_iter(trunk: FoldingTrunk, cfg: FoldingTrunkConfig, s, z, residx, mask)
     return s.float(), z.float()
 
 
-@torch.no_grad()
 def folding_trunk_apply(
     trunk: FoldingTrunk,
     cfg: FoldingTrunkConfig,
@@ -127,18 +129,21 @@ def folding_trunk_apply(
     s_s = torch.zeros_like(seq_feats)
     s_z = torch.zeros_like(pair_feats)
     bins = torch.zeros((b, l, l), dtype=torch.int64, device=seq_feats.device)
+    grad = torch.is_grad_enabled()
     for pass_ in range(no_recycles):
-        rs = layer_norm(trunk.recycle_s_norm, s_s)
-        rz = layer_norm(trunk.recycle_z_norm, s_z)
-        rz = rz + torch.nn.functional.embedding(bins, trunk.recycle_disto.weight).to(rz.dtype)
-        s_s, s_z = trunk_iter(trunk, cfg, seq_feats + rs, pair_feats + rz, residx, mask)
-        structure = structure_module_apply(
-            trunk.structure_module, cfg.structure_module,
-            linear(trunk.trunk2sm_s, s_s), linear(trunk.trunk2sm_z, s_z), true_aa,
-            mask.to(s_s.dtype),
-        )
-        if pass_ + 1 < no_recycles:
-            bins = distogram_bins(structure["positions"][-1][:, :, :3])
+        last = pass_ + 1 == no_recycles
+        with torch.set_grad_enabled(grad and last):
+            rs = layer_norm(trunk.recycle_s_norm, s_s.detach())
+            rz = layer_norm(trunk.recycle_z_norm, s_z.detach())
+            rz = rz + embedding_lookup(trunk.recycle_disto.weight, bins).to(rz.dtype)
+            s_s, s_z = trunk_iter(trunk, cfg, seq_feats + rs, pair_feats + rz, residx, mask)
+            structure = structure_module_apply(
+                trunk.structure_module, cfg.structure_module,
+                linear(trunk.trunk2sm_s, s_s), linear(trunk.trunk2sm_z, s_z), true_aa,
+                mask.to(s_s.dtype),
+            )
+        if not last:
+            bins = distogram_bins(structure["positions"][-1][:, :, :3].detach())
     structure["s_s"] = s_s
     structure["s_z"] = s_z
     return structure

@@ -70,6 +70,12 @@ def scale_translation(r: Rigid, factor: float) -> Rigid:
     return Rigid(r.rots, r.trans * factor)
 
 
+def stop_rot_gradient(r: Rigid) -> Rigid:
+    """The rotations detached, the translations kept (AF2 Alg. 20 line 20:
+    the structure module stops the rotation gradient between blocks)."""
+    return Rigid(r.rots.detach(), r.trans)
+
+
 def quat_to_rot(q: torch.Tensor) -> torch.Tensor:
     """Normalized quaternion (..., 4) [w, x, y, z] -> rotation matrix."""
     w, x, y, z = q.unbind(-1)

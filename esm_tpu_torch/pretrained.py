@@ -674,3 +674,26 @@ def random_esmfold(name: str = "esmfold_v1", *, seed: int = 0, device=None, fast
     gen = torch.Generator(device=device).manual_seed(seed)
     handle = ESMFoldHandle(cfg, init_esmfold(cfg, gen, device=device), alphabet)
     return handle.with_options(**options) if options else handle
+
+
+# Structure-module-only ablations (esm_tpu/pretrained.py:712-731; reference
+# esm/pretrained.py:422-553): ESMFold with a trunk of zero blocks over each
+# ESM-2 size, from the local cache only.
+SM_ONLY_SIZES = ("8M", "8M_270K", "35M", "35M_270K", "150M", "150M_270K", "650M", "650M_270K",
+                 "3B", "3B_270K", "15B")
+
+
+def _make_smonly(size):
+    name = f"esmfold_structure_module_only_{size}"
+
+    def ctor(fast: bool = False, device=None) -> ESMFoldHandle:
+        return load_esmfold(name, fast=fast, device=device)
+
+    ctor.__name__ = name
+    ctor.__doc__ = (f"ESMFold's structure-module-only baseline over ESM-2 {size}, from the "
+                    "local cache. Returns an ESMFoldHandle.")
+    return ctor
+
+
+for _size in SM_ONLY_SIZES:
+    globals()[f"esmfold_structure_module_only_{_size}"] = _make_smonly(_size)

@@ -1,13 +1,16 @@
-"""Training: masked-LM steps for the language models, LoRA, ESM-IF1.
+"""Training: masked-LM steps for the language models, LoRA, ESM-IF1, ESMFold.
 
-Port of esm_tpu/training.py (:22-516 apart from the fold, sequence-parallel
-and pipelined steps): BERT-style 15% masking (80% <mask> / 10% random
+Port of esm_tpu/training.py (:22-516 apart from the sequence-parallel and
+pipelined steps): BERT-style 15% masking (80% <mask> / 10% random
 residue / 10% kept), cross-entropy on the masked positions, AdamW with a
 warmup-cosine schedule or adafactor, exact gradient accumulation and
 masked-perplexity evaluation; the MSA Transformer's step
 (:func:`train_step_msa`), LoRA steps over a frozen base
 (:func:`train_step_lora`, :func:`train_step_if_lora`) and ESM-IF1's
-teacher-forced sequence step (:func:`train_step_if`).
+teacher-forced sequence step (:func:`train_step_if`); ESMFold's structure
+fine-tuning against its frozen LM (:func:`train_step_fold`,
+:func:`train_step_fold_lora`; the AF2 backbone losses of
+``models/esmfold/losses.py``).
 
 What differs from the JAX package, and why:
   * The parameters live in the module (fp32 master weights, or a LoRA
@@ -27,9 +30,11 @@ What differs from the JAX package, and why:
     Adafactor's block RMS values are taken over esm_tpu's leaves, which
     stack the layers of the language models and of ESMFold's trunk
     (``io.from_jax.jax_leaf``): over one parameter's tensors in all layers.
-  * Not ported yet (ROADMAP Queue 1): the fold steps (``train_step_fold``,
-    ``train_step_fold_lora``, ``split_fold_params``) and the sequence-
-    parallel and pipelined steps.
+  * ESMFold's LM is frozen in place (:func:`split_fold_params` sets its
+    ``requires_grad`` off), where esm_tpu passes it to the step as a
+    separate tree; the optimizers cover the parameters that require grad.
+  * Not ported yet (ROADMAP Queue 1): the sequence-parallel and pipelined
+    steps.
 """
 
 from __future__ import annotations
@@ -86,6 +91,11 @@ def decay_mask(model: nn.Module) -> Dict[str, bool]:
     return {name: name in linear and p.dim() >= 2 for name, p in model.named_parameters()}
 
 
+def trainable(model: nn.Module) -> Dict[str, nn.Parameter]:
+    """The parameters that require grad, by name: what an optimizer covers."""
+    return {n: p for n, p in model.named_parameters() if p.requires_grad}
+
+
 def _grads(params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """Each parameter's ``.grad``, zeros where it has none (as under jax.grad)."""
     return {n: p.grad if p.grad is not None else torch.zeros_like(p) for n, p in params.items()}
@@ -120,22 +130,27 @@ def warmup_cosine_schedule(peak: float, warmup_steps: int,
 
 class AdamW:
     """optax.chain(clip_by_global_norm(grad_clip_norm), adamw(schedule,
-    b1=0.9, b2=0.98, eps=1e-8, weight_decay, mask=decay_mask, mu_dtype)) on a
-    module's parameters and their ``.grad`` (a parameter with no gradient
-    takes zeros, as under jax.grad)."""
+    b1=0.9, b2, eps=1e-8, weight_decay, mask, mu_dtype)) on a module's
+    parameters that require grad and their ``.grad`` (a parameter with no
+    gradient takes zeros, as under jax.grad). The mask is
+    :func:`decay_mask`, or every parameter with ``decay_all`` (optax's
+    ``mask=None``)."""
 
-    b1, b2, eps = 0.9, 0.98, 1e-8
+    b1, eps = 0.9, 1e-8
 
     def __init__(self, learning_rate: Callable[[int], float], *, weight_decay: float = 0.01,
                  grad_clip_norm: Optional[float] = None,
-                 mu_dtype: Optional[torch.dtype] = None):
+                 mu_dtype: Optional[torch.dtype] = None, b2: float = 0.98,
+                 decay_all: bool = False):
         self.learning_rate = learning_rate
         self.weight_decay = weight_decay
         self.grad_clip_norm = grad_clip_norm
         self.mu_dtype = mu_dtype
+        self.b2 = b2
+        self.decay_all = decay_all
 
     def init(self, model: nn.Module) -> AdamWState:
-        params = dict(model.named_parameters())
+        params = trainable(model)
         return AdamWState(
             count=0,
             mu={n: torch.zeros_like(p, dtype=self.mu_dtype or p.dtype) for n, p in params.items()},
@@ -145,9 +160,14 @@ class AdamW:
     @torch.no_grad()
     def update(self, model: nn.Module, state: AdamWState) -> None:
         """One step: the parameters and ``state`` change in place."""
-        params = dict(model.named_parameters())
+        params = trainable(model)
         grads = _clip_by_global_norm(_grads(params), self.grad_clip_norm)
-        decay = decay_mask(model) if self.weight_decay else {}
+        if not self.weight_decay:
+            decay = {}
+        elif self.decay_all:
+            decay = dict.fromkeys(params, True)
+        else:
+            decay = decay_mask(model)
         count = state.count + 1
         # bias corrections in fp32, as optax computes them
         bc1 = float(np.float32(1) - np.float32(self.b1) ** np.float32(count))
@@ -327,6 +347,14 @@ def make_optimizer(
                          grad_clip_norm=grad_clip_norm)
     return AdamW(schedule, weight_decay=weight_decay, grad_clip_norm=grad_clip_norm,
                  mu_dtype=mu_dtype)
+
+
+def fold_optimizer(learning_rate: float = 1e-4) -> AdamW:
+    """The fold fine-tuning optimizer of esm_tpu's example,
+    optax.chain(clip_by_global_norm(1.0), adamw(learning_rate)): a constant
+    rate, b2 0.999, weight decay 1e-4 on every parameter."""
+    return AdamW(lambda count: learning_rate, weight_decay=1e-4, grad_clip_norm=1.0,
+                 b2=0.999, decay_all=True)
 
 
 def init_state(model: nn.Module, tx) -> TrainState:
@@ -588,6 +616,83 @@ def train_step_if_lora(state: TrainState, base: nn.Module, cfg, tx, coords, padd
     decoder's attention and MLP linears)."""
     batch = (coords, padding_mask, confidence, tokens)
     return _step(state, tx, lambda: _if_loss(base, cfg, batch),
+                 frozen_and_patched(base, state.model, scale))
+
+
+def split_fold_params(model: nn.Module) -> Dict[str, nn.Parameter]:
+    """Freeze ESMFold's LM in place (``requires_grad`` off) and return the
+    trainable parameters by name: the LM and the ``af2_to_esm`` lookup table
+    are frozen (the reference trains the trunk and heads against a frozen
+    ESM-2, esm/esmfold/v1/esmfold.py:198); ``esm_s_combine`` trains."""
+    model.esm.requires_grad_(False)
+    return trainable(model)
+
+
+def _fold_loss(model, cfg, batch, weights, num_recycles) -> Tuple[torch.Tensor, dict]:
+    from .models.esmfold import esmfold as ef
+    from .models.esmfold import losses as fl
+
+    aa, mask, coords, coord_mask, masking_pattern = batch
+    structure = ef.apply(model, cfg, aa, mask=mask, masking_pattern=masking_pattern,
+                         num_recycles=num_recycles)
+    return fl.fold_loss(structure, cfg, aa, mask, coords, coord_mask,
+                        weights=weights or fl.FoldLossWeights(), masking_pattern=masking_pattern)
+
+
+def _check_lm_frozen(model: nn.Module) -> None:
+    if any(p.requires_grad for p in model.esm.parameters()):
+        raise ValueError("ESMFold's LM requires grad: call split_fold_params(model) before "
+                         "init_state, so that the optimizer leaves it out")
+
+
+def train_step_fold(
+    state: TrainState,
+    cfg,
+    tx,
+    aa: torch.Tensor,
+    mask: torch.Tensor,
+    coords: torch.Tensor,
+    coord_mask: torch.Tensor,
+    *,
+    masking_pattern: Optional[torch.Tensor] = None,
+    weights=None,
+    num_recycles: int = 0,
+) -> Tuple[TrainState, dict]:
+    """One ESMFold structure fine-tuning step: backbone FAPE, distogram CE and
+    pLDDT-head CE (models/esmfold/losses.py) on (sequence, backbone) pairs.
+    ``state.model`` is the ESMFold whose LM :func:`split_fold_params` froze;
+    ``cfg`` the ESMFoldConfig; ``aa``/``mask`` (B, L) AF2-indexed residues;
+    ``coords`` (B, L, 3, 3) ground-truth N/CA/C in Å; ``coord_mask`` (B, L)
+    marks resolved residues. ``masking_pattern`` (with ``weights.lm`` > 0)
+    adds the masked-LM auxiliary on the trunk's lm_head. The triangle
+    kernels K6-K8 have no backward: run the trunk's plain paths
+    (``use_flash_tri=False``), as esm_tpu's fold training does."""
+    _check_lm_frozen(state.model)
+    batch = (aa, mask, coords, coord_mask, masking_pattern)
+    return _step(state, tx, lambda: _fold_loss(state.model, cfg, batch, weights, num_recycles))
+
+
+def train_step_fold_lora(
+    state: TrainState,
+    base: nn.Module,
+    cfg,
+    tx,
+    aa: torch.Tensor,
+    mask: torch.Tensor,
+    coords: torch.Tensor,
+    coord_mask: torch.Tensor,
+    *,
+    masking_pattern: Optional[torch.Tensor] = None,
+    weights=None,
+    num_recycles: int = 0,
+    scale: float = 1.0,
+) -> Tuple[TrainState, dict]:
+    """:func:`train_step_fold` with ``state.model`` a LoRA module over the
+    frozen ESMFold ``base`` (``lora.init_lora(..., targets=lora.fold_targets)``
+    adapts every linear of the trunk and the heads); the base is left as it
+    is."""
+    batch = (aa, mask, coords, coord_mask, masking_pattern)
+    return _step(state, tx, lambda: _fold_loss(base, cfg, batch, weights, num_recycles),
                  frozen_and_patched(base, state.model, scale))
 
 

@@ -1,8 +1,9 @@
 """Import hygiene and device rules of the port (esm_tpu_torch):
   * importing it, and every module in it (the ESM-1 and MSA Transformer
     modules, the variant-scoring CLI, the ESM-IF1 modules, the structure
-    reader, the inverse-folding CLIs, ``lora`` and ``quantization`` among
-    them), pulls in neither ``jax``, ``optax`` nor ``esm_tpu`` (checked in
+    reader, the inverse-folding CLIs, ``lora`` and ``quantization``, the
+    fold losses, the metrics, the structural dataset, the profiling
+    utilities and the examples among them), pulls in neither ``jax``, ``optax`` nor ``esm_tpu`` (checked in
     a fresh interpreter);
   * no source file of the port, nor chip_smoke.py, imports ``jax``,
     ``optax`` or ``esm_tpu``;
@@ -31,7 +32,10 @@ def test_import_leaves_out_jax_and_esm_tpu():
         "import sys, importlib\n"
         "import esm_tpu_torch\n"
         f"for m in {MODULES!r}: importlib.import_module(m)\n"
-        "assert {'esm_tpu_torch.lora', 'esm_tpu_torch.quantization'} <= set(sys.modules)\n"
+        "assert {'esm_tpu_torch.lora', 'esm_tpu_torch.quantization',\n"
+        "        'esm_tpu_torch.models.esmfold.losses', 'esm_tpu_torch.data.structural',\n"
+        "        'esm_tpu_torch.utils.profiling', 'esm_tpu_torch.data.atlas',\n"
+        "        'esm_tpu_torch.examples.esmfold_finetune'} <= set(sys.modules)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'optax', 'esm_tpu'))\n"
         "assert not bad, bad\n"
     )
@@ -67,7 +71,8 @@ def no_cuda():
     ["resolve_device", "random_model_and_alphabet", "load_model_and_alphabet_local",
      "extract", "pretrain", "random_esmfold", "load_esmfold", "fold",
      "random_esm1", "random_msa", "predict_variants", "random_if1", "if_sample",
-     "if_score", "pretrain_lora", "extract_int8"],
+     "if_score", "pretrain_lora", "extract_int8", "esmfold_finetune", "ss_finetune",
+     "int8_15b", "contact_prediction", "sm_only"],
 )
 def test_entry_points_without_device_raise_when_cuda_absent(no_cuda, entry, tmp_path):
     from esm_tpu_torch import pretrained
@@ -106,6 +111,21 @@ def test_entry_points_without_device_raise_when_cuda_absent(no_cuda, entry, tmp_
         elif entry == "fold":
             fold.run(fold.create_parser().parse_args(
                 ["-i", str(tmp_path / "x.fasta"), "-o", str(tmp_path / "pdb")]))
+        elif entry == "esmfold_finetune":
+            from esm_tpu_torch.examples import esmfold_finetune as ex
+            ex.main(ex.create_parser().parse_args(["--pdbs", str(tmp_path), "--steps", "1"]))
+        elif entry == "ss_finetune":
+            from esm_tpu_torch.examples import finetune_secondary_structure as ex
+            ex.run(ex.create_parser().parse_args(["--synthetic", "4", "--steps", "1"]))
+        elif entry == "int8_15b":
+            from esm_tpu_torch.examples import esm2_15b_int8_single_chip as ex
+            ex.main(["--random-seed", "0"])
+        elif entry == "contact_prediction":
+            from esm_tpu_torch.examples import contact_prediction as ex
+            ex.main(ex.create_parser().parse_args(["--model", str(tmp_path / "esm2_missing.pt"),
+                                                   "--fasta", str(tmp_path / "x.fasta")]))
+        elif entry == "sm_only":
+            pretrained.esmfold_structure_module_only_8M()
         elif entry in ("pretrain", "pretrain_lora"):
             lora = ["--lora", "4", "--lora-int8-base"] if entry == "pretrain_lora" else []
             pretrain.run(pretrain.create_parser().parse_args(
