@@ -79,7 +79,31 @@ Phases, each raising on failure (nothing is caught):
                 reference-layout checkpoint (an esm2_t6_8M-shaped LM, a
                 2-block trunk at ESMFold's widths), --fused-triangle, its PDBs
                 held against a CPU run of the same command;
- 10. esm1     — the ESM-1 family at its released sizes, seeded random
+ 10. serve    — the port's InferenceServer in this process with ESM2-650M
+                (bf16, flash), [fold]'s ESMFold v1 handle (fast) and ESM-IF1,
+                all seeded at their released sizes: the /embed load of
+                scripts_dev/bench_serve_tpu.py (64 single-sequence requests
+                from 8 closed-loop clients, lengths 250-1022, max_batch 16,
+                max_wait 20 ms): seq/s, p50/p95, mean batch; K1 33 times a
+                device batch and no other kernel; each batch's readback
+                against the next batch's compute (a 48-sequence request of
+                three chunks among them); a lone /embed bit for bit against
+                a direct call on the batch the server formed, a co-batched
+                one within SERVE_COBATCH_TOL of it; /score against
+                wt_marginal_score on a direct call; /fold of 4 sequences and
+                a multimer in chunks of 2 (K1 36 and K6 96 a pass, request
+                order, [fold]'s bounds against direct folds); one-pass folds
+                at buckets 256-2048: the fold cost polynomial fitted to their
+                times (printed), the server's constants held within 11% at
+                1024 and 2048, what each fold holds against plan_fold / 0.9,
+                the server's default fold cap equal to the plan's; /design (1
+                and 8 samples at L=250 against IFHandle.sample, the score
+                path); the learned cost units; a 3 s /profile under load
+                naming K1;
+ 11. cli-serve — python -m esm_tpu_torch.cli.serve as a process (--bf16
+                --flash, a save_esm2 checkpoint in a temporary ESM_TPU_CACHE):
+                its /embed against the in-process handle bit for bit, SIGINT;
+ 12. esm1     — the ESM-1 family at its released sizes, seeded random
                 weights, bf16, through LMHandle: ESM-1b (esm1b_t33_650M_UR50S,
                 33 x 1280) and ESM-1v (token dropout, <mask> tokens in the
                 batch) at B=32, L=1022, K1 once a layer at S=T; ESM-1
@@ -89,18 +113,18 @@ Phases, each raising on failure (nothing is caught):
                 of both paths, ESM-1's streaming contacts against the
                 stacked ones; then [k1-esm1b] and [k1-esm1], K1 timed at
                 those shapes;
- 11. msa      — the MSA Transformer (esm_msa1b_t12_100M_UR50S, 12 x 768) on a
+ 13. msa      — the MSA Transformer (esm_msa1b_t12_100M_UR50S, 12 x 768) on a
                 seeded MSA of 400 rows x 257 tokens: the chunked axial
                 attentions (R*C > 2^14) against the unchunked forward in fp32,
                 bf16 against fp32, time and peak memory of the forward;
- 12. cli-variants — esm_tpu_torch.cli.predict_variants on the card against
+ 14. cli-variants — esm_tpu_torch.cli.predict_variants on the card against
                 --nogpu runs of the same command: a seeded 250-residue
                 sequence and 40-mutant DMS, an ESM-1v-shaped checkpoint
                 (1280 wide, 6 layers) with wt-marginals, masked-marginals and
                 pseudo-ppl, an MSA-1b-shaped one (768 wide, 2 layers) with
                 masked-marginals over a seeded 64-row a3m with insertions,
                 the two as an ensemble with --eval-column;
- 13. if1      — ESM-IF1 at its released size (esm_if1_gvp4_t16_142M_UR50,
+ 15. if1      — ESM-IF1 at its released size (esm_if1_gvp4_t16_142M_UR50,
                 seeded random weights, built with no device argument), fp32
                 with TF32 off, on a seeded 500-residue backbone built from
                 ideal geometry with a 5-residue gap: the encoder output, the
@@ -113,12 +137,12 @@ Phases, each raising on failure (nothing is caught):
                 a profile of a sample (launches a decode step, busy share,
                 top operators), a 220 + 160 residue complex; no kernel
                 launches (the JAX package has none for IF1);
- 14. cli-if   — esm_tpu_torch.cli.if_score and if_sample on the card with a
+ 16. cli-if   — esm_tpu_torch.cli.if_score and if_sample on the card with a
                 save_if1 checkpoint of that model, a 250-residue backbone as
                 PDB and mmCIF and a two-chain PDB, against --nogpu runs of
                 the same commands (scores within 1e-4; one seed sampled twice
                 on the card gives one FASTA);
- 15. lora     — LoRA fine-tuning of ESM2-650M at full width and depth: rank
+ 17. lora     — LoRA fine-tuning of ESM2-650M at full width and depth: rank
                 16, alpha 16, the default targets (12,165,120 adapter
                 parameters), bf16 compute, flash, remat "dots", B=8 x 1024
                 tokens; the base stored in bf16, then weight-only int8. The
@@ -130,21 +154,21 @@ Phases, each raising on failure (nothing is caught):
                 within 2% of the bf16 base's, its peak memory at least 0.5 GB
                 lower, its merge refused; step time, tok/s, peak memory and
                 the optimizer state against [train]'s AdamW state;
- 16. int8     — the weight-only int8 ESM2-650M forward at [main]'s shape
+ 18. int8     — the weight-only int8 ESM2-650M forward at [main]'s shape
                 through LMHandle.quantized(): logits against the bf16 handle,
                 parameter bytes below 0.27 of fp32's, 33 K1 launches, seq/s;
- 17. train-msa — MSA-1b training at full size (B=1 x 128 rows x 257): 3 full
+ 19. train-msa — MSA-1b training at full size (B=1 x 128 rows x 257): 3 full
                 and 3 LoRA steps in bf16; card vs CPU at 2 layers, fp32;
- 18. train-if — ESM-IF1 training at its released size, fp32: card vs CPU on
+ 20. train-if — ESM-IF1 training at its released size, fp32: card vs CPU on
                 a 120-residue backbone, a step repeated bit for bit, 3 full
                 and 3 LoRA steps on 4 x 250 residues;
- 19. cli-pretrain-lora — cli.pretrain on the card with --lora 8, with
+ 21. cli-pretrain-lora — cli.pretrain on the card with --lora 8, with
                 --lora-int8-base and with --adafactor: a resumed run equals
                 the uninterrupted one bit for bit, the saves load; the
                 optimizer state of adafactor at ESM2-650M beside AdamW's.
                 ([cli], [cli-fold] and [cli-variants] also run --int8 against
                 the same command without it.)
- 20. train-fold — ESMFold fine-tuning at ESMFold v1's released widths
+ 22. train-fold — ESMFold fine-tuning at ESMFold v1's released widths
                 (ESM2-3B LM in bf16 through K1, frozen; 48 trunk blocks c_s
                 1024 c_z 128 in fp32 on the plain triangle paths; seeded, the
                 zero-initialized layers re-drawn), B=1, one seeded NeRF
@@ -155,21 +179,21 @@ Phases, each raising on failure (nothing is caught):
                 step with 3 recycles, 4 LoRA steps (rank 8, the trunk and
                 heads) with a lower peak and the base unchanged; card vs CPU
                 gradients at 2 trunk blocks and 2 LM layers, fp32;
- 21. cli-fold-finetune — esm_tpu_torch.examples.esmfold_finetune on three
+ 23. cli-fold-finetune — esm_tpu_torch.examples.esmfold_finetune on three
                 seeded PDB backbones of unequal length, --lora
                 --lm-aux-weight 0.1, 4 steps on the card against --cpu;
- 22. ss-finetune — esm_tpu_torch.examples.finetune_secondary_structure
+ 24. ss-finetune — esm_tpu_torch.examples.finetune_secondary_structure
                 --synthetic 64 on the card: the frozen LM's loss falls (K1
                 once a layer a step); --train-lm: K1 with the lse and K2's
                 two passes once a layer a step;
- 23. int8-15b — ESM2-15B (48 x 5120) on seeded weights built layer by layer
+ 25. int8-15b — ESM2-15B (48 x 5120) on seeded weights built layer by layer
                 in weight-only int8 beside a bf16 copy: a B=1 L=1022 forward
                 through K1 (48 launches) held to the bf16 copy's and to a
                 streamed fp32 forward's under esm_tpu's int8 bound of the
                 largest error, and against fp32 no worse than the bf16 copy
                 by INT8_ERR_RATIO (largest error) and INT8_AGREE_DROP
                 (argmax agreement); parameter bytes, peak memory, seq/s;
- 24. summary  — the nvidia-smi line, a JSON line of the ported kernels (K1
+ 26. summary  — the nvidia-smi line, a JSON line of the ported kernels (K1
                 also at the ESM-1b and ESM-1 shapes), and as the last line
                 {"ok": true, "device": {...}}.
 
@@ -222,6 +246,7 @@ FOLD_CA_RMSD, FOLD_PLDDT, FOLD_PTM = 2.0, 2.0, 0.02
 TRIMUL_AB_TOL = 5e-2
 CLI_FOLD_TOL = 5e-3  # A, the fold CLI's PDBs on the card against a CPU run (fp32)
 TRAIN_STEPS = 6
+MEASURED = {}  # [main]'s seq/s, printed beside [serve]'s
 TRAIN_LR = 1e-6  # larger rates raised the loss of this random init on a fixed batch (PERF.md)
 
 
@@ -682,7 +707,8 @@ def phase_main(card):
         raise AssertionError(f"launches {counts}, expected K1 x {handle.num_layers} only")
 
     hold_flash("main", logits_flash, exact(tokens)["logits"], f32_logits(handle, tokens))
-    seq_rates("main", f"ESM2-650M bf16, B={B}, L={L}; {card}", flash, exact, tokens)
+    rates = seq_rates("main", f"ESM2-650M bf16, B={B}, L={L}; {card}", flash, exact, tokens)
+    MEASURED["main_seq_s"] = rates["flash"]
     profile("one flash forward", lambda: flash(tokens))
     del handle, flash, exact, logits_flash
     torch.cuda.empty_cache()
@@ -1362,9 +1388,7 @@ def phase_fold(card):
     s = random_protein(1000, seed=1014)
     profile("one L=1000 fold (fast preset)", lambda: handle.infer([s])["positions"], top=12,
             by_op=True)
-    del handle
-    torch.cuda.empty_cache()
-    return counts
+    return counts, handle
 
 
 # esm_triangle_attention_variant's shapes and modes, measured beside the kernel
@@ -1646,6 +1670,518 @@ def phase_cli_fold():
     log(f"[cli-fold] {len(seqs)} sequences (lengths 40, 120, 257 and a 60:50 dimer), esm2_t6_8M "
         f"LM and a 2-block trunk at ESMFold's widths, fp32, one pass, --fused-triangle: card vs "
         f"CPU coordinates within {worst:.4f} A <= {CLI_FOLD_TOL} A, same atoms and records")
+
+
+# [serve]: the embed load of esm_tpu's scripts_dev/bench_serve_tpu.py
+SERVE_LENGTHS = (250, 380, 500, 1000, 1022)
+SERVE_REQUESTS, SERVE_CLIENTS = 64, 8
+# A co-batched answer (B=16, T of its longest member) against the same
+# sequence's lone answer (B=1): the two differ only in the GEMMs' shapes, so
+# in how bf16 rounds. Each field within 1e-3 of the lone answer's largest
+# magnitude (at least 1): the card read 0 for the mean and the contacts and
+# 7.4e-7 for the logits, and another row of the batch is checked to lie
+# beyond the bound, so a misplaced row fails.
+SERVE_COBATCH_TOL = 1e-3
+FOLD_COST_BUCKETS = (256, 512, 1024, 2048)  # one trunk pass each, B=1
+# the server's fold cost constants against this run's pass times where the
+# pass is not host-bound, at their best unit: tests/test_server.py's bound
+FOLD_COST_HELD, FOLD_COST_TOL = (1024, 2048), 0.11
+PLAN_SHARE = 0.9  # a fold may hold at most plan / 0.9 (the cap's 10% headroom)
+
+
+def http_post(url, payload, path="/embed", timeout=600):
+    import urllib.request
+
+    req = urllib.request.Request(url + path, data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        return resp.read()
+
+
+def http_json(url, payload=None, path="/stats"):
+    import urllib.request
+
+    if payload is not None:
+        return json.loads(http_post(url, payload, path))
+    with urllib.request.urlopen(url + path, timeout=60) as resp:
+        return json.loads(resp.read())
+
+
+def count_delta(before, after):
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+def param_bytes(module):
+    return sum(t.numel() * t.element_size()
+               for t in list(module.parameters()) + list(module.buffers()))
+
+
+def fit_fold_cost(seconds):
+    """a*y^2 + b*y^3 + c fitted to the pass times by bucket (y = bucket /
+    512), minimizing the largest relative error (a linear program), and
+    normalized to the 512 bucket. Returns ((a, b, c) with a + b + c = 1, the
+    unit: seconds of the 512-bucket pass, the relative error at each
+    bucket)."""
+    from scipy.optimize import linprog
+
+    buckets = sorted(seconds)
+    y = np.array(buckets, float) / 512
+    t = np.array([seconds[b] for b in buckets])
+    a = np.stack([y ** 2, y ** 3, np.ones_like(y)], 1)
+    rel = np.hstack([a / t[:, None], -np.ones((len(t), 1))])  # (a x) / t - e
+    neg = np.hstack([-a / t[:, None], -np.ones((len(t), 1))])
+    res = linprog([0, 0, 0, 1], A_ub=np.vstack([rel, neg]),
+                  b_ub=np.concatenate([np.ones(len(t)), -np.ones(len(t))]),
+                  bounds=[(None, None)] * 3 + [(0, None)])
+    if not res.success:
+        raise AssertionError(f"the fold cost fit failed: {res.message}")
+    coef = res.x[:3]
+    unit = coef.sum()
+    coef = coef / unit
+    return coef, unit, dict(zip(buckets, unit * (a @ coef) / t - 1))
+
+
+def phase_serve(card, fold):
+    """The port's InferenceServer in this process on the card with three
+    seeded models at their released sizes: ESM2-650M (bf16, flash), ESMFold
+    v1 ([fold]'s handle: fast preset) and ESM-IF1. The /embed load of
+    bench_serve_tpu.py, K1 per device batch, readback against the next
+    batch's compute, agreement with direct handle calls, /score, /fold
+    (launches a chunk, order, direct folds), the fold cost fit and the
+    memory-plan check, /design, /profile and /stats."""
+    import threading
+
+    import torch
+    from esm_tpu_torch import pretrained
+    from esm_tpu_torch.cli.predict_variants import wt_marginal_score
+    from esm_tpu_torch.models.esmfold.esmfold import FOLD_LENGTH_BUCKET
+    from esm_tpu_torch.parallel.memory_plan import max_fold_length, plan_fold
+    from esm_tpu_torch.runtime import server as sv
+
+    t_phase = time.perf_counter()
+    lm, alphabet = pretrained.random_model_and_alphabet("esm2_t33_650M_UR50D", seed=0,
+                                                        device="cuda")
+    lm = lm.with_options(compute_dtype=torch.bfloat16, use_flash=True)
+    if1, _ = pretrained.random_model_and_alphabet("esm_if1_gvp4_t16_142M_UR50", seed=60,
+                                                  device="cuda")
+    other_bytes = param_bytes(lm.model) + param_bytes(if1.model)
+    srv = sv.InferenceServer(lm, fold_model=fold, if_model=if1, max_batch_seqs=16,
+                             max_wait_ms=20.0, max_fold_batch_seqs=2, batch_bucket="max")
+    t0 = time.perf_counter()
+    srv.start()
+    shapes = srv.prewarm()
+    log(f"[serve] InferenceServer on {srv.url}: ESM2-650M bf16 flash, ESMFold v1 fast, "
+        f"ESM-IF1; started (kernels {srv.build_kernels()}) and prewarmed {shapes} (B, T) "
+        f"shapes in {time.perf_counter() - t0:.1f} s; /healthz "
+        f"{http_json(srv.url, path='/healthz')['endpoints']}")
+    try:
+        # ---- /embed: every device batch's launches, and its readback against
+        # the next batch's compute
+        records, lock = [], threading.Lock()
+        real_dispatch = srv._dispatch_embed_chunk
+
+        def dispatch(pairs, layers, include):
+            before = read_counts()
+            fin = real_dispatch(pairs, layers, include)
+            rec = {"n": len(pairs), "launches": count_delta(before, read_counts()),
+                   "ready": fin.ready, "next": None, "overlap": None}
+            with lock:
+                if records and records[-1] is not None:
+                    records[-1]["next"] = rec
+                records.append(rec)
+
+            def finalize():
+                items = fin()
+                with lock:
+                    nxt = rec["next"]
+                # None: no later batch was queued; True: its compute was still
+                # running when this batch's readback had ended and its items
+                # were built
+                rec["overlap"] = None if nxt is None else not nxt["ready"].query()
+                return items
+
+            return finalize
+
+        srv._dispatch_embed_chunk = dispatch
+        rng = np.random.RandomState(70)
+        lens = rng.choice(SERVE_LENGTHS, SERVE_REQUESTS)
+        seqs = [random_protein(int(n), seed=700 + i) for i, n in enumerate(lens)]
+        latencies, order = [None] * SERVE_REQUESTS, iter(range(SERVE_REQUESTS))
+
+        def client():
+            while True:
+                with lock:
+                    i = next(order, None)
+                if i is None:
+                    return
+                t = time.perf_counter()
+                out = http_json(srv.url, {"sequences": [seqs[i]], "include": ["mean"]}, "/embed")
+                latencies[i] = time.perf_counter() - t
+                if not np.isfinite(out["results"][0]["mean_representations"]["33"]).all():
+                    raise AssertionError(f"request {i}: non-finite mean")
+
+        before = http_json(srv.url)
+        zero_counts()
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client) for _ in range(SERVE_CLIENTS)]
+        [t.start() for t in threads]
+        [t.join() for t in threads]
+        wall = time.perf_counter() - t0
+        stats = http_json(srv.url)
+        if any(x is None for x in latencies):
+            raise AssertionError("some /embed requests got no answer")
+        lat = sorted(latencies)
+        n_batches = stats["batches"] - before["batches"]
+        mean_b = (stats["batched_sequences"] - before["batched_sequences"]) / n_batches
+        main_rate = MEASURED.get("main_seq_s")
+        log(f"[serve] /embed load: {SERVE_REQUESTS} single-sequence requests (lengths "
+            f"{SERVE_LENGTHS}, include mean) from {SERVE_CLIENTS} closed-loop clients, "
+            f"max_batch_seqs 16, max_wait_ms 20, batch_bucket max: {wall:.3f} s, "
+            f"{SERVE_REQUESTS / wall:.3f} seq/s, p50 {1e3 * lat[len(lat) // 2]:.1f} ms, p95 "
+            f"{1e3 * lat[int(0.95 * (len(lat) - 1))]:.1f} ms (client side), server p50/p95 "
+            f"{stats['latency_embed_p50_ms']:.1f}/{stats['latency_embed_p95_ms']:.1f} ms, "
+            f"{n_batches} device batches, mean_batch_seqs {mean_b:.3f} ({card}); [main]'s "
+            f"direct forward {main_rate if main_rate is None else f'{main_rate:.3f}'} seq/s "
+            f"at B=32 x 1022")
+        # one request of 48 sequences: three chunks, each dispatched before
+        # the previous chunk's readback (the case the overlap is built for)
+        with lock:
+            records.append(None)  # no "next" across the two runs
+        long_seqs = [random_protein(1022, seed=800 + i) for i in range(48)]
+        http_post(srv.url, {"sequences": long_seqs, "include": ["mean", "logits"],
+                            "format": "npz"})
+        totals = read_counts()
+        records = [r for r in records if r is not None]
+        want = {"flash_attention": lm.num_layers}
+        if count_delta(dict.fromkeys(totals, 0), totals) != {
+                "flash_attention": lm.num_layers * len(records)}:
+            raise AssertionError(f"launches over the /embed runs {totals}, expected K1 x "
+                                 f"{lm.num_layers} x {len(records)} batches only")
+        bad = [r["launches"] for r in records if r["launches"] != want]
+        overlapped = [r["overlap"] for r in records if r["overlap"] is not None]
+        log(f"[serve] {len(records)} device batches: K1 launches a batch "
+            f"{sorted({r['launches'].get('flash_attention', 0) for r in records})} and no other "
+            f"kernel of the port {'(all)' if not bad else bad}; readback ended before the next "
+            f"batch's compute ended: " + " ".join(
+                f"b{i}:{r['n']}:{'-' if r['overlap'] is None else 'yes' if r['overlap'] else 'NO'}"
+                for i, r in enumerate(records))
+            + f" ({sum(overlapped)} of {len(overlapped)} batches with a later batch in flight)")
+        if bad:
+            raise AssertionError(f"device batches launched {bad}, expected {want} each")
+        if not overlapped or not all(overlapped):
+            raise AssertionError(f"a readback waited for the next batch: {overlapped}")
+        srv._dispatch_embed_chunk = real_dispatch
+
+        # ---- agreement: a lone request against a direct call on the batch
+        # the server formed (B=1, T padded to 128), bit for bit
+        seq = random_protein(500, seed=900)
+        payload = {"sequences": [["lone", seq]], "include": ["mean", "logits", "contacts"],
+                   "format": "npz"}
+        lone = np.load(io.BytesIO(http_post(srv.url, payload)))
+        toks, real_b = srv._tokens([("lone", seq)])
+        out = lm(toks, repr_layers=(33,), return_contacts=True)
+        lens_dev = torch.tensor([len(seq)], device="cuda")
+        direct = {"0/mean/33": sv._device_mean(out["representations"][33], lens_dev, 1),
+                  "0/logits": out["logits"][:, 1:len(seq) + 1],
+                  "0/contacts": out["contacts"][:, :len(seq), :len(seq)]}
+        for k, v in direct.items():
+            ref = sv._numpy(v[0].cpu())
+            if not (lone[k].shape == ref.shape and np.array_equal(lone[k], ref)):
+                raise AssertionError(f"lone /embed {k} differs from the direct call: max "
+                                     f"{np.abs(lone[k] - ref).max()}")
+        log(f"[serve] a lone /embed (L=500: B={toks.shape[0]}, T={toks.shape[1]}) equals a "
+            f"direct LMHandle call on that batch bit for bit (mean, logits, contacts)")
+        others = [["o%d" % i, random_protein(int(n), seed=950 + i)]
+                  for i, n in enumerate(rng.choice(SERVE_LENGTHS, 15))]
+        co = np.load(io.BytesIO(http_post(srv.url, {**payload, "sequences": others[:7]
+                                                    + [["lone", seq]] + others[7:]})))
+        errs = {}
+        for k in ("mean/33", "logits", "contacts"):
+            a, b = co[f"7/{k}"], lone[f"0/{k}"]
+            errs[k] = float(np.abs(a - b).max() / max(1.0, np.abs(b).max()))
+        b = lone["0/mean/33"]
+        neighbour = min(float(np.abs(co[f"{i}/mean/33"] - b).max() / max(1.0, np.abs(b).max()))
+                        for i in range(16) if i != 7)
+        log(f"[serve] the same sequence co-batched with 15 others (B=16) against its "
+            f"lone answer: max error over the largest magnitude (at least 1) "
+            + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+            + f"; bound {SERVE_COBATCH_TOL} (bf16 GEMMs of other shapes); the nearest other "
+            f"row's mean is {neighbour:.3e} from it")
+        if not max(errs.values()) <= SERVE_COBATCH_TOL:
+            raise AssertionError(f"co-batched vs lone: {errs}")
+        if not neighbour > SERVE_COBATCH_TOL:
+            raise AssertionError(f"another row's mean lies within the bound: {neighbour}")
+
+        # /score against wt_marginal_score on a direct call
+        wt = random_protein(300, seed=901)
+        muts = [f"{wt[i]}{i + 1}{'A' if wt[i] != 'A' else 'G'}" for i in (0, 57, 150, 299)]
+        got = http_json(srv.url, {"sequence": wt, "mutations": muts, "offset_idx": 1},
+                        "/score")["results"][0]["scores"]
+        toks, _ = srv._tokens([("seq0", wt)])
+        logp = sv.log_softmax_np(sv._numpy(lm(toks)["logits"][0].cpu()))
+        want_scores = {m: round(wt_marginal_score(logp, int(m[1:-1]) - 1,
+                                                  alphabet.get_idx(m[0]),
+                                                  alphabet.get_idx(m[-1])), 6) for m in muts}
+        log(f"[serve] /score (L=300, 4 mutations): {got}; wt_marginal_score on a direct call "
+            f"{'equal' if got == want_scores else want_scores}")
+        if got != want_scores:
+            raise AssertionError(f"/score {got} != direct {want_scores}")
+        del out, direct, lone, co
+
+        # ---- /fold: 4 sequences and a multimer in chunks of 2, one recycle
+        fold_seqs = [[f"f{n}", random_protein(n, seed=1100 + n)] for n in (64, 200, 384, 512)]
+        fold_seqs.insert(2, ["dimer", random_protein(100, seed=1201) + ":"
+                             + random_protein(80, seed=1202)])
+        chunk_counts, real_fold = [], srv.fold_model
+
+        class CountingFold:
+            def infer(self, seqs, **kw):
+                before = read_counts()
+                out = real_fold.infer(seqs, **kw)
+                chunk_counts.append((len(seqs), count_delta(before, read_counts())))
+                return out
+
+            def __getattr__(self, name):
+                return getattr(real_fold, name)
+
+        srv.fold_model = CountingFold()
+        zero_counts()
+        t0 = time.perf_counter()
+        res = http_json(srv.url, {"sequences": fold_seqs, "num_recycles": 1},
+                        "/fold")["results"]
+        fold_wall = time.perf_counter() - t0
+        totals = read_counts()
+        srv.fold_model = real_fold
+        passes = 2
+        want = {"flash_attention": fold.cfg.esm.num_layers,
+                "triangle_attention_fused": 2 * fold.cfg.trunk.num_blocks * passes}
+        log(f"[serve] /fold of 5 sequences (64, 200, 100:80, 384, 512), max_fold_batch_seqs 2, "
+            f"num_recycles 1: {fold_wall:.2f} s; launches per chunk {chunk_counts} (want "
+            f"{want}: K1 36, K6 96 a pass)")
+        if [lab for lab, _ in fold_seqs] != [r["label"] for r in res]:
+            raise AssertionError(f"/fold order: {[r['label'] for r in res]}")
+        if (len(chunk_counts) != 3 or any(c != want for _, c in chunk_counts)
+                or count_delta(dict.fromkeys(totals, 0), totals)
+                != {k: 3 * v for k, v in want.items()}):
+            raise AssertionError(f"fold chunk launches {chunk_counts} (in all {totals}), "
+                                 f"want {want} a chunk")
+        worst = [0.0, 0.0, 0.0]
+        for r, (lab, s) in zip(res, fold_seqs):
+            d = fold.infer([s], num_recycles=1, frugal=True, pad_to_multiple=FOLD_LENGTH_BUCKET)
+            real = d["atom37_atom_exists"][0].amax(-1) > 0
+            ca = torch.from_numpy(pdb_ca(r["pdb"])[:, :3]).float()
+            ca_direct = d["positions"][-1][0][real][:, 1].float().cpu()
+            rmsd = (ca - ca_direct).pow(2).sum(-1).mean().sqrt().item()
+            dpl = abs(r["mean_plddt"] - d["mean_plddt"].item())
+            dtm = abs(r["ptm"] - d["ptm"].item())
+            worst = [max(worst[0], rmsd), max(worst[1], dpl), max(worst[2], dtm)]
+            if not (r["length"] == ca.shape[0] and rmsd <= FOLD_CA_RMSD and dpl <= FOLD_PLDDT
+                    and dtm <= FOLD_PTM):
+                raise AssertionError(f"/fold {lab}: length {r['length']} CA {ca.shape}, "
+                                     f"CA-RMSD {rmsd}, pLDDT {dpl}, pTM {dtm}")
+        log(f"[serve] /fold results in request order; against a direct infer of each sequence "
+            f"alone: worst CA-RMSD {worst[0]:.4f} A, |d mean pLDDT| {worst[1]:.4f}, |d pTM| "
+            f"{worst[2]:.5f} (bounds {FOLD_CA_RMSD} A, {FOLD_PLDDT}, {FOLD_PTM})")
+
+        # ---- the fold cost fit and the memory-plan check: one pass a bucket
+        fold_bytes = param_bytes(fold.model)
+        seconds, rows = {}, []
+        fold.infer(["A" * 256], num_recycles=0, frugal=True)  # warm
+        for bucket in FOLD_COST_BUCKETS:
+            s = random_protein(bucket, seed=1300 + bucket)
+            times = []
+            # the median of 3 passes below 2048 (the short ones are host-bound
+            # and vary most); the memory of the first
+            for rep in range(3 if bucket < 2048 else 1):
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                out = fold.infer([s], num_recycles=0, frugal=True,
+                                 pad_to_multiple=FOLD_LENGTH_BUCKET)
+                float(out["ptm"][0])
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                del out
+                if rep == 0:
+                    reserved = torch.cuda.max_memory_reserved()
+            seconds[bucket] = float(np.median(times))
+            held = reserved - other_bytes
+            plan = plan_fold(fold.cfg, bucket, params_bytes=fold_bytes, frugal=True,
+                             device="cuda")
+            rows.append((bucket, held, plan["per_device_bytes"]))
+            log(f"[serve] fold B=1 L={bucket}, one pass: {seconds[bucket]:.4f} s (of "
+                f"{', '.join(f'{x:.4f}' for x in times)}); the fold holds {held / 1e9:.3f} GB "
+                f"(max_memory_reserved {reserved / 1e9:.3f} GB "
+                f"less {other_bytes / 1e9:.3f} GB of ESM-2 and IF1 weights), plan_fold "
+                f"{plan['per_device_bytes'] / 1e9:.3f} GB ({plan['verdict']}; held / plan "
+                f"{held / plan['per_device_bytes']:.3f}, limit {1 / PLAN_SHARE:.3f})")
+        coef, unit, errs = fit_fold_cost(seconds)
+        committed = np.array([srv._FOLD_UNIT_L2, srv._FOLD_UNIT_L3, srv._FOLD_UNIT_FIXED])
+        y = np.array(sorted(seconds), float) / 512
+        p = np.stack([y ** 2, y ** 3, np.ones_like(y)], 1) @ committed
+        t = np.array([seconds[b] for b in sorted(seconds)])
+        steady = np.isin(sorted(seconds), FOLD_COST_HELD)
+        c_unit = min((np.max(np.abs(u * p[steady] / t[steady] - 1)), u) for u in np.linspace(
+            0.5 * t[1], 1.5 * t[1], 2001))[1]  # the unit of least largest error there
+        c_errs = {b: c_unit * pi / ti - 1 for b, pi, ti in zip(sorted(seconds), p, t)}
+        log(f"[serve] fold cost fit (least largest relative error, normalized to the 512 "
+            f"bucket): "
+            f"_FOLD_UNIT_L2 {coef[0]:.4f}, _FOLD_UNIT_L3 {coef[1]:.4f}, _FOLD_UNIT_FIXED "
+            f"{coef[2]:.4f}, unit {unit:.6f} s; errors "
+            + ", ".join(f"{b}: {100 * e:+.2f}%" for b, e in errs.items())
+            + f"; the server's constants {tuple(float(x) for x in committed)} at their best "
+            f"unit over {FOLD_COST_HELD} {c_unit:.6f} s: "
+            + ", ".join(f"{b}: {100 * e:+.2f}%" for b, e in c_errs.items())
+            + f" (held within {100 * FOLD_COST_TOL:.0f}% at {FOLD_COST_HELD}; the shorter "
+            f"passes follow the host); pass times "
+            f"{json.dumps({b: seconds[b] for b in sorted(seconds)})}")
+        if any(abs(c_errs[b]) > FOLD_COST_TOL for b in FOLD_COST_HELD):
+            raise AssertionError(f"the server's fold cost constants are off the card's pass "
+                                 f"times: {c_errs}")
+        over = [(b, h, pl) for b, h, pl in rows if h > pl / PLAN_SHARE]
+        if over:
+            raise AssertionError(f"folds hold more than plan / {PLAN_SHARE}: {over}")
+        caps = {b: max_fold_length(fold.cfg, params_bytes=fold_bytes, frugal=True,
+                                   held_outputs=2, batch=b, device="cuda") for b in (1, 2, 4)}
+        log(f"[serve] memory plan: every measured fold within plan / {PLAN_SHARE}; derived cap "
+            f"(ESMFold v1 bf16, {fold_bytes / 1e9:.3f} GB of weights, frugal, two outputs held) "
+            f"at max_fold_batch_seqs 1/2/4: {caps[1]}/{caps[2]}/{caps[4]} on "
+            f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.2f} GB; the server's "
+            f"default cap (max_fold_batch_seqs 2) {srv.max_fold_seq_len}")
+        if srv.max_fold_seq_len != caps[2]:
+            raise AssertionError(f"the server's default fold cap {srv.max_fold_seq_len} is not "
+                                 f"the plan's {caps[2]}")
+
+        # ---- /design: 1 and 8 samples at L=250, and the score path
+        coords = ideal_backbone(250, seed=1400)
+        for n in (1, 8):
+            t0 = time.perf_counter()
+            r = http_json(srv.url, {"coords": coords.tolist(), "seed": 5, "num_samples": n},
+                          "/design")["results"][0]
+            sec = time.perf_counter() - t0
+            direct_s = if1.sample(coords, seed=5, num_samples=n, pad_to_multiple=16)
+            direct_s = [direct_s] if n == 1 else direct_s
+            log(f"[serve] /design L=250, {n} sample(s): {sec:.3f} s, {250 * n / sec:.1f} "
+                f"residues/s; equal to IFHandle.sample (seed 5, bucket 16): "
+                f"{r['sequences'] == direct_s}")
+            if r["sequences"] != direct_s:
+                raise AssertionError(f"/design {n} samples differ from the direct sample")
+        seq = random_protein(250, seed=1401)
+        r = http_json(srv.url, {"coords": coords.tolist(), "seq": seq}, "/design")["results"][0]
+        ll = tuple(round(x, 6) for x in if1.score_sequence(coords, seq))
+        log(f"[serve] /design score path: ll_fullseq {r['ll_fullseq']}, ll_withcoord "
+            f"{r['ll_withcoord']} (direct score_sequence {ll})")
+        if (r["ll_fullseq"], r["ll_withcoord"]) != ll:
+            raise AssertionError(f"/design score {r} != direct {ll}")
+
+        # the learned cost units of a normal serving window (the priors),
+        # before the profiler's overhead enters them
+        stats = http_json(srv.url)
+        log(f"[serve] /stats learned cost units before /profile {stats['cost_unit_s']} "
+            f"(priors {sv._COST_PRIORS})")
+
+        # ---- /profile: a 3 s capture under /embed load
+        stop = threading.Event()
+
+        def load():
+            i = 0
+            while not stop.is_set():
+                http_json(srv.url, {"sequences": [seqs[i % len(seqs)]]}, "/embed")
+                i += 1
+
+        with tempfile.TemporaryDirectory() as tmp:
+            loaders = [threading.Thread(target=load) for _ in range(4)]
+            [t.start() for t in loaders]
+            time.sleep(0.5)
+            t0 = time.perf_counter()
+            prof = http_json(srv.url, {"seconds": 3, "dir": tmp}, "/profile")
+            sec = time.perf_counter() - t0
+            stop.set()
+            [t.join() for t in loaders]
+            with open(os.path.join(tmp, "trace.json")) as f:
+                events = json.load(f)["traceEvents"]
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        k1 = [e for e in kernels if "flash_fwd_bf16" in e.get("name", "")]
+        log(f"[serve] /profile {prof} in {sec:.2f} s under /embed load: {len(events)} trace "
+            f"events, {len(kernels)} kernels, {len(k1)} of K1 ({k1[0]['name'][:60] if k1 else '-'})")
+        if not k1:
+            raise AssertionError("the /profile trace names no K1 kernel")
+
+        stats = http_json(srv.url)
+        log(f"[serve] /stats learned cost units after /profile {stats['cost_unit_s']}; requests {stats['requests']}, errors {stats['errors']}, "
+            f"rejected {stats['rejected']}, latency p50/p95 {stats['latency_p50_ms']}/"
+            f"{stats['latency_p95_ms']} ms")
+    finally:
+        srv.stop()
+    del lm, if1, srv
+    torch.cuda.empty_cache()
+    log(f"[serve] took {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_cli_serve():
+    """python -m esm_tpu_torch.cli.serve as a process on the card with a
+    save_esm2 checkpoint (6 x 320) in a temporary ESM_TPU_CACHE, --bf16
+    --flash: its /embed answer against the in-process handle, then SIGINT."""
+    import signal
+
+    import torch
+    from esm_tpu_torch import pretrained
+    from esm_tpu_torch.io.export import save_esm2
+    from esm_tpu_torch.runtime import server as sv
+
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    handle, _ = pretrained.random_model_and_alphabet("esm2_t6_8M_UR50D", seed=1500,
+                                                     device="cpu")
+    with tempfile.TemporaryDirectory() as tmp:
+        path, _ = save_esm2(handle.model, os.path.join(tmp, "esm2_t6_8M_UR50D.pt"))
+        env = dict(os.environ, ESM_TPU_CACHE=tmp, PYTHONUNBUFFERED="1",
+                   PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "esm_tpu_torch.cli.serve", "esm2_t6_8M_UR50D", "--port", "0",
+             "--bf16", "--flash", "--max-wait-ms", "20"],
+            cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        try:
+            url, lines, deadline = None, [], time.monotonic() + 300
+            while url is None and time.monotonic() < deadline:
+                line = proc.stdout.readline()
+                if not line:
+                    break
+                lines.append(line)
+                if " on http://" in line:
+                    url = line.split(" on ")[1].split()[0]
+            if url is None:
+                raise AssertionError("the serve CLI did not start:\n" + "".join(lines))
+            seqs = [random_protein(n, seed=1500 + n) for n in (120, 300)]
+            got = np.load(io.BytesIO(http_post(url, {
+                "sequences": seqs, "include": ["mean", "logits"], "format": "npz"})))
+            model = pretrained.load_model_and_alphabet(path, device="cuda")[0].with_options(
+                compute_dtype=torch.bfloat16, use_flash=True)
+            conv = model.alphabet.get_batch_converter(1022, pad_to_multiple=128)
+            toks = sv._to_device(sv._pad_batch_rows(
+                np.asarray(conv([("a", s) for s in seqs])[2]), 16)[0], torch.device("cuda"))
+            out = model(toks, repr_layers=(6,))
+            lens = torch.tensor([len(s) for s in seqs] + [1] * (toks.shape[0] - 2),
+                                device="cuda")
+            mean = sv._numpy(sv._device_mean(out["representations"][6], lens, 1).cpu())
+            logits = out["logits"].cpu().numpy()
+            for i, s in enumerate(seqs):
+                if not (np.array_equal(got[f"{i}/mean/6"], mean[i])
+                        and np.array_equal(got[f"{i}/logits"], logits[i, 1:len(s) + 1])):
+                    raise AssertionError(f"serve CLI /embed row {i} differs from the handle")
+            proc.send_signal(signal.SIGINT)
+            tail, _ = proc.communicate(timeout=60)
+            if proc.returncode != 0:
+                raise AssertionError(f"serve CLI exited {proc.returncode}: {tail}")
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+    log(f"[cli-serve] python -m esm_tpu_torch.cli.serve esm2_t6_8M_UR50D --bf16 --flash (a "
+        f"save_esm2 checkpoint in ESM_TPU_CACHE) on the card: /embed of 2 sequences (B=16 "
+        f"'max' bucket, T=384) equals the in-process handle's call on that batch bit for bit "
+        f"(mean, logits); stopped by SIGINT, exit 0; {time.perf_counter() - t_phase:.1f} s")
 
 
 def pdb_ca(pdb):
@@ -3385,9 +3921,16 @@ def main():
     backward = measure_backward(counts)
     phase_cli()
     phase_cli_pretrain()
-    k6 = measure_k6(phase_fold(card))
+    fold_counts, fold_handle = phase_fold(card)
+    k6 = measure_k6(fold_counts)
     trimul = phase_trimul()
     phase_cli_fold()
+    t_serve = time.perf_counter()
+    phase_serve(card, fold_handle)  # [fold]'s ESMFold v1, then freed
+    del fold_handle
+    torch.cuda.empty_cache()
+    phase_cli_serve()
+    log(f"[serve] [serve] and [cli-serve] took {time.perf_counter() - t_serve:.1f} s")
     k1_esm1 = measure_k1_esm1(phase_esm1(card))
     phase_msa(card)
     phase_cli_variants()

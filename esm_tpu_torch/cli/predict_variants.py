@@ -71,12 +71,22 @@ def _parse(mutation: str, offset_idx: int, sequence: str):
     return wt, idx, mt
 
 
+def wt_marginal_score(token_probs, idx, wt_enc, mt_enc, prepend_bos=1):
+    """score = logp[mt] - logp[wt] at 0-based residue ``idx`` of one
+    sequence's (T, V) log-probs (reference predict.py:107-115). The
+    arithmetic of ``label_row`` and of the server's /score endpoint."""
+    return float(
+        token_probs[prepend_bos + idx, mt_enc]
+        - token_probs[prepend_bos + idx, wt_enc]
+    )
+
+
 def label_row(row, sequence, token_probs, alphabet, offset_idx):
     """score = logp[mt] - logp[wt] at the mutated residue of one sequence's
-    (T, V) log-probs (reference predict.py:107-115)."""
+    (1, T, V) log-probs (reference predict.py:107-115)."""
     wt, idx, mt = _parse(row, offset_idx, sequence)
-    logp = token_probs[0, 1 + idx]
-    return float(logp[alphabet.get_idx(mt)] - logp[alphabet.get_idx(wt)])
+    return wt_marginal_score(token_probs[0], idx, alphabet.get_idx(wt), alphabet.get_idx(mt),
+                             prepend_bos=1)
 
 
 def _log_softmax(logits: torch.Tensor) -> torch.Tensor:

@@ -26,12 +26,15 @@ import torch
 def profile_trace(logdir: str, *, record_shapes: bool = False) -> Iterator[torch.profiler.profile]:
     """Capture a torch.profiler trace of the enclosed block and write it to
     ``<logdir>/trace.json`` on exit. Yields the profiler, whose
-    ``key_averages()`` summarise the block."""
+    ``key_averages()`` summarise the block. The card's kernels and the CPU
+    operators are recorded whichever thread launched them."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(torch.profiler.ProfilerActivity.CUDA)
+    every_thread = torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
     os.makedirs(logdir, exist_ok=True)
-    with torch.profiler.profile(activities=activities, record_shapes=record_shapes) as prof:
+    with torch.profiler.profile(activities=activities, record_shapes=record_shapes,
+                                experimental_config=every_thread) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 

@@ -3,7 +3,8 @@
     modules, the variant-scoring CLI, the ESM-IF1 modules, the structure
     reader, the inverse-folding CLIs, ``lora`` and ``quantization``, the
     fold losses, the metrics, the structural dataset, the profiling
-    utilities and the examples among them), pulls in neither ``jax``, ``optax`` nor ``esm_tpu`` (checked in
+    utilities, the examples, the server, the fold memory plan and the
+    serving CLI among them), pulls in neither ``jax``, ``optax`` nor ``esm_tpu`` (checked in
     a fresh interpreter);
   * no source file of the port, nor chip_smoke.py, imports ``jax``,
     ``optax`` or ``esm_tpu``;
@@ -35,7 +36,8 @@ def test_import_leaves_out_jax_and_esm_tpu():
         "assert {'esm_tpu_torch.lora', 'esm_tpu_torch.quantization',\n"
         "        'esm_tpu_torch.models.esmfold.losses', 'esm_tpu_torch.data.structural',\n"
         "        'esm_tpu_torch.utils.profiling', 'esm_tpu_torch.data.atlas',\n"
-        "        'esm_tpu_torch.examples.esmfold_finetune'} <= set(sys.modules)\n"
+        "        'esm_tpu_torch.examples.esmfold_finetune', 'esm_tpu_torch.runtime.server',\n"
+        "        'esm_tpu_torch.parallel.memory_plan', 'esm_tpu_torch.cli.serve'} <= set(sys.modules)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'optax', 'esm_tpu'))\n"
         "assert not bad, bad\n"
     )
@@ -72,7 +74,7 @@ def no_cuda():
      "extract", "pretrain", "random_esmfold", "load_esmfold", "fold",
      "random_esm1", "random_msa", "predict_variants", "random_if1", "if_sample",
      "if_score", "pretrain_lora", "extract_int8", "esmfold_finetune", "ss_finetune",
-     "int8_15b", "contact_prediction", "sm_only"],
+     "int8_15b", "contact_prediction", "sm_only", "serve", "serve_memory"],
 )
 def test_entry_points_without_device_raise_when_cuda_absent(no_cuda, entry, tmp_path):
     from esm_tpu_torch import pretrained
@@ -124,6 +126,13 @@ def test_entry_points_without_device_raise_when_cuda_absent(no_cuda, entry, tmp_
             from esm_tpu_torch.examples import contact_prediction as ex
             ex.main(ex.create_parser().parse_args(["--model", str(tmp_path / "esm2_missing.pt"),
                                                    "--fasta", str(tmp_path / "x.fasta")]))
+        elif entry == "serve":
+            from esm_tpu_torch.cli import serve
+            serve.start_server(serve.create_parser().parse_args(
+                [str(tmp_path / "esm2_missing.pt"), "--port", "0"]))
+        elif entry == "serve_memory":
+            from esm_tpu_torch.parallel import memory_plan
+            memory_plan.device_memory_bytes()
         elif entry == "sm_only":
             pretrained.esmfold_structure_module_only_8M()
         elif entry in ("pretrain", "pretrain_lora"):
