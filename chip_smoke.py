@@ -193,7 +193,32 @@ Phases, each raising on failure (nothing is caught):
                 largest error, and against fp32 no worse than the bf16 copy
                 by INT8_ERR_RATIO (largest error) and INT8_AGREE_DROP
                 (argmax agreement); parameter bytes, peak memory, seq/s;
- 26. summary  — the nvidia-smi line, a JSON line of the ported kernels (K1
+ 26. design   — LM design (esm_tpu_torch.apps.lm_design) with ESM2-650M at
+                its released size (seeded), the lm-design example's
+                65-residue seed sequence, batch 4: fp32 (TF32 off) MH chains
+                of 50 steps on draws made once on a CPU generator, flash (K1)
+                against exact (accept flags equal at every step, energies
+                within DESIGN_TOL relative) and the first step against a CPU
+                forward; a bf16 flash chain of 1000 steps at the reference's
+                StepLR temperature through Designer.run under
+                torch.cuda.set_sync_debug_mode("error") (K1 33 a step and
+                nothing else, finite energies, accept rate in (0, 1)), ms a
+                step, steps/s and a profile of 20 steps; 200 Gibbs and 40
+                free-generation steps (a seeded distogram projection over the
+                660 attention maps), K1 33 a step;
+ 27. ppl      — the protein programming language over ESMFold v1 at its
+                released size (seeded, zero layers re-drawn, fast preset):
+                ESMFoldCallback(num_recycles=1, bucket=16) on a 100-residue
+                sequence against infer(pad_to_multiple=16) on the real rows
+                (K1 36, K6 192 a fold); run_simulated_annealing on
+                free_hallucination(100) for 10 steps and fixed_backbone of an
+                80-residue NeRF template for 5, each step split into the fold
+                (host clock and CUDA events) and the host energy terms;
+ 28. cli-design — the eight design examples' run(args) on the card:
+                lm_design_fixedbb with an esm2_t6_8M-shaped checkpoint (K1 6
+                a step), the seven ppl_* over [cli-fold]'s checkpoint shape
+                under ESMFold v1's cache name (K1 6, K6 8 a fold);
+ 29. summary  — the nvidia-smi line, a JSON line of the ported kernels (K1
                 also at the ESM-1b and ESM-1 shapes), and as the last line
                 {"ok": true, "device": {...}}.
 
@@ -2129,6 +2154,7 @@ def phase_cli_serve():
     from esm_tpu_torch import pretrained
     from esm_tpu_torch.io.export import save_esm2
     from esm_tpu_torch.runtime import server as sv
+    from esm_tpu_torch.utils.device import host_to_device
 
     t_phase = time.perf_counter()
     root = os.path.dirname(os.path.abspath(__file__))
@@ -2159,7 +2185,7 @@ def phase_cli_serve():
             model = pretrained.load_model_and_alphabet(path, device="cuda")[0].with_options(
                 compute_dtype=torch.bfloat16, use_flash=True)
             conv = model.alphabet.get_batch_converter(1022, pad_to_multiple=128)
-            toks = sv._to_device(sv._pad_batch_rows(
+            toks = host_to_device(sv._pad_batch_rows(
                 np.asarray(conv([("a", s) for s in seqs])[2]), 16)[0], torch.device("cuda"))
             out = model(toks, repr_layers=(6,))
             lens = torch.tensor([len(s) for s in seqs] + [1] * (toks.shape[0] - 2),
@@ -3903,6 +3929,404 @@ def phase_int8_15b(card):
     return dict(bytes=pb, peak=peak, seq_s=1 / sec)
 
 
+# [design]: the lm-design example's seed sequence (examples/lm_design_fixedbb.py)
+DESIGN_SEED_SEQ = "MKTVRQERLKSIVRILERSKEPVSGAQLAEELSVSRQVIVQDIAYLRSLGYNIVATPRGYVLAGG"
+DESIGN_BATCH = 4
+DESIGN_TOL = 1e-4          # relative, fp32 chain energies: flash vs exact, card vs CPU
+DESIGN_AGREE_STEPS = 50    # the fp32 flash chain against the exact one
+DESIGN_STEPS = 1000        # the bf16 flash chain under sync-debug "error"
+DESIGN_STEPLR = {"scheduler": "StepLR", "initial": 8, "step_size": 10000, "gamma": 0.5}
+GIBBS_STEPS = 200
+FREE_GEN_STEPS, FREE_GEN_EVERY = 40, 10
+PPL_FOLD_TOL = 1e-3        # callback CA vs infer's, share of the largest magnitude
+PPL_CONF_TOL = 1e-4        # callback pLDDT (0-1) and pTM vs infer's
+
+
+class ReplayDraws:
+    """Pre-drawn MH draws, (steps, B) each, handed out one step at a time."""
+
+    def __init__(self, pos, prop, u):
+        self.rows = iter(zip(pos, prop, u))
+
+    def mh(self, b, L):
+        return next(self.rows)
+
+
+@contextlib.contextmanager
+def sync_errors():
+    """torch.cuda.set_sync_debug_mode("error") inside: any synchronizing call
+    (.item(), .cpu(), a pageable copy, a nonzero) raises."""
+    import torch
+
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def rel_err_max(got, want):
+    """max |got - want| / |want| elementwise (want nonzero here)."""
+    return ((got - want).abs() / want.abs().clamp_min(1e-30)).max().item()
+
+
+def phase_design(card):
+    """LM design (esm_tpu_torch.apps.lm_design) with ESM2-650M at its released
+    size (seeded), the example's 65-residue seed sequence, batch 4 (2·B = 8
+    rows of T = 67 a step): (a) fp32 with TF32 off, 50 MH steps on draws
+    made once on a CPU generator: the flash chain (K1) against the exact one
+    (accept flags, so tokens, equal at every step; energies within
+    DESIGN_TOL relative), its first step against a CPU fp32 forward of the
+    same weights; (b) bf16 flash, Designer.run for 1000 steps at the
+    reference's StepLR temperature under sync-debug "error" (the readback
+    after it): K1 33 launches a step and nothing else, finite energies, an
+    accept rate in (0, 1); ms a step, steps/s, a profile of 20 steps; then
+    200 Gibbs steps and 40 free-generation steps (a seeded distogram
+    projection over the 33 x 20 maps, targets resampled every 10), both
+    under sync-debug "error", K1 33 a step."""
+    import copy
+    import dataclasses
+
+    import torch
+    from esm_tpu_torch import pretrained
+    from esm_tpu_torch.apps import lm_design as ld
+
+    t_phase = time.perf_counter()
+    handle, alphabet = pretrained.random_model_and_alphabet("esm2_t33_650M_UR50D", seed=21,
+                                                            device="cuda")
+    model, n_layers, B = handle.model, handle.num_layers, DESIGN_BATCH
+    toks = alphabet.get_batch_converter()(
+        [(f"seed{i}", DESIGN_SEED_SEQ) for i in range(B)])[2].cuda()
+    L = toks.shape[1] - 2
+
+    # (a) fp32, flash against exact, on the same injected draws
+    gen = torch.Generator().manual_seed(22)
+    draws = [ld.draw_mh(gen, B, L, "cpu") for _ in range(DESIGN_AGREE_STEPS)]
+    pos, prop, u = (torch.stack(x).cuda() for x in zip(*draws))
+    dcfg = ld.DesignConfig(num_iter=DESIGN_AGREE_STEPS, temperature=0.1)
+    cfgs = {name: dataclasses.replace(handle.cfg, compute_dtype=torch.float32, use_flash=flash)
+            for name, flash in (("flash", True), ("exact", False))}
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    chains = {}
+    for name, cfg in cfgs.items():
+        zero_counts()
+        chains[name] = ld.run_chain(model, cfg, None, dcfg, toks, ReplayDraws(pos, prop, u))
+        torch.cuda.synchronize()
+        if name == "flash" and read_counts()["flash_attention"] != n_layers * DESIGN_AGREE_STEPS:
+            raise AssertionError(f"[design] fp32 flash chain launches {read_counts()}")
+    with torch.no_grad():
+        proposal = toks.scatter(1, pos[0][:, None], prop[0][:, None])
+        stacked, pos2 = torch.cat([toks, proposal]), torch.cat([pos[0], pos[0]])
+        e_card = ld.total_energy(model, cfgs["flash"], None, dcfg, stacked, pos2)
+        cpu_model = copy.deepcopy(model).cpu()
+        e_cpu = ld.total_energy(cpu_model, cfgs["exact"], None, dcfg, stacked.cpu(), pos2.cpu())
+        del cpu_model
+    torch.backends.cuda.matmul.allow_tf32 = prev
+    (tok_f, e_f, acc_f), (tok_e, e_e, acc_e) = chains["flash"], chains["exact"]
+    same_acc = torch.equal(acc_f, acc_e)
+    err = rel_err_max(e_f, e_e)
+    err_abs = (e_f - e_e).abs().max().item()
+    err_cpu = rel_err_max(e_card.cpu(), e_cpu)
+    log(f"[design] ESM2-650M fp32 (TF32 off), B={B} (2·B = {2 * B} rows, T={toks.shape[1]}), "
+        f"T=0.1, {DESIGN_AGREE_STEPS} MH steps on draws made once on a CPU generator: accept "
+        f"flags flash vs exact equal at every step {same_acc} (accept rate "
+        f"{acc_f.float().mean().item():.3f}), final tokens equal {torch.equal(tok_f, tok_e)}, "
+        f"energies max rel err {err:.3e} (max abs err {err_abs:.3e}, energies "
+        f"{e_e.abs().min().item():.3e}-{e_e.abs().max().item():.3e}); the first step's 2·B energies on the card (flash) "
+        f"against a CPU fp32 forward: max rel err {err_cpu:.3e} (bound {DESIGN_TOL})")
+    if not (same_acc and torch.equal(tok_f, tok_e) and err <= DESIGN_TOL
+            and err_cpu <= DESIGN_TOL and torch.allclose(e_card[:B], e_f[0], rtol=DESIGN_TOL)):
+        raise AssertionError(f"[design] fp32 flash vs exact chain: accepts equal {same_acc}, "
+                             f"energy err {err}, card vs CPU {err_cpu}")
+    del chains, e_card, e_cpu
+
+    # (b) bf16 flash through Designer, no host sync inside the loop
+    bf16 = handle.with_options(compute_dtype=torch.bfloat16, use_flash=True)
+    designer = ld.Designer(bf16)
+    dcfg = ld.DesignConfig(num_iter=DESIGN_STEPS, temperature=DESIGN_STEPLR, seed=23)
+    designer.run(DESIGN_SEED_SEQ, dataclasses.replace(dcfg, num_iter=3), batch=B)  # warm-up
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    with sync_errors():
+        tokens, energies, accepts = designer.run(DESIGN_SEED_SEQ, dcfg, batch=B)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    counts = read_counts()
+    seqs = ld.sequences(alphabet, tokens)
+    energies, rate = energies.cpu().numpy(), accepts.float().mean().item()
+    ms_step = sec / DESIGN_STEPS * 1e3
+    wall, busy, _ = profile(f"[design] 20 bf16 MH steps (B={B}, 2·B rows of T={L + 2})",
+                            lambda: designer.run(DESIGN_SEED_SEQ,
+                                                 dataclasses.replace(dcfg, num_iter=20),
+                                                 batch=B))
+    log(f"[design] bf16 flash Designer.run, {DESIGN_STEPS} steps at StepLR(8, 10000, 0.5) "
+        f"under sync-debug \"error\": {ms_step:.3f} ms a step, {1e3 / ms_step:.2f} steps/s "
+        f"({card}); a profile of 20 steps: device busy {100 * busy / wall:.1f}% of its "
+        f"{wall / 20:.3f} ms a step, {busy / 20:.3f} ms of device time a step, "
+        f"{100 * busy / 20 / ms_step:.1f}% of the unprofiled step; K1 launched {counts['flash_attention']} times "
+        f"({counts['flash_attention'] / DESIGN_STEPS:.1f} a step); accept rate {rate:.4f}; "
+        f"energies {energies[0].mean():.4f} -> {energies[-1].mean():.4f} (mean over the batch)")
+    log(f"[design] design 0: {seqs[0]}")
+    want = n_layers * DESIGN_STEPS
+    if counts["flash_attention"] != want or sum(counts.values()) != want:
+        raise AssertionError(f"[design] launches {counts}, expected K1 x {want} only")
+    if not (np.isfinite(energies).all() and 0.0 < rate < 1.0 and energies.shape == (DESIGN_STEPS, B)
+            and all(len(s) == L and set(s) <= set("ACDEFGHIKLMNPQRSTVWY") for s in seqs)):
+        raise AssertionError(f"[design] energies finite {np.isfinite(energies).all()}, accept "
+                             f"rate {rate}, designs {seqs}")
+
+    # Gibbs and free generation, bf16 flash
+    zero_counts()
+    t0 = time.perf_counter()
+    with sync_errors():
+        gibbs = ld.gibbs_free_generation(bf16.model, bf16.cfg, toks, GIBBS_STEPS, seed=24)
+    torch.cuda.synchronize()
+    gibbs_ms = (time.perf_counter() - t0) / GIBBS_STEPS * 1e3
+    gibbs_counts = read_counts()
+    designed = gibbs[:, 1:-1]
+    log(f"[design] Gibbs, {GIBBS_STEPS} bf16 steps under sync-debug \"error\": {gibbs_ms:.3f} "
+        f"ms a step; K1 {gibbs_counts['flash_attention']} launches; designs of standard "
+        f"residues only {bool(((designed >= 4) & (designed < 24)).all().item())}")
+    if (gibbs_counts["flash_attention"] != n_layers * GIBBS_STEPS
+            or sum(gibbs_counts.values()) != n_layers * GIBBS_STEPS
+            or not ((designed >= 4) & (designed < 24)).all()):
+        raise AssertionError(f"[design] Gibbs: launches {gibbs_counts}, tokens {gibbs}")
+
+    proj = ld.DistogramProjection(n_layers * handle.attention_heads, device="cuda")
+    pgen = torch.Generator(device="cuda").manual_seed(25)
+    with torch.no_grad():
+        for p in proj.parameters():
+            p.normal_(generator=pgen).mul_(0.5)
+    zero_counts()
+    t0 = time.perf_counter()
+    with sync_errors():
+        free_tokens, free_e = ld.free_generation(bf16.model, bf16.cfg, proj, toks,
+                                                 num_iter=FREE_GEN_STEPS,
+                                                 resample_y_every=FREE_GEN_EVERY, seed=26)
+    torch.cuda.synchronize()
+    free_ms = (time.perf_counter() - t0) / FREE_GEN_STEPS * 1e3
+    free_counts = read_counts()
+    free_e = free_e.cpu().numpy()
+    log(f"[design] free generation, {FREE_GEN_STEPS} MH steps (targets resampled every "
+        f"{FREE_GEN_EVERY}; the projection's forwards take the exact path) under sync-debug "
+        f"\"error\": {free_ms:.3f} ms a step; K1 {free_counts['flash_attention']} launches; "
+        f"energies {free_e.shape} finite {np.isfinite(free_e).all()}, "
+        f"{free_e[0, 0].mean():.4f} -> {free_e[-1, -1].mean():.4f}")
+    if (free_counts["flash_attention"] != n_layers * FREE_GEN_STEPS
+            or sum(free_counts.values()) != n_layers * FREE_GEN_STEPS
+            or free_e.shape != (FREE_GEN_STEPS // FREE_GEN_EVERY, FREE_GEN_EVERY, B)
+            or not np.isfinite(free_e).all() or free_tokens.shape != toks.shape):
+        raise AssertionError(f"[design] free generation: launches {free_counts}, energies "
+                             f"{free_e}")
+    del handle, bf16, designer, model, proj
+    torch.cuda.empty_cache()
+    log(f"[design] took {time.perf_counter() - t_phase:.1f} s")
+
+
+class TimedFolds:
+    """A folding callback that times each fold: host clock (the fold ends in
+    its readback) and CUDA events around it."""
+
+    def __init__(self, inner):
+        self.inner, self.wall, self.device_ms = inner, [], []
+
+    def fold(self, sequence, residue_indices):
+        import torch
+
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        result = self.inner.fold(sequence, residue_indices)
+        end.record()
+        end.synchronize()
+        self.wall.append(time.perf_counter() - t0)
+        self.device_ms.append(start.elapsed_time(end))
+        return result
+
+
+def timed_anneal(tag, program, callback, steps):
+    """run_simulated_annealing over a TimedFolds: its state, seconds a step,
+    and the fold's and the rest's (the host energy terms: SASA, RMSDs, SSE;
+    the program copies) seconds a step."""
+    from esm_tpu_torch.apps import ppl
+
+    timed = TimedFolds(callback)
+    np.random.seed(35)
+    t0 = time.perf_counter()
+    state = ppl.run_simulated_annealing(program, timed, total_num_steps=steps,
+                                        display_progress=False)
+    sec = (time.perf_counter() - t0) / steps
+    fold_s, fold_dev = np.mean(timed.wall), np.mean(timed.device_ms) / 1e3
+    log(f"[ppl] {tag}: {steps} steps, {sec:.4f} s a step: the fold {fold_s:.4f} s (CUDA events "
+        f"{fold_dev:.4f} s), the host energy terms and the rest {sec - fold_s:.4f} s; energies "
+        f"{state.energy_trace[0]:.4f} -> {state.energy_trace[-1]:.4f}, current "
+        f"{state.current_energy:.4f}, best {state.best_energy:.4f}, {state.num_accepts} accepts")
+    if not (state.num_steps == steps and len(timed.wall) == steps
+            and np.isfinite(state.energy_trace).all()
+            and state.best_energy <= state.current_energy):
+        raise AssertionError(f"[ppl] {tag}: steps {state.num_steps}, energies "
+                             f"{state.energy_trace}, best {state.best_energy}, current "
+                             f"{state.current_energy}")
+
+
+def phase_ppl(card):
+    """The protein programming language (esm_tpu_torch.apps.ppl) over ESMFold
+    v1 at its released size (seeded, zero layers re-drawn, fast preset) with
+    ESMFoldCallback(num_recycles=1, bucket=16): a 100-residue fold through
+    the callback against infer(num_recycles=1, pad_to_multiple=16) on the
+    real rows (K1 36 and K6 192 a fold); then run_simulated_annealing on
+    free_hallucination(100) for 10 steps and on fixed_backbone of an
+    80-residue NeRF template for 5, each step's time split into the fold and
+    the host energy terms."""
+    import torch
+    from esm_tpu_torch import pretrained
+    from esm_tpu_torch.apps import ppl
+    from esm_tpu_torch.models.esmfold.protein import atom14_to_atom37
+
+    t_phase = time.perf_counter()
+    handle = pretrained.random_esmfold("esmfold_v1", seed=31, device="cuda", fast=True)
+    redraw_zero_layers(handle.model, seed=32)
+    callback = ppl.ESMFoldCallback(handle, num_recycles=1, bucket=16)
+    seq = random_protein(100, seed=33)
+    zero_counts()
+    res = callback.fold(seq, list(range(len(seq))))
+    counts = read_counts()
+    out = handle.infer([seq], num_recycles=1, pad_to_multiple=16)
+    ca = torch.from_numpy(res.atoms.coord[res.atoms.atom_name == "CA"])
+    ca_ref = atom14_to_atom37(out["positions"][-1], out["aatype"])[0, :len(seq), 1].float().cpu()
+    err = (ca - ca_ref).abs().max().item() / ca_ref.abs().max().item()
+    d_plddt = abs(res.plddt - out["plddt"][0, :len(seq), 1].mean().item() / 100)
+    d_ptm = abs(res.ptm - out["ptm"][0].item())
+    log(f"[ppl] ESMFold v1 (fast), ESMFoldCallback(num_recycles=1, bucket=16), L=100 (bucket "
+        f"112): launches {counts}; against infer(num_recycles=1, pad_to_multiple=16) on the "
+        f"real rows: CA max abs err {err:.3e} of the largest magnitude (bound {PPL_FOLD_TOL}), "
+        f"|d pLDDT| {d_plddt:.2e}, |d pTM| {d_ptm:.2e} (bound {PPL_CONF_TOL}); pLDDT "
+        f"{res.plddt:.4f}, pTM {res.ptm:.4f}, {len(res.atoms)} atoms")
+    want_k6 = 2 * handle.cfg.trunk.num_blocks * 2
+    if (counts["flash_attention"] != handle.cfg.esm.num_layers
+            or counts["triangle_attention_fused"] != want_k6
+            or sum(counts.values()) != want_k6 + handle.cfg.esm.num_layers):
+        raise AssertionError(f"[ppl] fold launches {counts}: expected K1 x "
+                             f"{handle.cfg.esm.num_layers}, K6 x {want_k6}")
+    if not (err <= PPL_FOLD_TOL and d_plddt <= PPL_CONF_TOL and d_ptm <= PPL_CONF_TOL):
+        raise AssertionError(f"[ppl] callback vs infer: CA {err}, pLDDT {d_plddt}, pTM {d_ptm}")
+    del out
+
+    np.random.seed(34)
+    timed_anneal(f"free_hallucination(100) ({card})", ppl.free_hallucination(100),
+                        callback, 10)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "template.pdb")
+        write_backbone(path, {"A": (ideal_backbone(80, seed=36), random_protein(80, seed=37))},
+                       "pdb")
+        np.random.seed(34)
+        program = ppl.fixed_backbone(ppl.pdb_file_to_atomview(path))
+    timed_anneal(f"fixed_backbone of an 80-residue NeRF template ({card})", program,
+                         callback, 5)
+    del handle, callback
+    torch.cuda.empty_cache()
+    log(f"[ppl] took {time.perf_counter() - t_phase:.1f} s")
+
+
+# example: its flags (beside --steps); "{pdb}" is an 80-residue template. Lengths of
+# 60-87 residues: the host SASA (numpy, as in esm_tpu) is O(atoms^2) on the collapsed
+# folds of random weights, seconds a call at ~800 atoms (PERF.md)
+CLI_DESIGN_PPL = {
+    "ppl_fixed_backbone": ["{pdb}"],
+    "ppl_free_hallucination": ["--length", "60"],
+    "ppl_secondary_structure": ["--segment-length", "30"],
+    "ppl_site_scaffolding": ["{pdb}", "--flank-length", "20"],
+    "ppl_symmetric_binding": ["{pdb}", "--flank-length", "10"],
+    "ppl_symmetric_design": ["--protomer-length", "20"],
+    "ppl_two_level_multimer": ["--protomer-length", "10"],
+}
+CLI_DESIGN_STEPS = 3
+
+
+def phase_cli_design():
+    """The eight design examples through their run(args) on the card:
+    lm_design_fixedbb with an esm2_t6_8M-shaped checkpoint (seeded) in a
+    temporary ESM_TPU_CACHE, 50 iterations at batch 4 (K1 6 a step); the
+    ppl_* examples for 3 steps each, over ESMFold v1's
+    cache name holding [cli-fold]'s checkpoint shape (an esm2_t6_8M LM, a
+    2-block trunk at ESMFold's widths; seeded) at 60-87 residues: K1 6 and
+    K6 8 a fold."""
+    import importlib
+
+    import torch
+    from esm_tpu_torch import pretrained
+    from esm_tpu_torch.examples import lm_design_fixedbb
+    from esm_tpu_torch.io.export import save_esm2, save_esmfold
+    from esm_tpu_torch.models import esm2
+    from esm_tpu_torch.models import esmfold as ef
+    from esm_tpu_torch.pretrained import _esm2_alphabet
+
+    t_phase = time.perf_counter()
+    lm, _ = pretrained.random_model_and_alphabet("esm2_t6_8M_UR50D", seed=41, device="cpu")
+    cfg = ef.ESMFoldConfig(
+        esm=esm2.ESM2Config.from_alphabet(_esm2_alphabet(), **esm2.ESM2_SIZES["esm2_t6_8M_UR50D"]),
+        trunk=ef.FoldingTrunkConfig(num_blocks=2), esm_type="esm2_8M")
+    fold_model = ef.init_esmfold(cfg, torch.Generator().manual_seed(42), device="cpu")
+    redraw_zero_layers(fold_model, seed=43, device="cpu")
+    prev_cache = os.environ.get("ESM_TPU_CACHE")
+    with tempfile.TemporaryDirectory() as tmp:
+        save_esm2(lm.model, os.path.join(tmp, "esm2_t6_8M_UR50D.pt"))
+        save_esm2(fold_model.esm, os.path.join(tmp, "esm2_t6_8M_UR50D_500K.pt"))
+        save_esmfold(fold_model, os.path.join(tmp, "esmfold_3B_v1.pt"))
+        pdb = os.path.join(tmp, "template.pdb")
+        write_backbone(pdb, {"A": (ideal_backbone(80, seed=44), random_protein(80, seed=45))},
+                       "pdb")
+        os.environ["ESM_TPU_CACHE"] = tmp
+        try:
+            argv = ["--model", "esm2_t6_8M_UR50D", "--num-iter", "50", "--batch", "4"]
+            buf = io.StringIO()
+            zero_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                seqs, energies, acc = lm_design_fixedbb.run(
+                    lm_design_fixedbb.create_parser().parse_args(argv))
+            counts = read_counts()
+            log(f"[cli-design] lm_design_fixedbb {' '.join(argv)}: {time.perf_counter() - t0:.1f} "
+                f"s, K1 {counts['flash_attention']} launches; "
+                + "; ".join(buf.getvalue().strip().splitlines()[:2]))
+            if (counts["flash_attention"] != 6 * 50 or sum(counts.values()) != 6 * 50
+                    or not np.isfinite(energies).all()
+                    or not all(set(s) <= set("ACDEFGHIKLMNPQRSTVWY") for s in seqs)):
+                raise AssertionError(f"[cli-design] lm_design_fixedbb: launches {counts}, "
+                                     f"designs {seqs}")
+            for k, (name, flags) in enumerate(CLI_DESIGN_PPL.items()):
+                example = importlib.import_module(f"esm_tpu_torch.examples.{name}")
+                argv = [a.format(pdb=pdb) for a in flags] + ["--steps", str(CLI_DESIGN_STEPS)]
+                buf = io.StringIO()
+                np.random.seed(50 + k)
+                zero_counts()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(buf):
+                    state = example.run(example.create_parser().parse_args(argv))
+                counts = read_counts()
+                folds = CLI_DESIGN_STEPS
+                log(f"[cli-design] {name} (length {len(state.best_sequence)}): "
+                    f"{time.perf_counter() - t0:.1f} s, K1 {counts['flash_attention']} and K6 "
+                    f"{counts['triangle_attention_fused']} launches ({folds} folds); "
+                    + "; ".join(buf.getvalue().strip().splitlines()))
+                if not (counts["flash_attention"] == 6 * folds
+                        and counts["triangle_attention_fused"] == 8 * folds
+                        and sum(counts.values()) == 14 * folds
+                        and np.isfinite(state.energy_trace).all()
+                        and set(state.best_sequence) <= set("ACDEFGHIKLMNPQRSTVWY")):
+                    raise AssertionError(f"[cli-design] {name}: launches {counts}, energies "
+                                         f"{state.energy_trace}, best {state.best_sequence}")
+        finally:
+            if prev_cache is None:
+                os.environ.pop("ESM_TPU_CACHE", None)
+            else:
+                os.environ["ESM_TPU_CACHE"] = prev_cache
+    torch.cuda.empty_cache()
+    log(f"[cli-design] took {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     import torch
 
@@ -3952,6 +4376,11 @@ def main():
     phase_int8_15b(card)
     log(f"[train-fold] [train-fold], [cli-fold-finetune], [ss-finetune] and [int8-15b] took "
         f"{time.perf_counter() - t_fold:.1f} s")
+    t_design = time.perf_counter()
+    phase_design(card)
+    phase_ppl(card)
+    phase_cli_design()
+    log(f"[design] [design], [ppl] and [cli-design] took {time.perf_counter() - t_design:.1f} s")
     log(f"[summary] all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(smi)
     kernels = [k1] + k1_esm1 + backward + [k6] + trimul

@@ -30,6 +30,10 @@ given the int8 layout by ``quantization.adopt_int8_layout``.
 ``lora_from_jax`` carries a LoRA adapter tree (esm_tpu/lora.py) onto the
 port's ``lora.LoRA`` module, and :func:`jax_leaf` names the esm_tpu
 parameter leaf that each of the port's modules belongs to.
+``distogram_projection_from_jax`` turns lm-design's distogram projection
+(esm_tpu/apps/lm_design.py:204-253, per-pair linears (C, bins)) into the
+state dict of the port's ``DistogramProjection`` (1x1 Conv2d weights
+(bins, C, 1, 1)).
 """
 
 from __future__ import annotations
@@ -320,6 +324,17 @@ def if1_state_dict_from_jax(params, cfg) -> Dict[str, torch.Tensor]:
     _ln(sd, "decoder.layer_norm", dec["layer_norm"])
     _linear(sd, "decoder.output_projection", dec["output_projection"])
     return sd
+
+def distogram_projection_from_jax(proj_params) -> Dict[str, torch.Tensor]:
+    """{"conv1": {"kernel" (C, 36), "bias"}, "conv2": ...} -> the
+    ``DistogramProjection`` state dict: ``conv{1,2}.weight`` (out, C, 1, 1)
+    and ``.bias``, the released checkpoint's layout."""
+    sd = {}
+    for name in ("conv1", "conv2"):
+        _linear(sd, name, proj_params[name])
+        sd[f"{name}.weight"] = sd[f"{name}.weight"][:, :, None, None].contiguous()
+    return sd
+
 
 
 # The port's module lists that esm_tpu stacks into one leaf with a leading

@@ -83,6 +83,8 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.device import host_to_device
+
 logger = logging.getLogger(__name__)
 
 _INCLUDE = ("mean", "per_tok", "logits", "contacts")
@@ -794,7 +796,7 @@ class InferenceServer:
         )
         toks, real_b = _pad_batch_rows(np.asarray(toks), target)
         # already on the device, so the handle makes no second copy
-        return _to_device(toks, self.model.device), real_b
+        return host_to_device(toks, self.model.device), real_b
 
     def _dispatch_score_group(self, reqs: List[_Request]):
         """Variant-effect scoring (wt-marginals, reference
@@ -942,7 +944,7 @@ class InferenceServer:
             # readback (padded rows take length 1 and are dropped)
             lens = np.ones(toks.shape[0], np.int64)
             lens[:real_b] = lengths
-            lens = _to_device(lens, toks.device)
+            lens = host_to_device(lens, toks.device)
             for k in layers:
                 dev[("mean", k)] = _device_mean(reps[k], lens, prepend)[:real_b]
         if "per_tok" in include:
@@ -1672,15 +1674,6 @@ def log_softmax_np(logits: np.ndarray) -> np.ndarray:
     """Stable log-softmax over the last (vocabulary) axis, on the host."""
     m = logits.max(-1, keepdims=True)
     return logits - m - np.log(np.exp(logits - m).sum(-1, keepdims=True))
-
-
-def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A host array on ``device``: on the card through pinned memory with a
-    non-blocking copy (a pageable copy would synchronize the stream)."""
-    t = torch.from_numpy(np.ascontiguousarray(arr))
-    if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t.to(device)
 
 
 def _readback(tensors):

@@ -3,9 +3,9 @@
     modules, the variant-scoring CLI, the ESM-IF1 modules, the structure
     reader, the inverse-folding CLIs, ``lora`` and ``quantization``, the
     fold losses, the metrics, the structural dataset, the profiling
-    utilities, the examples, the server, the fold memory plan and the
-    serving CLI among them), pulls in neither ``jax``, ``optax`` nor ``esm_tpu`` (checked in
-    a fresh interpreter);
+    utilities, the examples, the server, the fold memory plan, the serving
+    CLI, the design apps and their examples among them), pulls in neither
+    ``jax``, ``optax`` nor ``esm_tpu`` (checked in a fresh interpreter);
   * no source file of the port, nor chip_smoke.py, imports ``jax``,
     ``optax`` or ``esm_tpu``;
   * entry points given no device run on CUDA, so without a GPU they raise.
@@ -37,7 +37,12 @@ def test_import_leaves_out_jax_and_esm_tpu():
         "        'esm_tpu_torch.models.esmfold.losses', 'esm_tpu_torch.data.structural',\n"
         "        'esm_tpu_torch.utils.profiling', 'esm_tpu_torch.data.atlas',\n"
         "        'esm_tpu_torch.examples.esmfold_finetune', 'esm_tpu_torch.runtime.server',\n"
-        "        'esm_tpu_torch.parallel.memory_plan', 'esm_tpu_torch.cli.serve'} <= set(sys.modules)\n"
+        "        'esm_tpu_torch.parallel.memory_plan', 'esm_tpu_torch.cli.serve',\n"
+        "        'esm_tpu_torch.apps.lm_design', 'esm_tpu_torch.apps.schedules',\n"
+        "        'esm_tpu_torch.apps.ppl.folding', 'esm_tpu_torch.apps.ppl.optimize',\n"
+        "        'esm_tpu_torch.apps.ppl.energy', 'esm_tpu_torch.apps.ppl.geometry',\n"
+        "        'esm_tpu_torch.examples.lm_design_fixedbb',\n"
+        "        'esm_tpu_torch.examples.ppl_two_level_multimer'} <= set(sys.modules)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'optax', 'esm_tpu'))\n"
         "assert not bad, bad\n"
     )
@@ -74,7 +79,8 @@ def no_cuda():
      "extract", "pretrain", "random_esmfold", "load_esmfold", "fold",
      "random_esm1", "random_msa", "predict_variants", "random_if1", "if_sample",
      "if_score", "pretrain_lora", "extract_int8", "esmfold_finetune", "ss_finetune",
-     "int8_15b", "contact_prediction", "sm_only", "serve", "serve_memory"],
+     "int8_15b", "contact_prediction", "sm_only", "serve", "serve_memory", "lm_design",
+     "ppl_free_hallucination", "ppl_fixed_backbone"],
 )
 def test_entry_points_without_device_raise_when_cuda_absent(no_cuda, entry, tmp_path):
     from esm_tpu_torch import pretrained
@@ -133,6 +139,17 @@ def test_entry_points_without_device_raise_when_cuda_absent(no_cuda, entry, tmp_
         elif entry == "serve_memory":
             from esm_tpu_torch.parallel import memory_plan
             memory_plan.device_memory_bytes()
+        elif entry == "lm_design":
+            from esm_tpu_torch.examples import lm_design_fixedbb as ex
+            ex.run(ex.create_parser().parse_args(["--model", str(tmp_path / "esm2_missing.pt")]))
+        elif entry == "ppl_free_hallucination":
+            from esm_tpu_torch.examples import ppl_free_hallucination as ex
+            ex.run(ex.create_parser().parse_args(["--steps", "1"]))
+        elif entry == "ppl_fixed_backbone":
+            from esm_tpu_torch.examples import ppl_fixed_backbone as ex
+            (tmp_path / "t.pdb").write_text(
+                "ATOM      1  CA  ALA A   1       0.000   0.000   0.000  1.00  0.00           C\n")
+            ex.run(ex.create_parser().parse_args([str(tmp_path / "t.pdb"), "--steps", "1"]))
         elif entry == "sm_only":
             pretrained.esmfold_structure_module_only_8M()
         elif entry in ("pretrain", "pretrain_lora"):
