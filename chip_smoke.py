@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch / CUDA port (esm_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py               # every phase, on one card
+    python3 chip_smoke.py --only ring   # device, build, fasta and ring (e.g. on 4 cards)
 
 Phases, each raising on failure (nothing is caught):
   1. device   — the card's name and power limit;
@@ -13,6 +14,10 @@ Phases, each raising on failure (nothing is caught):
                 prints ptxas's registers, spills and shared memory of K1's,
                 K2's, K6's, K7's and K8's wgmma kernels, and fails on a spill
                 or a serialized wgmma;
+ 2b. fasta    — the native FASTA loader (esm_tpu_torch/native, g++ at first
+                use) must build; a seeded 20,000-record file parsed by it
+                and by the Python loop (equal records, both timed), its bulk
+                tokenizer against the BatchConverter;
   3. kernels  — every kernel against its plain PyTorch version on the card,
                 fp32 (TF32 off) and bf16, d in {16, 32, 64, 128}, T in {37,
                 1000, 1024, 4096} and T != S, a ragged key-padding mask off
@@ -46,6 +51,19 @@ Phases, each raising on failure (nothing is caught):
                 path agree with the exact path's, seq/s and tok/s of both
                 paths, peak memory, a profile of one step; then [k2], [k1-lse],
                 [k4] and [k5], the kernels timed at that shape;
+ 5b. ring     — sequence parallelism: K4 with the ring's lse combine and K5
+                with its dq sum and dk/dv placement over 4 blocks of a
+                T=8192, H=20, d=64 bf16 sequence, held to K1 and K2 over the
+                whole, K4 and K5 timed at a ring step's shape; then on a
+                one-rank NCCL group of this card, ESM2-650M (bf16, flash,
+                remat "dots") at B=2 x 4096: apply_seq_sharded against the
+                one-card flash forward ([main]'s bounds, K4 33 launches and
+                nothing else), step 0's loss and gradients
+                (training.seq_loss_and_grads) against training's one-card
+                step (66 K4 and 33 + 33 K5), two train_step_seq steps; with
+                two or more cards present, the same at B=1 x 8192 over one
+                NCCL rank per card (a power of two), three steps whose loss
+                falls, each rank held to its own one-card run;
   6. cli      — esm-extract (esm_tpu_torch.cli.extract.run) on the card over a
                 seeded FASTA with an esm2_t6_8M-shaped checkpoint written in
                 the reference layout, its files checked against a CPU
@@ -1060,7 +1078,7 @@ def measure_backward(counts):
         raise AssertionError(f"K1-lse at the training shape: err {err}")
     entries.append({"name": "flash_attention_with_lse", "route": "cuda",
                     "source": "esm_tpu_torch/csrc/flash_attention.cu",
-                    "replaces": "esm_tpu/kernels/flash_attention.py:938",
+                    "replaces": "esm_tpu/kernels/flash_attention.py:394",
                     "launches": counts["flash_attention_with_lse"], "max_abs_err": err,
                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
                     "library_ms": lib_ms})
@@ -1091,8 +1109,8 @@ def measure_backward(counts):
                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
                     "library_ms": lib_ms})
 
-    # K4: the forward with the lse, no rotary (a measurement only: the entry
-    # is not on the path, and its kernel is K1-lse's row above)
+    # K4: the forward with the lse, no rotary, at the training shape (its
+    # entry in the kernels line is [ring]'s, at a ring step's shape)
     ms = cuda_time_ms(lambda: fa.flash_attention_with_lse(q, k, v, key_padding_mask=mask))
     plain_ms = cuda_time_ms(lambda: fa.flash_attention_reference(q, k, v, key_padding_mask=mask,
                                                                  return_lse=True))
@@ -1102,9 +1120,10 @@ def measure_backward(counts):
     log(f"[k4] flash_attention_with_lse B={B} H={H} T=S={T} d={d} bf16 no rotary: kernel "
         f"{ms:.4f} ms, plain {plain_ms:.4f} ms, scaled_dot_product_attention {lib_ms:.4f} ms, "
         f"bound {bound:.4f} ms; {fwd_flops / ms / 1e9:.1f} TFLOP/s; kernel / library "
-        f"{ms / lib_ms:.3f}; 0 launches on the paths driven (not on them)")
+        f"{ms / lib_ms:.3f}")
 
-    # K5: the backward against a key block, no rotary; timed with the whole key set
+    # K5: the backward against a key block, no rotary, timed with the whole key
+    # set (its entry in the kernels line is [ring]'s)
     out4, lse4 = fa.flash_attention_with_lse(q, k, v, key_padding_mask=mask)
     kernel = lambda: fa.flash_attention_block_bwd(q, k, v, out4, lse4, do, key_padding_mask=mask)
     plain = lambda: fa.flash_attention_bwd_reference(q, k, v, out4, lse4, do,
@@ -1116,16 +1135,468 @@ def measure_backward(counts):
     log(f"[k5] flash_attention_block_bwd B={B} H={H} T=S={T} d={d} bf16 no rotary: kernel "
         f"{ms:.4f} ms, plain {plain_ms:.4f} ms, scaled_dot_product_attention backward "
         f"{lib_ms:.4f} ms, bound {bound:.4f} ms; {bwd_flops / ms / 1e9:.1f} TFLOP/s of the "
-        f"10.B.H.T.S.d needed; kernel / library {ms / lib_ms:.3f}; 0 launches on the paths "
-        f"driven (not on them); err {err:.3e}")
+        f"10.B.H.T.S.d needed; kernel / library {ms / lib_ms:.3f}; err {err:.3e}")
     if not err <= GRAD_TOL["torch.bfloat16"]:
         raise AssertionError(f"K5 at the training shape: err {err}")
-    entries.append({"name": "flash_attention_block_bwd", "route": "cuda",
-                    "source": "esm_tpu_torch/csrc/flash_attention_bwd.cu",
-                    "replaces": "esm_tpu/kernels/flash_attention.py:975",
-                    "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": bound, "bound_by": by, "library_ms": lib_ms})
     return entries
+
+
+RING_T = 4096         # [ring] on one card: ESM2-650M at B=2 x 4096 tokens, a ring of one
+RING_MULTI_T = 8192   # [ring] on several cards: B=1 x 8192 tokens over one rank per card
+RING_BLOCK = (1, 20, 8192, 64, 4)  # B, H, T, d, N: the block check, at ESM2-650M's heads
+RING_LOSS_TOL = 1e-2  # ring vs one-card step-0 loss, relative (bf16 compute, rotary rounding)
+RING_TIMEOUT = 900    # seconds the ranks of the several-card part may take together
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def ring_block_check(gen):
+    """K4 and K5 composed over N key blocks exactly as each rank of a ring of
+    N composes them (ring_attention's ``_combine`` and ``_zero_dead_rows``,
+    dq summed and each block's dk/dv summed in fp32 over the query blocks),
+    held to K1 (no rotary) and K2 over the whole sequence; K4 and K5 timed
+    at the block shape. Returns the two kernels' timing entries."""
+    import torch
+    import torch.nn.functional as F
+    from esm_tpu_torch.kernels import flash_attention as fa
+    from esm_tpu_torch.parallel import ring_attention as ra
+
+    B, H, T, d, N = RING_BLOCK
+    n = T // N
+    q, k, v, mask = attention_inputs(B, H, T, d, torch.bfloat16, True, gen)
+    do = torch.randn(q.shape, device="cuda", generator=gen).to(torch.bfloat16)
+    cut = lambda x, i: x[..., i * n:(i + 1) * n, :].contiguous()
+    qs, ks, vs, dos = ([cut(x, i) for i in range(N)] for x in (q, k, v, do))
+    ms = [mask[:, i * n:(i + 1) * n].contiguous() for i in range(N)]
+    outs, lses = [], []
+    for i in range(N):  # rank i meets blocks i, i - 1, ... as they rotate
+        out = torch.zeros(qs[i].shape, dtype=torch.float32, device="cuda")
+        lse = torch.full(qs[i].shape[:3], ra.NEG_INF, dtype=torch.float32, device="cuda")
+        for s in range(N):
+            j = (i - s) % N
+            out, lse = ra._combine(out, lse, *fa.flash_attention_with_lse(
+                qs[i], ks[j], vs[j], key_padding_mask=ms[j]))
+        outs.append(ra._zero_dead_rows(out, lse).to(q.dtype))
+        lses.append(lse)
+    dq = [torch.zeros(x.shape, dtype=torch.float32, device="cuda") for x in qs]
+    dk = [torch.zeros(x.shape, dtype=torch.float32, device="cuda") for x in ks]
+    dv = [torch.zeros(x.shape, dtype=torch.float32, device="cuda") for x in vs]
+    for i in range(N):
+        for s in range(N):
+            j = (i - s) % N
+            a, b, c = fa.flash_attention_block_bwd(qs[i], ks[j], vs[j], outs[i], lses[i], dos[i],
+                                                   key_padding_mask=ms[j])
+            dq[i] += a.float()
+            dk[j] += b.float()
+            dv[j] += c.float()
+    whole = fa.flash_attention(q, k, v, key_padding_mask=mask)  # K1, no rotary
+    whole_lse_out, whole_lse = fa.flash_attention_with_lse(q, k, v, key_padding_mask=mask)
+    want = fa.flash_attention_bwd(q, k, v, whole_lse_out, whole_lse, do, key_padding_mask=mask)
+    torch.cuda.synchronize()
+    cat = lambda xs: torch.cat(xs, dim=2)
+    e_out = (cat(outs).float() - whole.float()).abs().max().item()
+    e_lse = rel_err(cat(lses), whole_lse)
+    e_grad = {name: rel_err(cat(g).to(q.dtype), w)
+              for name, g, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want)}
+    log(f"[ring] block check, B={B} H={H} T={T} d={d} bf16, a ragged mask (the last block all "
+        f"padding), {N} blocks of {n}: K4 + lse combine vs K1 out {e_out:.3e} <= {BF16_TOL}, "
+        f"lse {e_lse:.3e} <= {LSE_TOL}; K5 partials vs K2 "
+        + ", ".join(f"{k_} {e:.3e}" for k_, e in e_grad.items())
+        + f" <= {GRAD_TOL['torch.bfloat16']} (relative)")
+    if not (e_out <= BF16_TOL and e_lse <= LSE_TOL
+            and max(e_grad.values()) <= GRAD_TOL["torch.bfloat16"]):
+        raise AssertionError(f"[ring] block composition disagrees: out {e_out}, lse {e_lse}, "
+                             f"gradients {e_grad}")
+
+    # K4 and K5 timed at one ring step's shape: rank 0's queries against block 1
+    qb, kb, vb, mb = qs[0], ks[1], vs[1], ms[1]
+    act = B * H * n * d * 2
+    attn_mask = ~mb[:, None, None, :]
+    k4 = lambda: fa.flash_attention_with_lse(qb, kb, vb, key_padding_mask=mb)
+    k4_plain = lambda: fa.flash_attention_reference(qb, kb, vb, key_padding_mask=mb,
+                                                    return_lse=True)
+    o4, l4 = k4()
+    r4, rl4 = k4_plain()
+    err4 = max((o4.float() - r4.float()).abs().max().item(), rel_err(l4, rl4))
+    ms4, plain4 = cuda_time_ms(k4), cuda_time_ms(k4_plain)
+    lib4 = cuda_time_ms(lambda: F.scaled_dot_product_attention(qb, kb, vb, attn_mask=attn_mask,
+                                                                scale=1.0))
+    flops4 = 4 * B * H * n * n * d
+    bound4, by4 = attention_bound_ms(flops4, 4 * act + B * H * n * 4 + B * n)
+    k5 = lambda: fa.flash_attention_block_bwd(qb, kb, vb, outs[0], lses[0], dos[0],
+                                              key_padding_mask=mb)
+    k5_plain = lambda: fa.flash_attention_bwd_reference(qb, kb, vb, outs[0], lses[0], dos[0],
+                                                        key_padding_mask=mb)
+    err5 = max(rel_err(a, r) for a, r in zip(k5(), k5_plain()))
+    ms5, plain5 = cuda_time_ms(k5), cuda_time_ms(k5_plain)
+    qq, kk, vv = (x.detach().requires_grad_() for x in (qb, kb, vb))
+    o = F.scaled_dot_product_attention(qq, kk, vv, attn_mask=attn_mask, scale=1.0)
+    lib5 = cuda_time_ms(lambda: torch.autograd.grad(o, (qq, kk, vv), dos[0], retain_graph=True))
+    flops5 = 10 * B * H * n * n * d
+    bound5, by5 = attention_bound_ms(flops5, 8 * act + B * H * n * 4 + B * n)
+    for tag, ms, plain, lib, bound, by, flops in (
+            ("k4", ms4, plain4, lib4, bound4, by4, flops4),
+            ("k5", ms5, plain5, lib5, bound5, by5, flops5)):
+        log(f"[ring] {tag} at one ring step's shape (B={B} H={H} {n} queries x {n} keys, d={d}, "
+            f"bf16, no rotary): kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+            f"scaled_dot_product_attention{' backward' if tag == 'k5' else ''} {lib:.4f} ms, "
+            f"bound {bound:.4f} ms ({by}); {flops / ms / 1e9:.1f} TFLOP/s; kernel / library "
+            f"{ms / lib:.3f}")
+    if not (err4 <= BF16_TOL and err5 <= GRAD_TOL["torch.bfloat16"]):
+        raise AssertionError(f"[ring] K4 / K5 at the step shape: err {err4}, {err5}")
+    return [
+        {"name": "flash_attention_with_lse/ring", "route": "cuda",
+         "source": "esm_tpu_torch/csrc/flash_attention.cu",
+         "replaces": "esm_tpu/kernels/flash_attention.py:938", "launches": 0,
+         "max_abs_err": err4, "ms": ms4, "plain_ms": plain4, "bound_ms": bound4,
+         "bound_by": by4, "library_ms": lib4},
+        {"name": "flash_attention_block_bwd", "route": "cuda",
+         "source": "esm_tpu_torch/csrc/flash_attention_bwd.cu",
+         "replaces": "esm_tpu/kernels/flash_attention.py:975", "launches": 0,
+         "max_abs_err": err5, "ms": ms5, "plain_ms": plain5, "bound_ms": bound5,
+         "bound_by": by5, "library_ms": lib5},
+    ]
+
+
+def ring_want(n_layers, ring, step):
+    """Launches of a sequence-parallel forward (``step`` False) or remat
+    "dots" training step on a rank of a ring of ``ring``: K4 once a layer a
+    ring step (twice in a step: the forward and the recompute), K5's two
+    passes once a layer a ring step."""
+    return {"flash_attention": 0, "flash_attention_with_lse": (2 if step else 1) * n_layers * ring,
+            "flash_attention_bwd.dq": n_layers * ring if step else 0,
+            "flash_attention_bwd.dkv": n_layers * ring if step else 0,
+            "triangle_attention_fused": 0, "tri_mul_stage1": 0, "tri_mul_epilogue": 0}
+
+
+def ring_model(device, seed=21):
+    """ESM2-650M (seeded) with the options of the ring runs: bf16 compute,
+    flash, remat "dots" (which only a backward reads)."""
+    import dataclasses
+
+    import torch
+    from esm_tpu_torch import pretrained
+
+    handle, alphabet = pretrained.random_model_and_alphabet("esm2_t33_650M_UR50D", seed=seed,
+                                                            device=device)
+    cfg = dataclasses.replace(handle.cfg, compute_dtype=torch.bfloat16, use_flash=True,
+                              remat=True, remat_policy="dots")
+    return handle.model, cfg, alphabet
+
+
+def ring_tokens(alphabet, b, t, seed, device):
+    """(B, T) bench tokens with <mask> at 5% of the residues, crowded into
+    the first quarter of each row, so that the shards' mask shares differ."""
+    import torch
+
+    toks = bench_tokens(alphabet, b, t - 2, seed=seed)
+    rng = np.random.RandomState(seed)
+    cols = rng.choice(np.arange(1, t // 4), size=(b, t // 20))
+    np.put_along_axis(toks, cols, alphabet.mask_idx, axis=1)
+    return torch.from_numpy(toks).to(device)
+
+
+def ring_run(mesh, model, cfg, tokens, steps, lr_warmup=0):
+    """The main path of [ring] on ``mesh``: apply_seq_sharded, then step 0's
+    loss and gradients through training.seq_loss_and_grads, then ``steps``
+    train_step_seq_corrupted steps, each window's launch counts read alone;
+    beside them the one-card forward and step-0 gradients on the same batch
+    (this rank's shard of them). Returns a dict of results."""
+    import dataclasses
+
+    import torch
+    from esm_tpu_torch import training
+    from esm_tpu_torch.models import esm2
+    from esm_tpu_torch.parallel.mesh import local_shard
+
+    ring = mesh.size(mesh.mesh_dim_names.index("tp"))
+    res = {"ring": ring}
+    with torch.no_grad():
+        # warm-up calls first: the ring's first call also sets up NCCL's
+        # communicators
+        esm2.apply_seq_sharded(model, cfg, tokens, mesh=mesh)
+        esm2.apply(model, cfg, tokens)
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        logits = esm2.apply_seq_sharded(model, cfg, tokens, mesh=mesh)["logits"]
+        torch.cuda.synchronize()
+        res["forward_s"] = time.perf_counter() - t0
+        res["forward_counts"] = read_counts()
+        t0 = time.perf_counter()
+        whole = esm2.apply(model, cfg, tokens)["logits"]
+        torch.cuda.synchronize()
+        res["one_card_forward_s"] = time.perf_counter() - t0
+        want = local_shard(whole, mesh)
+        prev = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:  # an fp32 one-card forward: what both bf16 routes are held to
+            f32 = local_shard(esm2.apply(model, dataclasses.replace(
+                cfg, compute_dtype=torch.float32), tokens)["logits"], mesh)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = prev
+    agree = lambda a, b: (a.argmax(-1) == b.argmax(-1)).float().mean().item()
+    res["logits_scale"] = want.abs().max().item()
+    res["logits_err"] = (logits - want).abs().max().item()
+    res["argmax_agree"] = agree(logits, want)
+    res["f32_err"] = (logits.float() - f32).abs().max().item()
+    res["one_card_f32_err"] = (want.float() - f32).abs().max().item()
+    res["f32_agree"], res["one_card_f32_agree"] = agree(logits, f32), agree(want, f32)
+    res["logits_finite"] = bool(torch.isfinite(logits).all())
+    del logits, whole, want, f32
+
+    corrupted, target_mask = training._corrupt_batch(
+        cfg, torch.Generator(device=tokens.device).manual_seed(23), tokens)
+    batch = (corrupted, tokens, target_mask)
+    model.zero_grad(set_to_none=True)
+    zero_counts()
+    metrics = training.seq_loss_and_grads(model, cfg, *batch, mesh=mesh)
+    torch.cuda.synchronize()
+    res["step_counts"] = read_counts()
+    res["ring_loss"] = metrics["loss"].item()
+    g_ring = {n: p.grad.detach().clone() for n, p in model.named_parameters()
+              if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    res["one_card_loss"], g_one = grads_of(model, cfg, batch)
+    cos, name, ratio = grad_agreement(g_ring, g_one, names=lambda n: n.endswith("weight"))
+    res.update(grad_cos=cos, grad_cos_name=name, grad_norm_ratio=ratio)
+    del g_ring, g_one
+    torch.cuda.empty_cache()
+
+    tx = training.make_optimizer(TRAIN_LR, warmup_steps=lr_warmup, total_steps=1000)
+    state = training.init_state(model, tx)
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs = [], []
+    zero_counts()
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, m = training.train_step_seq_corrupted(state, cfg, tx, *batch, mesh=mesh)
+        losses.append(m["loss"].item())  # synchronises
+        secs.append(time.perf_counter() - t0)
+    res["train_counts"] = read_counts()
+    res.update(losses=losses, step_s=secs, peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    one_card = []  # the same steps on one card, on the whole batch, for their time
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, m = training.train_step_corrupted(state, cfg, tx, *batch)
+        m["loss"].item()
+        one_card.append(time.perf_counter() - t0)
+    res["one_card_step_s"] = one_card
+    del state, tx
+    torch.cuda.empty_cache()
+    return res
+
+
+def check_ring_run(tag, res, n_layers, steps, falling):
+    """Raises unless a ring_run result holds: exact launch counts in each
+    window; the forward within 5% of the largest logit of the one-card bf16
+    forward and, against an fp32 forward, no further than 1.5x the one-card
+    bf16 forward ([main]'s bounds) with an argmax agreement no more than
+    0.02 below the one-card forward's (two bf16 routes that round in other
+    places disagree with each other more than either does with fp32);
+    step-0 gradients as [train] holds flash to exact; the loss within
+    RING_LOSS_TOL; finite (with ``falling``, falling) losses."""
+    ring = res["ring"]
+    fwd, step = ring_want(n_layers, ring, False), ring_want(n_layers, ring, True)
+    per_step = {k: v / steps for k, v in res["train_counts"].items()}
+    log(f"[ring] {tag}: forward {res['forward_s'] * 1e3:.1f} ms (one card "
+        f"{res['one_card_forward_s'] * 1e3:.1f} ms), logits vs the one-card forward max abs err "
+        f"{res['logits_err']:.4f} (max |logit| {res['logits_scale']:.2f}), argmax agreement "
+        f"{res['argmax_agree']:.5f}; vs an fp32 forward: ring {res['f32_err']:.4f} / agreement "
+        f"{res['f32_agree']:.5f}, one card {res['one_card_f32_err']:.4f} / "
+        f"{res['one_card_f32_agree']:.5f}; launches {res['forward_counts']}")
+    log(f"[ring] {tag}: step-0 loss ring {res['ring_loss']:.5f} one card "
+        f"{res['one_card_loss']:.5f}; gradients lowest cosine {res['grad_cos']:.5f} "
+        f"({res['grad_cos_name']}), norm ratio {res['grad_norm_ratio']:.5f}; launches "
+        f"{res['step_counts']}")
+    log(f"[ring] {tag}: {steps} train_step_seq steps, losses "
+        + ", ".join(f"{x:.5f}" for x in res["losses"]) + "; ms a step "
+        + ", ".join(f"{s * 1e3:.1f}" for s in res["step_s"])
+        + " (one card, the whole batch: "
+        + ", ".join(f"{s * 1e3:.1f}" for s in res["one_card_step_s"])
+        + f"); peak over the ring steps {res['peak_gb']:.2f} GB; launches a step {per_step}")
+    failed = []
+    if res["forward_counts"] != fwd:
+        failed.append(f"forward launches {res['forward_counts']} != {fwd}")
+    if res["step_counts"] != step or per_step != step:
+        failed.append(f"step launches {res['step_counts']}, {per_step} != {step}")
+    if not (res["logits_finite"] and res["logits_err"] <= 0.05 * res["logits_scale"]
+            and res["f32_err"] <= 1.5 * res["one_card_f32_err"]
+            and res["f32_agree"] >= res["one_card_f32_agree"] - 0.02):
+        failed.append("logits off the one-card and fp32 forwards")
+    if not (res["grad_cos"] >= 0.99 and abs(res["grad_norm_ratio"] - 1) <= 0.05):
+        failed.append("gradients off the one-card step's")
+    if not abs(res["ring_loss"] - res["one_card_loss"]) <= RING_LOSS_TOL * abs(
+            res["one_card_loss"]):
+        failed.append("step-0 loss off the one-card step's")
+    losses = res["losses"]
+    if not (np.isfinite(losses).all() and (not falling or losses[-1] < losses[0])):
+        failed.append(f"losses {losses}")
+    if failed:
+        raise AssertionError(f"[ring] {tag}: " + "; ".join(failed))
+
+
+def ring_rank(rank, world, port, out_dir):
+    """One rank of [ring]'s several-card part (spawned, one per card)."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    from esm_tpu_torch.models import esm2
+    from esm_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=world,
+                            rank=rank, timeout=datetime.timedelta(seconds=RING_TIMEOUT))
+    try:
+        mesh = make_mesh(MeshConfig(1, 1, world))
+        model, cfg, alphabet = ring_model(f"cuda:{rank}")
+        with torch.no_grad():
+            for p in model.parameters():  # one set of weights on every rank
+                dist.broadcast(p, src=0)
+        tokens = ring_tokens(alphabet, 1, RING_MULTI_T, seed=22, device=f"cuda:{rank}")
+        res = ring_run(mesh, model, cfg, tokens, steps=3)
+        res["n_layers"] = len(model.layers)
+        with torch.no_grad():  # every rank runs the forward; rank 0 under the profiler
+            forward = lambda: esm2.apply_seq_sharded(model, cfg, tokens, mesh=mesh)
+            if rank == 0:
+                profile(f"one ring forward, rank 0 of {world}, B=1 x {RING_MULTI_T}", forward,
+                        top=10)
+            else:
+                forward()
+                torch.cuda.synchronize()
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def ring_several_cards(n_cards):
+    """One NCCL rank per card (the largest power of two not above the card
+    count): ESM2-650M at B=1 x RING_MULTI_T over the ring."""
+    import torch.multiprocessing as mp
+
+    world = 1 << (n_cards.bit_length() - 1)
+    with tempfile.TemporaryDirectory() as out_dir:
+        ctx = mp.start_processes(ring_rank, args=(world, free_port(), out_dir), nprocs=world,
+                                 join=False, start_method="spawn")
+        deadline = time.monotonic() + RING_TIMEOUT
+        while not ctx.join(timeout=5):  # raises when a rank fails
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                raise AssertionError(f"[ring] the {world} ranks did not end in {RING_TIMEOUT} s")
+        results = []
+        for rank in range(world):
+            with open(os.path.join(out_dir, f"rank{rank}.json")) as f:
+                results.append(json.load(f))
+    for rank, res in enumerate(results):
+        check_ring_run(f"{world} cards, rank {rank}, T={RING_MULTI_T}", res, res["n_layers"],
+                       steps=3, falling=True)
+    return world, results
+
+
+def phase_ring(card):
+    """Sequence parallelism: the K4/K5 block check; ESM2-650M through
+    apply_seq_sharded and train_step_seq on a one-rank NCCL group of this
+    card; with two or more cards, a ring over one rank per card."""
+    import torch
+    import torch.distributed as dist
+    from esm_tpu_torch.models import esm2
+    from esm_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+
+    t_phase = time.perf_counter()
+    entries = ring_block_check(torch.Generator(device="cuda").manual_seed(20))
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", world_size=1,
+                            rank=0)
+    try:
+        mesh = make_mesh(MeshConfig(1, 1, 1))
+        model, cfg, alphabet = ring_model("cuda")
+        n_layers = len(model.layers)
+        tokens = ring_tokens(alphabet, 2, RING_T, seed=22, device="cuda")
+        res = ring_run(mesh, model, cfg, tokens, steps=2)
+        check_ring_run(f"one-rank NCCL group on {card}, B=2 x {RING_T}", res, n_layers, steps=2,
+                       falling=False)
+        with torch.no_grad():
+            profile(f"one ring forward, a one-rank group, B=2 x {RING_T}",
+                    lambda: esm2.apply_seq_sharded(model, cfg, tokens, mesh=mesh), top=10)
+        del model
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    windows = ("forward_counts", "step_counts", "train_counts")
+    k4_launches = sum(res[w]["flash_attention_with_lse"] for w in windows)
+    k5_launches = sum(res[w]["flash_attention_bwd.dq"] for w in windows)
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        world, results = ring_several_cards(n_cards)
+        log(f"[ring] ran: the block check, a one-rank NCCL group, and a ring of {world} ranks "
+            f"over {n_cards} cards (T={RING_MULTI_T})")
+    else:
+        log("[ring] ran: the block check and a one-rank NCCL group (one card present: no "
+            "multi-card ring)")
+    entries[0]["launches"], entries[1]["launches"] = k4_launches, k5_launches
+    log(f"[ring] took {time.perf_counter() - t_phase:.1f} s; K4 {k4_launches} and K5 "
+        f"{k5_launches} launches on the one-rank main path (a forward, step 0's gradients and "
+        f"2 steps)")
+    return entries
+
+
+def phase_fasta():
+    """The native FASTA loader (esm_tpu_torch.native, built with g++ here):
+    a seeded 20,000-record file parsed natively and by the Python loop
+    (equal records, both timed), and the bulk tokenizer against the
+    BatchConverter."""
+    from esm_tpu_torch import native
+    from esm_tpu_torch.data import Alphabet, FastaBatchedDataset
+
+    t0 = time.perf_counter()
+    if not native.available():
+        raise AssertionError("[fasta] the native FASTA loader did not build (g++)")
+    build_s = time.perf_counter() - t0
+    rng = np.random.RandomState(30)
+    aas = np.frombuffer(b"ACDEFGHIKLMNPQRSTVWY", dtype=np.uint8)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "seqs.fasta")
+        with open(path, "w") as f:
+            for i in range(20_000):
+                s = bytes(aas[rng.randint(0, 20, int(rng.randint(30, 1000)))]).decode()
+                f.write(f">rec{i} seeded\n" + "".join(s[j:j + 60] + "\n"
+                                                      for j in range(0, len(s), 60)))
+        t0 = time.perf_counter()
+        ds = FastaBatchedDataset.from_file(path)
+        native_s = time.perf_counter() - t0
+        parse = native.parse_fasta
+        native.parse_fasta = lambda _: None
+        try:
+            t0 = time.perf_counter()
+            py = FastaBatchedDataset.from_file(path)
+            python_s = time.perf_counter() - t0
+        finally:
+            native.parse_fasta = parse
+    if not (hasattr(ds, "_seq_buf") and ds.sequence_labels == py.sequence_labels
+            and ds.sequence_strs == py.sequence_strs):
+        raise AssertionError("[fasta] native and Python records differ")
+    alphabet = Alphabet.from_architecture("ESM-1b")
+    idx = np.arange(256)
+    want = alphabet.get_batch_converter(1022)([ds[i] for i in idx])[2].numpy()
+    t0 = time.perf_counter()
+    toks = native.tokenize_batch(ds._seq_buf, ds._seq_off, idx, alphabet.byte_lut(),
+                                 truncation=1022, bos=alphabet.cls_idx, eos=alphabet.eos_idx,
+                                 pad=alphabet.padding_idx, stride=want.shape[1])
+    tok_s = time.perf_counter() - t0
+    if toks is None or not np.array_equal(toks, want):
+        raise AssertionError("[fasta] tokenize_batch differs from the BatchConverter")
+    log(f"[fasta] native loader built/loaded in {build_s:.2f} s; 20,000 records "
+        f"({sum(len(s) for s in ds.sequence_strs)} residues): native {native_s:.3f} s, Python loop {python_s:.3f} s, records equal; tokenize_batch "
+        f"of 256 records {tok_s * 1e3:.2f} ms, equal to the BatchConverter")
 
 
 def phase_cli():
@@ -4336,13 +4807,28 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import esm_tpu_torch  # noqa: F401  (fails when run without the repo)
 
+    only_ring = sys.argv[1:] == ["--only", "ring"]  # [ring] alone (e.g. on 4 cards)
+    if sys.argv[1:] and not only_ring:
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]} (only '--only ring')",
+              file=sys.stderr)
+        return 2
     t_start = time.perf_counter()
     card, smi = phase_device()
     phase_build()
+    phase_fasta()
+    if only_ring:
+        ring = phase_ring(card)
+        log(f"[summary] [build], [fasta] and [ring] passed in {time.perf_counter() - t_start:.1f} s")
+        log(smi)
+        log(json.dumps({"kernels": ring}))
+        log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,
+                                               "count": torch.cuda.device_count()}}))
+        return 0
     phase_kernels()
     k1 = measure_k1(phase_main(card))
     counts = phase_train(card)
     backward = measure_backward(counts)
+    ring = phase_ring(card)
     phase_cli()
     phase_cli_pretrain()
     fold_counts, fold_handle = phase_fold(card)
@@ -4383,7 +4869,7 @@ def main():
     log(f"[design] [design], [ppl] and [cli-design] took {time.perf_counter() - t_design:.1f} s")
     log(f"[summary] all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(smi)
-    kernels = [k1] + k1_esm1 + backward + [k6] + trimul
+    kernels = [k1] + k1_esm1 + backward + ring + [k6] + trimul
     for entry in kernels:
         lib = entry["library_ms"]
         entry["vs_library"] = entry["ms"] / lib if lib else None

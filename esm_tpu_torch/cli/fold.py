@@ -108,8 +108,8 @@ def run(args):
 
     if args.plan:
         raise NotImplementedError(
-            "--plan: the memory plan (esm_tpu/parallel/memory_plan.py) was fitted to a 16 GB "
-            "TPU chip and is not ported yet (ROADMAP Queue 1, item 13)")
+            "--plan: the mesh memory plan (esm_tpu/parallel/memory_plan.py) must be re-derived "
+            "for the H100 and is not ported yet (ROADMAP Queue 1, item 13b)")
     if args.fp16_lm and args.bf16_lm:
         raise SystemExit("esm-fold: pass at most one of --fp16-lm / --bf16-lm")
     device = pretrained.resolve_device("cpu" if args.cpu_only else None)

@@ -119,17 +119,24 @@ class Alphabet:
             return fast
         return [self.tok_to_idx[tok] for tok in self.tokenize(text)]
 
-    def _encode_fast(self, text: str) -> Optional[List[int]]:
-        """Byte-LUT encoding for plain residue strings; any byte without a
-        single-character token falls back to the exact tokenizer (including
-        its KeyError on unknown residues)."""
-        lut = self._byte_lut
-        if lut is None:
-            lut = np.full(256, -1, dtype=np.int64)
+    def byte_lut(self) -> np.ndarray:
+        """256-entry int32 table from the ASCII byte of each single-character
+        token to its id (-1: no such token); the table of the byte-LUT
+        encoder and of the native bulk tokenizer
+        (``esm_tpu_torch.native.tokenize_batch``)."""
+        if self._byte_lut is None:
+            lut = np.full(256, -1, dtype=np.int32)
             for tok, idx in self.tok_to_idx.items():
                 if len(tok) == 1 and ord(tok) < 256:
                     lut[ord(tok)] = idx
             self._byte_lut = lut
+        return self._byte_lut
+
+    def _encode_fast(self, text: str) -> Optional[List[int]]:
+        """Byte-LUT encoding for plain residue strings; any byte without a
+        single-character token falls back to the exact tokenizer (including
+        its KeyError on unknown residues)."""
+        lut = self.byte_lut()
         try:
             raw = text.encode("ascii")
         except UnicodeEncodeError:

@@ -1,8 +1,9 @@
 """FASTA / alignment IO and token-budget batching.
 
 Port of esm_tpu/data/fasta.py (reference semantics: esm/data.py:19-88,
-339-378). Host-side, pure Python; the JAX package's native parser is not
-carried over, this is its pure-Python path.
+339-378). Host-side. ``FastaBatchedDataset.from_file`` takes the native
+parser (``esm_tpu_torch.native``) when it is built and the file is ASCII,
+and the pure-Python loop otherwise, with the same records.
 """
 
 from __future__ import annotations
@@ -18,6 +19,20 @@ class FastaBatchedDataset:
 
     @classmethod
     def from_file(cls, fasta_file) -> "FastaBatchedDataset":
+        from .. import native
+
+        parsed = native.parse_fasta(fasta_file)
+        if parsed is not None:
+            labels, seq_buf, seq_off = parsed
+            if len(set(labels)) != len(labels):
+                raise AssertionError("Found duplicate sequence labels")
+            # parse_fasta returns pure-ASCII buffers only: bytes are characters
+            sview = seq_buf[: seq_off[-1]].tobytes().decode("ascii")
+            off = seq_off.tolist()
+            ds = cls(labels, [sview[off[i]:off[i + 1]] for i in range(len(labels))])
+            ds._seq_buf, ds._seq_off = seq_buf, seq_off  # for native.tokenize_batch
+            return ds
+
         sequence_labels: List[str] = []
         sequence_strs: List[str] = []
         cur_seq_label: Optional[str] = None

@@ -10,14 +10,18 @@ The forward contract is the reference's:
 state dict loads with ``load_state_dict``. :func:`apply` takes the options
 (compute dtype, flash path) from an explicit ``ESM2Config``, so one set of
 weights serves several configurations (``LMHandle.with_options``).
-Sequence-sharded and pipelined forwards are not ported yet.
+:func:`apply_seq_sharded` is the sequence-parallel forward (the T axis split
+over a mesh dimension, ring attention in every layer); the pipelined
+forward is not ported yet (ROADMAP Queue 1, item 13b).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..data.alphabet import Alphabet
@@ -37,6 +41,7 @@ from ..ops.heads import (
     roberta_lm_head,
     weighted_apc_symmetrize,
 )
+from ..parallel.mesh import local_shard
 from .lm_common import (
     LayerStatic,
     embedding_lookup,
@@ -153,9 +158,21 @@ def init(cfg: ESM2Config, generator: torch.Generator, device=None) -> ESM2:
     return model
 
 
-def embed_tokens(model: ESM2, cfg: ESM2Config, tokens: torch.Tensor) -> torch.Tensor:
+def _sequence_counts(is_mask, padding_mask, ring):
+    """Per-sequence (<mask> count, length), summed over the ring when the
+    sequence is split over it."""
+    counts = torch.stack([is_mask.sum(-1), (~padding_mask).sum(-1)])
+    if ring is not None:
+        mesh, axis_name = ring
+        dist.all_reduce(counts, group=mesh.get_group(axis_name))
+    return counts[0], counts[1]
+
+
+def embed_tokens(model: ESM2, cfg: ESM2Config, tokens: torch.Tensor, ring=None) -> torch.Tensor:
     """Token embedding with mask-token dropout rescale (reference
-    esm/model/esm2.py:84-95). Runs in fp32, returns the compute dtype."""
+    esm/model/esm2.py:84-95). Runs in fp32, returns the compute dtype. With
+    ``ring`` = (mesh, axis_name) ``tokens`` is this rank's block of columns:
+    the rescale's counts are the whole sequence's."""
     padding_mask = tokens == cfg.padding_idx
     x = embedding_lookup(model.embed_tokens.weight, tokens)
 
@@ -163,8 +180,8 @@ def embed_tokens(model: ESM2, cfg: ESM2Config, tokens: torch.Tensor) -> torch.Te
         is_mask = (tokens == cfg.mask_idx)[..., None]
         x = x.masked_fill(is_mask, 0.0)
         mask_ratio_train = 0.15 * 0.8
-        src_lengths = (~padding_mask).sum(-1)
-        mask_ratio_observed = is_mask[..., 0].sum(-1).to(x.dtype) / src_lengths
+        n_mask, src_lengths = _sequence_counts(is_mask[..., 0], padding_mask, ring)
+        mask_ratio_observed = n_mask.to(x.dtype) / src_lengths
         x = x * (1 - mask_ratio_train) / (1 - mask_ratio_observed)[:, None, None]
 
     x = x * (1 - padding_mask[..., None].to(x.dtype))
@@ -180,6 +197,7 @@ def apply(
     return_contacts: bool = False,
     return_representations: bool = False,
     repr_layers=None,
+    ring=None,
 ):
     """Forward pass. tokens: (B, T) integer tensor on the model's device.
 
@@ -196,7 +214,15 @@ def apply(
     regression is accumulated inside the layer loop: the peak is one
     (B, H, T, T) map instead of the reference's (B, L, H, T, T) stack
     (esm/model/esm2.py:133-141).
+
+    ``ring`` = (mesh, axis_name): ``tokens`` is this rank's block of columns
+    of a sequence split over that mesh dimension (see
+    :func:`apply_seq_sharded`); no attention maps or contacts then.
     """
+    if ring is not None and (need_head_weights or return_contacts):
+        raise ValueError(
+            "sequence-parallel (ring) forward cannot materialize T x T attention maps; "
+            "request representations/logits only")
     streaming_contacts = return_contacts and not need_head_weights
     repr_layers = normalize_repr_layers(repr_layers, cfg.num_layers)
     # 1-based mid-stack layer ids collected inside the loop
@@ -207,7 +233,7 @@ def apply(
     )
 
     padding_mask = tokens == cfg.padding_idx
-    x = embed_tokens(model, cfg, tokens)
+    x = embed_tokens(model, cfg, tokens, ring=ring)
     h0 = x
 
     contact_acc = None
@@ -225,7 +251,7 @@ def apply(
         x, hiddens, attn = transformer_stack_apply(
             model.layers,
             x,
-            static=cfg.layer_static(),
+            static=dataclasses.replace(cfg.layer_static(), ring=ring),
             key_padding_mask=padding_mask,
             collect_hiddens=return_representations,
             collect_layer_ids=mid_layers,
@@ -277,6 +303,21 @@ def apply(
             logits_c = logits_c + bias.float()[0]
         result["contacts"] = torch.sigmoid(logits_c)
     return result
+
+
+def apply_seq_sharded(model: ESM2, cfg: ESM2Config, tokens: torch.Tensor, *, mesh,
+                      seq_axis: str = "tp", **kw):
+    """Sequence-parallel forward (esm_tpu/models/esm2.py:265): every rank of
+    ``mesh`` passes the same full (B, T) tokens and gets its own shard of each
+    output: its rows of B over the mesh's other dimensions and its T/N
+    columns over ``seq_axis``, as :func:`parallel.mesh.local_shard` cuts them
+    (logits (B', T/N, V); representations (L+1, B', T/N, D), or a dict of
+    (B', T/N, D)). Every attention runs as a ring with key/value blocks
+    rotating between the ranks (parallel/ring_attention.py), so activations
+    and attention state are O(T/N) per rank. T must divide by the
+    ``seq_axis`` size. Attention maps and contacts raise (they are T x T)."""
+    local = local_shard(tokens, mesh, seq_axis=seq_axis)
+    return apply(model, cfg, local, ring=(mesh, seq_axis), **kw)
 
 
 def _stack_with_streaming_contacts(

@@ -207,11 +207,12 @@ def apply(
 
 
 def apply_sharded(*args, **kwargs):
-    """esm_tpu's multi-device fold (ring-attention LM, sharded pair tensor)
-    is not ported yet (ROADMAP Queue 1, items 6 and 13)."""
+    """esm_tpu's multi-device fold (the ring-attention LM with the sharded
+    pair tensor, ``pair_spec``) is not ported yet: it waits for parameter
+    sharding (ROADMAP Queue 1, item 13b)."""
     raise NotImplementedError(
-        "apply_sharded: the sequence-parallel LM and the sharded pair tensor are not ported "
-        "yet (ROADMAP Queue 1, items 6 and 13)")
+        "apply_sharded: the sharded fold (pair_spec) is not ported yet (ROADMAP Queue 1, "
+        "item 13b)")
 
 
 # ---------------------------------------------------------------------------
@@ -278,10 +279,11 @@ def batch_encode_sequences(
 # in esm_tpu, where it is the serving and CLI bucket.
 FOLD_LENGTH_BUCKET = 64
 
-# infer()'s frugal=None default: drop the O(L²) diagnostics when holding them
-# would cost more than 1.5 GB (1284 bytes per (i, j) pair). The threshold was
-# chosen in esm_tpu for a 16 GB chip; it is kept so that both packages return
-# the same keys (ROADMAP: to re-fit for 80 GB).
+# infer()'s frugal=None default: drop the O(L²) diagnostics when they would
+# hold more than 1.5 GB (1284 bytes per (i, j) pair). This is esm_tpu's
+# output contract (esm_tpu/models/esmfold/esmfold.py:395-398), not a memory
+# figure of this card: which keys infer returns must not depend on the card,
+# so both packages return the same keys for the same batch and length.
 _AUTO_FRUGAL_HELD_BYTES = 1_500_000_000
 _NON_FRUGAL_BYTES_PER_PAIR = 1284
 

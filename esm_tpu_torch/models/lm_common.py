@@ -56,6 +56,11 @@ class LayerStatic:
     # elementwise work and attention); "full" saves nothing but the layer
     # input (least memory, about a third more operations).
     remat_policy: str = "dots"
+    # Sequence parallelism: (DeviceMesh, axis name) splits the T axis over
+    # that mesh dimension and runs attention as a ring
+    # (parallel/ring_attention.py). Under remat the recompute runs the ring's
+    # forward again, so every rank of the ring must issue it in step.
+    ring: Optional[tuple] = None
 
 
 # The matrix products a "dots" layer keeps (dispatcher-level ops: nn.Linear
@@ -147,6 +152,7 @@ def transformer_layer_apply(
         use_bias_kv=static.use_bias_kv,
         need_weights=need_head_weights,
         use_flash=static.use_flash,
+        ring=static.ring,
     )
     x = residual + attn_out
 

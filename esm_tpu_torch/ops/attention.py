@@ -7,6 +7,10 @@ batch-major (B, T, D), with two execution paths:
   * ``flash``: kernel K1 (esm_tpu_torch/kernels/flash_attention.py, rotary
     folded in), used when attention maps are not needed; differentiable,
     with kernel K2 as its backward.
+  * ``ring``: sequence parallelism (esm_tpu/ops/attention.py:186-208): the
+    rows are this rank's block of the sequence, rotated at their global
+    positions, and attention runs as a ring over a mesh dimension
+    (parallel/ring_attention.py; with ``use_flash``, kernels K4 and K5).
 
 ESM-1's bias_kv (esm_tpu/ops/attention.py:171-182; reference
 esm/multihead_attention.py:263-278) appends one learned key/value row to the
@@ -95,12 +99,15 @@ def multihead_attention(
 
     attn_mask: optional additive (T, S) mask broadcast over batch and heads.
     ``use_bias_kv`` (ESM-1) appends ``attn.bias_k``/``bias_v`` as one more
-    key/value row that is never masked. ``ring`` (sequence parallelism) is
-    not ported yet and raises.
+    key/value row that is never masked. ``ring`` = (mesh, axis_name) runs
+    sequence parallelism: ``x`` and ``key_padding_mask`` are this rank's
+    block of T/N rows of the sequence, the rotary takes the rows' global
+    positions, and attention runs as a ring (parallel/ring_attention.py;
+    ``use_flash`` selects kernels K4/K5 inside each ring step).
     """
-    if ring is not None:
-        raise NotImplementedError(
-            "ring attention is multi-GPU work, not ported yet (ROADMAP Queue 1, item 13)")
+    if ring is not None and (use_bias_kv or need_weights or attn_mask is not None):
+        raise ValueError("ring attention takes no bias_kv key (S = T + 1), no attention "
+                         "mask and returns no attention maps")
 
     b, t, d = x.shape
     head_dim = d // num_heads
@@ -120,6 +127,24 @@ def multihead_attention(
     q = _split_heads(q, num_heads)  # (B, H, T, Dh)
     k = _split_heads(k, num_heads)  # (B, H, S, Dh)
     v = _split_heads(v, num_heads)
+
+    if ring is not None:
+        from ..kernels.flash_attention import _rotate_f32
+        from ..parallel.ring_attention import ring_attention
+
+        mesh, axis_name = ring
+        if use_rotary:
+            # this rank holds global rows offset .. offset + t - 1; K4 has no
+            # rotary, so the rotation runs here (esm_tpu/ops/attention.py:186-192),
+            # in fp32 and rounded once, as K1's prologue rotates (esm_tpu rounds
+            # the tables to the compute dtype first; the same in fp32)
+            offset = mesh.get_local_rank(axis_name) * t
+            cos, sin = rotary_tables(offset + t, head_dim, device=x.device)
+            q = _rotate_f32(q, cos[offset:], sin[offset:])
+            k = _rotate_f32(k, cos[offset:], sin[offset:])
+        out = ring_attention(q, k, v, mesh, axis_name=axis_name,
+                             key_padding_mask=key_padding_mask, use_flash=use_flash)
+        return AttentionOutput(linear(attn.out_proj, _merge_heads(out)), None)
 
     if use_flash and not need_weights and attn_mask is None:
         from ..kernels.flash_attention import flash_attention

@@ -13,7 +13,7 @@ behind an ``LMHandle``, or into ``GVPTransformerModel`` (ESM-IF1) behind an
 ``IFHandle``. ``load_esmfold`` reads an esmfold ``.pt`` and its LM into an
 ``ESMFoldHandle``. A registry name resolves only from the local cache
 (``ESM_TPU_CACHE``, default ``~/.cache/esm_tpu/checkpoints``): downloading
-is not ported. ``random_model_and_alphabet`` builds any registered model at
+is not ported (there is no network). ``random_model_and_alphabet`` builds any registered model at
 its released size with seeded random weights.
 
 Device: every entry point runs on CUDA unless the caller passes
@@ -409,12 +409,13 @@ def cache_dir() -> Path:
 
 
 def load_model_and_alphabet_hub(model_name: str, device=None):
-    """A registry name, from the local cache only (downloading is not ported)."""
+    """A registry name, from the local cache only: the port downloads
+    nothing (esm_tpu's downloader, cli/download.py, is not ported)."""
     path = cache_dir() / f"{model_name}.pt"
     if not path.exists():
         raise FileNotFoundError(
-            f"{model_name}: {path} is not in the local cache, and downloading "
-            "checkpoints is not ported yet"
+            f"{model_name}: {path} is not in the local cache (ESM_TPU_CACHE), and "
+            "downloading is not ported: the port reads checkpoints from the cache only"
         )
     return load_model_and_alphabet_local(path, device=device)
 
@@ -555,8 +556,8 @@ class ESMFoldHandle:
         with flash raises: K1 has no float16 path."""
         if "pair_spec" in trunk_updates:
             raise NotImplementedError(
-                "pair_spec: the sharded pair tensor is multi-GPU work, not ported yet "
-                "(ROADMAP Queue 1, item 13)")
+                "pair_spec: the sharded pair tensor waits for parameter sharding, not ported "
+                "yet (ROADMAP Queue 1, item 13b)")
         cfg = self.cfg
         lm = {k: v for k, v in (("compute_dtype", lm_dtype), ("use_flash", use_flash))
               if v is not None}
@@ -604,7 +605,8 @@ def load_esmfold(path_or_name: str, fast: bool = False, device=None) -> ESMFoldH
         path = cache_dir() / f"{name}.pt"
         if not path.exists():
             raise FileNotFoundError(f"{name}: {path} is not in the local cache, and "
-                                    "downloading checkpoints is not ported yet")
+                                    "downloading is not ported: the port reads "
+                                    "checkpoints from the cache only")
     model_data = torch.load(str(path), map_location="cpu", weights_only=False)
     ck = model_data["cfg"]["model"]
     lm_handle, alphabet = load_model_and_alphabet_hub(ESM_REGISTRY_FOR_FOLD[ck.esm_type],

@@ -1,7 +1,7 @@
 """Training: masked-LM steps for the language models, LoRA, ESM-IF1, ESMFold.
 
-Port of esm_tpu/training.py (:22-516 apart from the sequence-parallel and
-pipelined steps): BERT-style 15% masking (80% <mask> / 10% random
+Port of esm_tpu/training.py (:22-541 apart from the pipelined step):
+BERT-style 15% masking (80% <mask> / 10% random
 residue / 10% kept), cross-entropy on the masked positions, AdamW with a
 warmup-cosine schedule or adafactor, exact gradient accumulation and
 masked-perplexity evaluation; the MSA Transformer's step
@@ -10,7 +10,8 @@ masked-perplexity evaluation; the MSA Transformer's step
 teacher-forced sequence step (:func:`train_step_if`); ESMFold's structure
 fine-tuning against its frozen LM (:func:`train_step_fold`,
 :func:`train_step_fold_lora`; the AF2 backbone losses of
-``models/esmfold/losses.py``).
+``models/esmfold/losses.py``); the sequence-parallel step over a mesh
+(:func:`train_step_seq`: ring attention, ``torch.distributed``).
 
 What differs from the JAX package, and why:
   * The parameters live in the module (fp32 master weights, or a LoRA
@@ -33,24 +34,28 @@ What differs from the JAX package, and why:
   * ESMFold's LM is frozen in place (:func:`split_fold_params` sets its
     ``requires_grad`` off), where esm_tpu passes it to the step as a
     separate tree; the optimizers cover the parameters that require grad.
-  * Not ported yet (ROADMAP Queue 1): the sequence-parallel and pipelined
-    steps.
+  * The sequence-parallel step keeps the parameters replicated on every
+    rank and all-reduces their gradients (parameter sharding is not ported
+    yet). Not ported yet (ROADMAP Queue 1, item 13b): the pipelined step.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 from dataclasses import dataclass, fields
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from . import lora as _lora
 from .io.from_jax import jax_leaf
 from .models import esm2
+from .parallel.mesh import local_shard
 
 
 @dataclass
@@ -524,6 +529,65 @@ def train_step_accum(state: TrainState, cfg: esm2.ESM2Config, tx,
     corrupted, target_mask = _corrupt_batch(cfg, generator, tokens)
     return train_step_corrupted(state, cfg, tx, corrupted, tokens, target_mask,
                                 accum_steps=accum_steps)
+
+
+def seq_loss_and_grads(model: nn.Module, cfg: esm2.ESM2Config, corrupted: torch.Tensor,
+                       targets: torch.Tensor, target_mask: torch.Tensor, *, mesh,
+                       seq_axis: str = "tp") -> dict:
+    """The masked-LM loss of a full (B, T) batch that every rank of ``mesh``
+    holds, run sequence-parallel: each rank keeps its shard (its rows over
+    the mesh's other dimensions, its T/N columns over ``seq_axis``) and runs
+    :func:`esm2.apply_seq_sharded`'s ring. The NLL sum and the counts are
+    summed over all ranks before the division, and each parameter's
+    ``.grad`` is left holding the gradient of the whole batch's loss, summed
+    over all ranks (every rank's local loss reaches the other ranks' keys
+    and values through the backward ring). Returns the metrics."""
+    shard = lambda x: local_shard(x, mesh, seq_axis=seq_axis)
+    nll_w, correct, w = _mlm_terms(model, cfg, shard(corrupted), shard(targets),
+                                   shard(target_mask),
+                                   functools.partial(esm2.apply, ring=(mesh, seq_axis)))
+    nll_sum = nll_w.sum()
+    sums = torch.stack([nll_sum.detach(), correct.sum(), w.sum()])
+    dist.all_reduce(sums)
+    denom = sums[2].clamp_min(1.0)
+    (nll_sum / denom).backward()
+    works = [dist.all_reduce(p.grad, async_op=True)
+             for p in model.parameters() if p.grad is not None]
+    for work in works:
+        work.wait()
+    return {"loss": sums[0] / denom, "acc": sums[1] / denom, "num_masked": sums[2]}
+
+
+def train_step_seq_corrupted(state: TrainState, cfg: esm2.ESM2Config, tx,
+                             corrupted: torch.Tensor, targets: torch.Tensor,
+                             target_mask: torch.Tensor, *, mesh,
+                             seq_axis: str = "tp") -> Tuple[TrainState, dict]:
+    """:func:`train_step_seq` on a given full-batch corruption (the same on
+    every rank): :func:`seq_loss_and_grads`, then one optimizer update of the
+    replicated parameters, which every rank makes alike (the global-norm
+    clip sees the whole gradient)."""
+    model = state.model
+    model.zero_grad(set_to_none=True)
+    metrics = seq_loss_and_grads(model, cfg, corrupted, targets, target_mask, mesh=mesh,
+                                 seq_axis=seq_axis)
+    tx.update(model, state.opt_state)
+    model.zero_grad(set_to_none=True)
+    return TrainState(model, state.opt_state, state.step + 1), metrics
+
+
+def train_step_seq(state: TrainState, cfg: esm2.ESM2Config, tx, generator: torch.Generator,
+                   tokens: torch.Tensor, *, mesh, seq_axis: str = "tp") -> Tuple[TrainState, dict]:
+    """Sequence-parallel MLM step (esm_tpu/training.py:522): the same
+    objective and gradients as :func:`train_step` on the full batch, with
+    the T axis split over ``mesh``'s ``seq_axis`` and ring attention, so
+    activations are O(T/N) per rank. Every rank passes the same tokens and a
+    ``generator`` in the same state, so all draw the same corruption of the
+    full batch, then keep their shards. The parameters stay replicated on
+    every rank (parameter sharding is not ported yet): until it is, the
+    mesh's ``fsdp`` dimension splits the batch as ``data`` does."""
+    corrupted, target_mask = _corrupt_batch(cfg, generator, tokens)
+    return train_step_seq_corrupted(state, cfg, tx, corrupted, tokens, target_mask, mesh=mesh,
+                                    seq_axis=seq_axis)
 
 
 def train_step_msa(state: TrainState, cfg, tx, generator: torch.Generator,

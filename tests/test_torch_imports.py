@@ -4,7 +4,8 @@
     reader, the inverse-folding CLIs, ``lora`` and ``quantization``, the
     fold losses, the metrics, the structural dataset, the profiling
     utilities, the examples, the server, the fold memory plan, the serving
-    CLI, the design apps and their examples among them), pulls in neither
+    CLI, the design apps and their examples, the mesh, ring attention, the
+    hub entry points and the NaN checks among them), pulls in neither
     ``jax``, ``optax`` nor ``esm_tpu`` (checked in a fresh interpreter);
   * no source file of the port, nor chip_smoke.py, imports ``jax``,
     ``optax`` or ``esm_tpu``;
@@ -42,7 +43,9 @@ def test_import_leaves_out_jax_and_esm_tpu():
         "        'esm_tpu_torch.apps.ppl.folding', 'esm_tpu_torch.apps.ppl.optimize',\n"
         "        'esm_tpu_torch.apps.ppl.energy', 'esm_tpu_torch.apps.ppl.geometry',\n"
         "        'esm_tpu_torch.examples.lm_design_fixedbb',\n"
-        "        'esm_tpu_torch.examples.ppl_two_level_multimer'} <= set(sys.modules)\n"
+        "        'esm_tpu_torch.examples.ppl_two_level_multimer',\n"
+        "        'esm_tpu_torch.parallel.mesh', 'esm_tpu_torch.parallel.ring_attention',\n"
+        "        'esm_tpu_torch.hubconf', 'esm_tpu_torch.utils.debug'} <= set(sys.modules)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'optax', 'esm_tpu'))\n"
         "assert not bad, bad\n"
     )
@@ -80,7 +83,7 @@ def no_cuda():
      "random_esm1", "random_msa", "predict_variants", "random_if1", "if_sample",
      "if_score", "pretrain_lora", "extract_int8", "esmfold_finetune", "ss_finetune",
      "int8_15b", "contact_prediction", "sm_only", "serve", "serve_memory", "lm_design",
-     "ppl_free_hallucination", "ppl_fixed_backbone"],
+     "ppl_free_hallucination", "ppl_fixed_backbone", "make_mesh", "init_multihost", "hub"],
 )
 def test_entry_points_without_device_raise_when_cuda_absent(no_cuda, entry, tmp_path):
     from esm_tpu_torch import pretrained
@@ -150,6 +153,18 @@ def test_entry_points_without_device_raise_when_cuda_absent(no_cuda, entry, tmp_
             (tmp_path / "t.pdb").write_text(
                 "ATOM      1  CA  ALA A   1       0.000   0.000   0.000  1.00  0.00           C\n")
             ex.run(ex.create_parser().parse_args([str(tmp_path / "t.pdb"), "--steps", "1"]))
+        elif entry in ("make_mesh", "init_multihost"):
+            from esm_tpu_torch.parallel import mesh
+            getattr(mesh, entry)()
+        elif entry == "hub":
+            from esm_tpu_torch.io.export import save_esm2
+            from esm_tpu_torch.models import esm2
+            cfg = esm2.ESM2Config(num_layers=1, embed_dim=32, attention_heads=2)
+            save_esm2(esm2.init(cfg, torch.Generator(), device="cpu"),
+                      tmp_path / "esm2_t6_8M_UR50D.pt")
+            with pytest.MonkeyPatch.context() as mp:
+                mp.setenv("ESM_TPU_CACHE", str(tmp_path))
+                torch.hub.load(str(PKG), "esm2_t6_8M_UR50D", source="local")
         elif entry == "sm_only":
             pretrained.esmfold_structure_module_only_8M()
         elif entry in ("pretrain", "pretrain_lora"):

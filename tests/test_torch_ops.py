@@ -199,8 +199,9 @@ def test_multihead_attention(use_flash, need_weights):
 
 def test_bias_kv_and_ring_are_not_ported():
     """bias_kv attention (ESM-1) is ported now: the appended key shows as
-    one more probability column; ring attention still raises, naming its
-    ROADMAP item."""
+    one more probability column. Ring attention is ported too
+    (tests/test_torch_ring.py), but not with a bias_kv key (S = T + 1) or
+    attention maps: those raise before any rank is contacted."""
     attn = tatt.SelfAttention(16, 2, use_bias_kv=True)
     torch.nn.init.normal_(attn.bias_k)
     torch.nn.init.normal_(attn.bias_v)
@@ -211,5 +212,7 @@ def test_bias_kv_and_ring_are_not_ported():
                                           need_weights=True)
     assert out.shape == (1, 3, 16) and probs.shape == (1, 2, 3, 4)
     torch.testing.assert_close(probs.sum(-1), torch.ones(1, 2, 3))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tatt.multihead_attention(attn, x, num_heads=2, ring=("mesh", "tp"))
+    with pytest.raises(ValueError, match="ring attention takes no bias_kv"):
+        tatt.multihead_attention(attn, x, num_heads=2, use_bias_kv=True, ring=("mesh", "tp"))
+    with pytest.raises(ValueError, match="ring attention"):
+        tatt.multihead_attention(attn, x, num_heads=2, need_weights=True, ring=("mesh", "tp"))
