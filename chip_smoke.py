@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch / CUDA port (esm_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py               # every phase, on one card
-    python3 chip_smoke.py --only ring   # device, build, fasta and ring (e.g. on 4 cards)
+    python3 chip_smoke.py                     # every phase, on one card
+    python3 chip_smoke.py --only ring,shard   # device, build, fasta, then ring and/or
+                                              # shard (e.g. on 4 cards)
 
 Phases, each raising on failure (nothing is caught):
   1. device   — the card's name and power limit;
@@ -64,6 +65,31 @@ Phases, each raising on failure (nothing is caught):
                 two or more cards present, the same at B=1 x 8192 over one
                 NCCL rank per card (a power of two), three steps whose loss
                 falls, each rank held to its own one-card run;
+ 5c. shard    — parameter sharding and the GPipe pipeline on a one-rank NCCL
+                group of this card: ESM2-650M (bf16, flash, remat "dots")
+                through parallel.sharding.shard_params on mesh (1, 1, 1): the
+                B=32 x 1024 forward's logits equal the unsharded flash
+                forward's bit for bit with K1 33 launches; step 0 at B=8 x
+                1024 (training.sharded_loss_and_grads) equal to the
+                unsharded step's loss and gradients bit for bit with 66
+                K1-with-lse and 33 + 33 K2 launches; 3 sharded steps whose
+                loss falls, their peak beside plan_train; apply_pipelined at
+                pp=1, M=4 held to the unsharded forward by [main]'s rule
+                (K1 132 launches) and pp_loss_and_grads' step 0 by PR 14's
+                rule (loss within 1e-3, gradient cosine above 0.999, norm
+                ratio within 1%; 264 K1-with-lse, 132 + 132 K2); an ESM2-3B
+                step at B=8 x 1024, its peak beside plan_train (the act_units
+                that fit both peaks printed); plan_model against the resident
+                bytes; the bf16 GEMM rate at the LM's products (the scaling
+                model's constant); cli.pretrain under torchrun (one process):
+                a stopped and resumed run equal to the straight one bit for
+                bit; examples.esm2_infer_sharded at ESM2-650M. With two or
+                more cards (--only shard on 4): the NCCL all-reduce's bus
+                bandwidth, ESM2-15B's bf16 forward at tp=4 against rank 0's
+                one-card and fp32 forwards ([ring]'s rule), full-parameter AdamW ESM2-15B steps at
+                fsdp=4 (peak beside plan_train), ESM2-3B step 0 at (fsdp, tp)
+                = (2, 2) and ESM2-650M (32 layers) train_step_pp at pp=4,
+                M=8 against one-card steps;
   6. cli      — esm-extract (esm_tpu_torch.cli.extract.run) on the card over a
                 seeded FASTA with an esm2_t6_8M-shaped checkpoint written in
                 the reference layout, its files checked against a CPU
@@ -138,7 +164,7 @@ Phases, each raising on failure (nothing is caught):
  14. cli-variants — esm_tpu_torch.cli.predict_variants on the card against
                 --nogpu runs of the same command: a seeded 250-residue
                 sequence and 40-mutant DMS, an ESM-1v-shaped checkpoint
-                (1280 wide, 6 layers) with wt-marginals, masked-marginals and
+                (1280 wide, 3 layers) with wt-marginals, masked-marginals and
                 pseudo-ppl, an MSA-1b-shaped one (768 wide, 2 layers) with
                 masked-marginals over a seeded 64-row a3m with insertions,
                 the two as an ensemble with --eval-column;
@@ -1547,6 +1573,683 @@ def phase_ring(card):
         f"{k5_launches} launches on the one-rank main path (a forward, step 0's gradients and "
         f"2 steps)")
     return entries
+
+
+# --------------------------------------------------------------------------
+# Parameter sharding and the GPipe pipeline ([shard])
+# --------------------------------------------------------------------------
+
+SHARD_B, SHARD_TRAIN_B = 32, 8   # [main]'s and [train]'s rows (x 1024 tokens)
+SHARD_STEPS = 3
+SHARD_M = 4                      # microbatches of the one-card pipeline checks
+SHARD_3B_B = 8                   # rows of the ESM2-3B step (plan_train: fits)
+SHARD_PP_LOSS_TOL = 1e-3         # pipelined vs one-card step-0 loss, relative
+SHARD_TIMEOUT = 900              # seconds the ranks of the several-card part may take
+SHARD_15B_FWD = (4, 510)         # [shard] tp=4: ESM2-15B bf16 forward, B x L residues
+SHARD_PP_CARDS_M = 8             # pp=4: microbatches of the ESM2-650M step
+
+
+def shard_model(device, name="esm2_t33_650M_UR50D", seed=30, num_layers=None):
+    """A seeded ESM-2 at a released size (``num_layers`` cuts its depth) with
+    [train]'s options: fp32 master weights, bf16 compute, flash, remat "dots"."""
+    import torch
+    from esm_tpu_torch.models import esm2
+    from esm_tpu_torch.pretrained import _esm2_alphabet
+
+    size = dict(esm2.ESM2_SIZES[name])
+    if num_layers is not None:
+        size["num_layers"] = num_layers
+    alphabet = _esm2_alphabet()
+    cfg = esm2.ESM2Config.from_alphabet(alphabet, **size, compute_dtype=torch.bfloat16,
+                                        use_flash=True, remat=True, remat_policy="dots")
+    model = esm2.init(cfg, torch.Generator(device=device).manual_seed(seed), device=device)
+    return model, cfg, alphabet
+
+
+def flash_counts(n_layers, fwd=0, lse=0, bwd=0):
+    return {"flash_attention": fwd * n_layers, "flash_attention_with_lse": lse * n_layers,
+            "flash_attention_bwd.dq": bwd * n_layers, "flash_attention_bwd.dkv": bwd * n_layers,
+            "triangle_attention_fused": 0, "tri_mul_stage1": 0, "tri_mul_epilogue": 0}
+
+
+def timed_s(fn, iters=3):
+    """Host seconds of ``fn`` (synchronised), the mean of ``iters`` after a warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters
+
+
+def fitted_act_units(cfg, peak, plan, b, t):
+    """The act_units that make plan_train's activations the measured peak's
+    rest (peak less parameters, moments and gradients, and the logits)."""
+    d, n = cfg.embed_dim, cfg.num_layers
+    logits = b * t * cfg.alphabet_size * 4
+    rest = peak - plan["params_bytes"] - plan["optimizer_bytes"] - plan["grads_bytes"] - logits
+    return rest / (n * d * t * b * 2)
+
+
+def shard_gemm_rate(card):
+    """The bf16 GEMM rate at the LM's products: ESM2-650M's q/k/v/out, fc1 and
+    fc2 at [train]'s 8 x 1024 tokens (and ESM2-15B's at 1 x 1024), timed with
+    CUDA events; the scaling model's measured constant."""
+    import torch
+    import torch.nn.functional as F
+
+    rates = {}
+    for label, tokens, d in (("ESM2-650M", 8 * 1024, 1280), ("ESM2-15B", 1024, 5120)):
+        gen = torch.Generator(device="cuda").manual_seed(40)
+        flops = ms = 0.0
+        for k_in, n_out, count in ((d, d, 4), (d, 4 * d, 1), (4 * d, d, 1)):
+            x = torch.randn(tokens, k_in, device="cuda", generator=gen).bfloat16()
+            w = torch.randn(n_out, k_in, device="cuda", generator=gen).bfloat16()
+            ms += count * cuda_time_ms(lambda: F.linear(x, w))
+            flops += count * 2 * tokens * k_in * n_out
+        rates[label] = flops / ms / 1e9
+        log(f"[shard] bf16 GEMM rate at {label}'s layer products ({tokens} tokens, "
+            f"F.linear): {rates[label]:.1f} TFLOP/s over {ms:.3f} ms a layer "
+            f"({rates[label] / (H100_BF16_FLOPS / 1e12):.3f} of the published 989; {card})")
+    return rates
+
+
+def shard_one_card(card):
+    """[shard]'s main path on a one-rank NCCL group of this card. Returns the
+    launch counts of its windows and the numbers it printed."""
+    import dataclasses
+
+    import torch
+    from esm_tpu_torch import training
+    from esm_tpu_torch.models import esm2
+    from esm_tpu_torch.parallel import memory_plan
+    from esm_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    from esm_tpu_torch.parallel.pipeline import make_pp_mesh
+    from esm_tpu_torch.parallel.sharding import batch_rows, resident_bytes, shard_params
+
+    model, cfg, alphabet = shard_model("cuda")
+    n = cfg.num_layers
+    fwd_cfg = dataclasses.replace(cfg, remat=False)
+    tokens = torch.from_numpy(bench_tokens(alphabet, SHARD_B, 1022)).cuda()
+    train_toks = torch.from_numpy(bench_tokens(alphabet, SHARD_TRAIN_B, 1022, seed=31)).cuda()
+    corrupted, target_mask = training._corrupt_batch(
+        cfg, torch.Generator(device="cuda").manual_seed(32), train_toks)
+    batch = (corrupted, train_toks, target_mask)
+    res = {}
+
+    # the unsharded model first: its logits, forward time and step-0 gradients
+    with torch.no_grad():
+        whole = esm2.apply(model, fwd_cfg, tokens)["logits"]
+        res["one_card_forward_s"] = timed_s(lambda: esm2.apply(model, fwd_cfg, tokens))
+    loss0, g0 = grads_of(model, cfg, batch)
+    mesh_cfg = MeshConfig(1, 1, 1)
+    planned = memory_plan.plan_model(cfg, mesh_cfg)["per_device_bytes"]
+
+    mesh = make_mesh(mesh_cfg)
+    shard_params(model, mesh)
+    held = resident_bytes(model)
+    log(f"[shard] ESM2-650M sharded on a one-rank NCCL group of {card}, mesh {mesh_cfg.shape}: "
+        f"{held} parameter bytes resident, plan_model {planned}")
+    if held != planned:
+        raise AssertionError(f"[shard] resident {held} != plan_model {planned}")
+
+    with torch.no_grad():
+        zero_counts()
+        logits = esm2.apply(model, fwd_cfg, batch_rows(tokens, mesh))["logits"]
+        torch.cuda.synchronize()
+        res["forward_counts"] = read_counts()
+        res["forward_s"] = timed_s(lambda: esm2.apply(model, fwd_cfg, tokens))
+    res["forward_equal"] = bool(torch.equal(logits, whole))
+    log(f"[shard] forward B={SHARD_B} x 1024 through shard_params: logits equal to the unsharded "
+        f"flash forward bit for bit: {res['forward_equal']}; {res['forward_s'] * 1e3:.1f} ms "
+        f"(unsharded {res['one_card_forward_s'] * 1e3:.1f} ms; [main] "
+        f"{SHARD_B / MEASURED.get('main_seq_s', float('nan')) * 1e3:.1f} ms); launches "
+        f"{res['forward_counts']}")
+    del logits
+
+    model.zero_grad(set_to_none=True)
+    zero_counts()
+    metrics = training.sharded_loss_and_grads(model, cfg, *batch)
+    torch.cuda.synchronize()
+    res["step_counts"] = read_counts()
+    g1 = {n_: p.grad.detach().clone() for n_, p in model.named_parameters()
+          if p.grad is not None and n_ in g0}
+    res["grads_equal"] = g1.keys() == g0.keys() and all(torch.equal(g1[k], g0[k]) for k in g0)
+    res["loss_equal"] = metrics["loss"].item() == loss0
+    model.zero_grad(set_to_none=True)
+    log(f"[shard] step 0 (B={SHARD_TRAIN_B} x 1024, remat dots): loss {metrics['loss'].item():.6f} "
+        f"vs unsharded {loss0:.6f}, equal {res['loss_equal']}; gradients equal bit for bit "
+        f"({len(g0)} tensors): {res['grads_equal']}; launches {res['step_counts']}")
+    del g1
+
+    # the pipeline: one stage, SHARD_M microbatches
+    shard_params(model, make_pp_mesh(1))
+    with torch.no_grad():
+        zero_counts()
+        logits_pp = esm2.apply_pipelined(model, fwd_cfg, tokens,
+                                         num_microbatches=SHARD_M)["logits"]
+        torch.cuda.synchronize()
+        res["pp_forward_counts"] = read_counts()
+        res["pp_forward_s"] = timed_s(lambda: esm2.apply_pipelined(
+            model, fwd_cfg, tokens, num_microbatches=SHARD_M))
+    log(f"[shard] apply_pipelined pp=1, M={SHARD_M}: {res['pp_forward_s'] * 1e3:.1f} ms; "
+        f"launches {res['pp_forward_counts']}")
+    hold_flash("shard", logits_pp, whole)
+    del logits_pp, whole
+    zero_counts()
+    t0 = time.perf_counter()
+    metrics = training.pp_loss_and_grads(model, cfg, *batch, num_microbatches=SHARD_M)
+    torch.cuda.synchronize()
+    res["pp_step_s"] = time.perf_counter() - t0
+    res["pp_step_counts"] = read_counts()
+    g_pp = {n_: p.grad.detach().clone() for n_, p in model.named_parameters()
+            if p.grad is not None and n_ in g0}
+    cos, name, ratio = grad_agreement(g_pp, g0, names=lambda n_: n_.endswith("weight"))
+    res.update(pp_loss=metrics["loss"].item(), pp_cos=cos, pp_ratio=ratio)
+    log(f"[shard] pp_loss_and_grads pp=1, M={SHARD_M}: loss {res['pp_loss']:.6f} vs one card "
+        f"{loss0:.6f}; gradients lowest cosine {cos:.6f} ({name}), norm ratio {ratio:.6f}; "
+        f"{res['pp_step_s'] * 1e3:.1f} ms (host clock, first call); launches "
+        f"{res['pp_step_counts']}")
+    res["loss0"] = loss0
+    del g0, g_pp
+    model.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+
+    # SHARD_STEPS steps on the (1, 1, 1) mesh again, their peak against the plan
+    shard_params(model, mesh)
+    tx = training.make_optimizer(TRAIN_LR, warmup_steps=0, total_steps=1000)
+    state = training.init_state(model, tx)
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs = [], []
+    zero_counts()
+    for _ in range(SHARD_STEPS):
+        t0 = time.perf_counter()
+        state, m = training.train_step_corrupted(state, cfg, tx, *batch)
+        losses.append(m["loss"].item())
+        secs.append(time.perf_counter() - t0)
+    res["train_counts"] = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    plan = memory_plan.plan_train(cfg, mesh_cfg, SHARD_TRAIN_B, 1024)
+    esm_tpu_plan = memory_plan.plan_train(cfg, mesh_cfg, SHARD_TRAIN_B, 1024, act_units=10)
+    res.update(losses=losses, step_s=secs, peak=peak, plan=plan["per_device_bytes"],
+               fit_650m=fitted_act_units(cfg, peak, plan, SHARD_TRAIN_B, 1024))
+    log(f"[shard] {SHARD_STEPS} sharded train steps: losses "
+        + ", ".join(f"{x:.5f}" for x in losses) + "; ms a step "
+        + ", ".join(f"{s * 1e3:.1f}" for s in secs)
+        + f"; peak {peak / 1e9:.3f} GB (max_memory_allocated), plan_train "
+        f"{plan['per_device_bytes'] / 1e9:.3f} GB ({plan['verdict']}; with esm_tpu's activation "
+        f"terms {esm_tpu_plan['per_device_bytes'] / 1e9:.3f} GB); act_units that fit this "
+        f"peak {res['fit_650m']:.2f} (plan: {memory_plan.ACT_UNITS}); launches {res['train_counts']}")
+    del model, state, tx
+    torch.cuda.empty_cache()
+
+    # ESM2-3B: one sharded step that fits, its peak against the plan
+    model, cfg3, alphabet = shard_model("cuda", "esm2_t36_3B_UR50D", seed=33)
+    shard_params(model, make_mesh(mesh_cfg))
+    toks3 = torch.from_numpy(bench_tokens(alphabet, SHARD_3B_B, 1022, seed=34)).cuda()
+    c3, m3 = training._corrupt_batch(cfg3, torch.Generator(device="cuda").manual_seed(35), toks3)
+    tx = training.make_optimizer(TRAIN_LR, warmup_steps=0, total_steps=1000)
+    state = training.init_state(model, tx)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    state, m = training.train_step_corrupted(state, cfg3, tx, c3, toks3, m3)
+    loss3 = m["loss"].item()
+    res["3b_step_s"] = time.perf_counter() - t0
+    res["3b_counts"] = read_counts()
+    peak3 = torch.cuda.max_memory_allocated()
+    plan3 = memory_plan.plan_train(cfg3, mesh_cfg, SHARD_3B_B, 1024)
+    res.update(peak_3b=peak3, plan_3b=plan3["per_device_bytes"],
+               fit_3b=fitted_act_units(cfg3, peak3, plan3, SHARD_3B_B, 1024))
+    log(f"[shard] ESM2-3B ({sum(p.numel() for p in model.parameters()) / 1e6:.1f}M parameters) "
+        f"sharded step B={SHARD_3B_B} x 1024: loss {loss3:.5f}, {res['3b_step_s'] * 1e3:.1f} ms "
+        f"(first step), peak {peak3 / 1e9:.3f} GB, plan_train {plan3['per_device_bytes'] / 1e9:.3f} "
+        f"GB ({plan3['verdict']}); act_units that fit {res['fit_3b']:.2f}; launches "
+        f"{res['3b_counts']}")
+    if not np.isfinite(loss3):
+        raise AssertionError(f"[shard] ESM2-3B step loss {loss3}")
+    del model, state, tx
+    torch.cuda.empty_cache()
+    res["n_layers"], res["n_layers_3b"] = n, cfg3.num_layers
+    return res
+
+
+def check_shard_one_card(res):
+    """Raises unless the one-card [shard] run holds: bit-for-bit forward and
+    step 0, exact launch counts in every window, a falling loss, the
+    pipeline within [main]'s bounds (checked where printed) and PR 14's
+    rule for its step 0."""
+    n = res["n_layers"]
+    failed = []
+    windows = (("forward", res["forward_counts"], flash_counts(n, fwd=1)),
+               ("step 0", res["step_counts"], flash_counts(n, lse=2, bwd=1)),
+               ("train steps", res["train_counts"], flash_counts(n, lse=2 * SHARD_STEPS,
+                                                                  bwd=SHARD_STEPS)),
+               ("pipeline forward", res["pp_forward_counts"], flash_counts(n, fwd=SHARD_M)),
+               ("pipeline step", res["pp_step_counts"], flash_counts(n, lse=2 * SHARD_M,
+                                                                     bwd=SHARD_M)),
+               ("3B step", res["3b_counts"], flash_counts(res["n_layers_3b"], lse=2, bwd=1)))
+    for label, got, want in windows:
+        if got != want:
+            failed.append(f"{label} launches {got} != {want}")
+    if not (res["forward_equal"] and res["loss_equal"] and res["grads_equal"]):
+        failed.append("the one-rank sharded forward or step 0 is not the unsharded one's")
+    losses = res["losses"]
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        failed.append(f"sharded losses {losses}")
+    if not (abs(res["pp_loss"] - res["loss0"]) <= SHARD_PP_LOSS_TOL * abs(res["loss0"])
+            and res["pp_cos"] > 0.999 and abs(res["pp_ratio"] - 1) <= 0.01):
+        failed.append("the pipelined step 0 is off the one-card step's")
+    if failed:
+        raise AssertionError("[shard] " + "; ".join(failed))
+
+
+def shard_entry_points(card):
+    """cli.pretrain under torchrun (one process): 4 steps straight, and 2
+    steps, stopped, then resumed to 4: the saved train states equal bit for
+    bit; examples.esm2_infer_sharded at ESM2-650M on seeded weights."""
+    import torch
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    torchrun = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                "--nproc_per_node", "1"]
+    rng = np.random.RandomState(36)
+    with tempfile.TemporaryDirectory() as tmp:
+        fasta = os.path.join(tmp, "train.fasta")
+        with open(fasta, "w") as f:
+            for i in range(64):
+                seq = "".join(rng.choice(list("ACDEFGHIKLMNPQRSTVWY"), rng.randint(50, 500)))
+                f.write(f">s{i}\n{seq}\n")
+        base = ["-m", "esm_tpu_torch.cli.pretrain", "--fasta", fasta, "--steps", "4",
+                "--log-every", "1", "--warmup-steps", "1", "--remat", "--toks-per-batch", "4096"]
+        runs = {"straight": ["--save-every", "4"],
+                "first half": ["--save-every", "2", "--stop-after", "2"],
+                "resumed": ["--save-every", "4", "--resume"]}
+        example = torchrun + ["-m", "esm_tpu_torch.examples.esm2_infer_sharded", "--random-seed",
+                              "0", "--model", "esm2_t33_650M_UR50D"]
+        launch = lambda argv: subprocess.Popen(  # noqa: E731
+            argv, cwd=here, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        t0 = time.perf_counter()
+        # the straight run, the first half and the example at once (each
+        # launch spends most of its time starting), then the resumed run
+        outs, codes = {}, {}
+
+        def finish(procs):
+            for label, proc in procs.items():
+                outs[label] = proc.communicate(timeout=300)
+                codes[label] = proc.returncode
+
+        pretrain = lambda label, ck: launch(  # noqa: E731
+            torchrun + base + ["--checkpoint-dir", os.path.join(tmp, ck)] + runs[label])
+        finish({"straight": pretrain("straight", "a"), "first half": pretrain("first half", "b"),
+                "example": launch(example)})
+        finish({"resumed": pretrain("resumed", "b")})
+        seconds = time.perf_counter() - t0
+        for label, (stdout, stderr) in outs.items():
+            if codes[label]:
+                raise AssertionError(f"[shard] torchrun {label} failed ({card}):\n"
+                                     f"{stdout[-3000:]}\n{stderr[-3000:]}")
+            if label in runs:
+                for line in stdout.splitlines():
+                    if line.startswith(("mesh", "memory plan", "step", "resumed", "device")):
+                        log(f"[shard] pretrain ({label}): {line}")
+        a, b = (torch.load(os.path.join(tmp, x + "-state", "train_state.pt"), weights_only=True)
+                for x in ("a", "b"))
+        flat = lambda d: {k: v for k, v in d["params"].items()} | {  # noqa: E731
+            f"{m}.{k}": v for m, t in d["opt_state"].items() if isinstance(t, dict)
+            for k, v in t.items()}
+        fa, fb = flat(a), flat(b)
+        equal = (a["step"] == b["step"] == 4 and fa.keys() == fb.keys()
+                 and all(torch.equal(fa[k], fb[k]) for k in fa))
+        log(f"[shard] torchrun cli.pretrain and the example: 4 launches in {seconds:.1f} s (three "
+            f"at once); the resumed run's train state equals the straight run's bit for bit: "
+            f"{equal}")
+        if not equal:
+            raise AssertionError("[shard] the torchrun resume is not bit for bit")
+        stdout, stderr = outs["example"]
+        norms = [float(x) for x in re.findall(r"mean embedding norm: ([0-9.naif]+)", stdout)]
+        for line in stdout.splitlines():
+            log(f"[shard] esm2_infer_sharded: {line}")
+        if len(norms) != 2 or not np.isfinite(norms).all():
+            raise AssertionError(f"[shard] esm2_infer_sharded failed ({card}):\n{stdout[-3000:]}"
+                                 f"\n{stderr[-3000:]}")
+
+
+def shard_rank(rank, world, port, out_dir):
+    """One rank of [shard]'s several-card part (spawned, one per card)."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=world,
+                            rank=rank, timeout=datetime.timedelta(seconds=SHARD_TIMEOUT))
+    res = {"seconds": {}}
+    for part in (shard_cards_allreduce, shard_cards_15b_forward, shard_cards_15b_step,
+                 shard_cards_3b, shard_cards_pp):
+        t0 = time.perf_counter()
+        try:
+            res[part.__name__] = part(rank, world)
+        except BaseException:
+            # leave at once: destroying the group would wait on the other
+            # ranks' collectives, and the parent would see a hang, not this
+            import traceback
+
+            log(f"[shard] rank {rank}: {part.__name__} failed after "
+                f"{time.perf_counter() - t0:.1f} s:\n{traceback.format_exc()}")
+            os._exit(1)
+        res["seconds"][part.__name__] = time.perf_counter() - t0
+        log(f"[shard] rank {rank}: {part.__name__} ended in "
+            f"{res['seconds'][part.__name__]:.1f} s")
+        torch.cuda.empty_cache()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.destroy_process_group()
+
+
+def shard_cards_allreduce(rank, world):
+    """NCCL all-reduce bus bandwidth at the tp all-reduce's sizes (ESM2-650M's
+    and ESM2-15B's (8 x 1024, d) bf16 activation), CUDA events."""
+    import torch
+    import torch.distributed as dist
+
+    out = {}
+    for d in (1280, 5120):
+        x = torch.randn(8 * 1024, d, device="cuda").bfloat16()
+        ms = cuda_time_ms(lambda: dist.all_reduce(x), iters=20, warmup=5)
+        nbytes = x.numel() * x.element_size()
+        out[str(d)] = {"bytes": nbytes, "ms": ms,
+                       "bus_gbps": 2 * (world - 1) / world * nbytes / ms / 1e6}
+    return out
+
+
+def _seeded_sharded(name, seed, mesh, dtype=None):
+    import dataclasses
+
+    import torch
+    from esm_tpu_torch.examples.esm2_15b_int8_single_chip import seeded_parts
+    from esm_tpu_torch.parallel.sharding import shard_params
+
+    parts = seeded_parts(name, seed, "cuda")
+    model = shard_params(parts, mesh, dtype=dtype)
+    cfg = dataclasses.replace(model.cfg, compute_dtype=torch.bfloat16, use_flash=True,
+                              remat=True, remat_policy="dots")
+    return model, cfg
+
+
+def shard_cards_15b_forward(rank, world):
+    """tp=world: the ESM2-15B bf16 forward, seeded, built layer by layer, each
+    rank keeping its shard; rank 0 also runs the one-card bf16 forward and a
+    streamed fp32 forward of the same weights, and the logits are held by
+    [ring]'s rule (check_ring_run): the tp all-reduce sums bf16 partial
+    products in another order than one card does, so near-ties split
+    between the two bf16 routes more than either splits from fp32."""
+    import dataclasses
+
+    import torch
+    from esm_tpu_torch.examples.esm2_15b_int8_single_chip import seeded_parts
+    from esm_tpu_torch.lora import store_base
+    from esm_tpu_torch.models import esm2
+    from esm_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    from esm_tpu_torch.pretrained import _esm2_alphabet
+
+    mesh = make_mesh(MeshConfig(1, 1, world))
+    model, cfg = _seeded_sharded("esm2_t48_15B_UR50D", 37, mesh, dtype=torch.bfloat16)
+    cfg = dataclasses.replace(cfg, remat=False)
+    b, length = SHARD_15B_FWD
+    tokens = torch.from_numpy(bench_tokens(_esm2_alphabet(), b, length, seed=38)).cuda()
+    out = {"resident_gb": sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9}
+    with torch.no_grad():
+        logits = esm2.apply(model, cfg, tokens)["logits"]
+        out["forward_s"] = timed_s(lambda: esm2.apply(model, cfg, tokens), iters=2)
+    del model
+    torch.cuda.empty_cache()
+    if rank == 0:
+        parts = seeded_parts("esm2_t48_15B_UR50D", 37, "cuda")
+        _, whole = next(parts)
+        store_base(whole)
+        for layer in parts:
+            whole.layers.append(store_base(layer))
+        with torch.no_grad():
+            want = esm2.apply(whole, cfg, tokens)["logits"]
+            out["one_card_forward_s"] = timed_s(lambda: esm2.apply(whole, cfg, tokens), iters=2)
+        del whole
+        torch.cuda.empty_cache()
+        f32 = streamed_fp32_logits("esm2_t48_15B_UR50D", 37, tokens)
+        agree = lambda a, b: (a.argmax(-1) == b.argmax(-1)).float().mean().item()  # noqa: E731
+        out.update(scale=want.abs().max().item(), err=(logits - want).abs().max().item(),
+                   agree=agree(logits, want), finite=bool(torch.isfinite(logits).all()),
+                   f32_err=(logits.float() - f32).abs().max().item(),
+                   f32_agree=agree(logits, f32),
+                   one_card_f32_err=(want.float() - f32).abs().max().item(),
+                   one_card_f32_agree=agree(want, f32))
+        del want, f32
+    return out
+
+
+def shard_cards_15b_step(rank, world):
+    """fsdp=world: full-parameter AdamW ESM2-15B steps at the largest B x 1024
+    that plan_train says fits (up to 8 rows a rank), 3 steps; this rank's
+    peak beside the plan."""
+    import torch
+    from esm_tpu_torch import training
+    from esm_tpu_torch.parallel import memory_plan
+    from esm_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    from esm_tpu_torch.pretrained import _esm2_alphabet
+
+    mesh_cfg = MeshConfig(1, world, 1)
+    model, cfg = _seeded_sharded("esm2_t48_15B_UR50D", 39, make_mesh(mesh_cfg))
+    b = max([x for x in range(world, 9 * world, world) if memory_plan.plan_train(
+        cfg, mesh_cfg, x, 1024)["verdict"] == "fits"] or [world])
+    plan = memory_plan.plan_train(cfg, mesh_cfg, b, 1024)
+    toks = torch.from_numpy(bench_tokens(_esm2_alphabet(), b, 1022, seed=40)).cuda()
+    batch = training._corrupt_batch(cfg, torch.Generator(device="cuda").manual_seed(41), toks)
+    tx = training.make_optimizer(TRAIN_LR, warmup_steps=0, total_steps=1000)
+    state = training.init_state(model, tx)
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        state, m = training.train_step_corrupted(state, cfg, tx, batch[0], toks, batch[1])
+        losses.append(m["loss"].item())
+        secs.append(time.perf_counter() - t0)
+    return {"batch": b, "losses": losses, "step_s": secs,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "plan_gb": plan["per_device_bytes"] / 1e9, "verdict": plan["verdict"]}
+
+
+def _compare_to_one_card(model, metrics, loss1, g1):
+    """Rank 0's check of a sharded step 0 against the one-card one by PR 14's
+    rule: every rank gathers the whole gradients, rank 0 compares."""
+    from esm_tpu_torch.parallel.sharding import whole_state
+
+    grads = whole_state(model, {n: p.grad for n, p in model.named_parameters()})
+    if g1 is None:
+        return {}
+    grads = {k: v for k, v in grads.items() if k in g1}
+    cos, name, ratio = grad_agreement(grads, g1, names=lambda n: n.endswith("weight"))
+    return {"loss": metrics["loss"].item(), "one_card_loss": loss1, "cos": cos,
+            "cos_name": name, "ratio": ratio}
+
+
+def shard_cards_3b(rank, world):
+    """(fsdp, tp) = (2, world / 2): ESM2-3B step 0 against a one-card step."""
+    import torch
+    from esm_tpu_torch import training
+    from esm_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    from esm_tpu_torch.parallel.sharding import shard_params
+
+    model, cfg, alphabet = shard_model("cuda", "esm2_t36_3B_UR50D", 42)
+    toks = torch.from_numpy(bench_tokens(alphabet, 4, 1022, seed=43)).cuda()
+    c, m = training._corrupt_batch(cfg, torch.Generator(device="cuda").manual_seed(44), toks)
+    loss1, g1 = grads_of(model, cfg, (c, toks, m)) if rank == 0 else (None, None)
+    shard_params(model, make_mesh(MeshConfig(1, 2, world // 2)))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    metrics = training.sharded_loss_and_grads(model, cfg, c, toks, m)
+    out = _compare_to_one_card(model, metrics, loss1, g1)
+    out["step0_s"] = time.perf_counter() - t0
+    return out
+
+
+def shard_cards_pp(rank, world):
+    """pp=world: ESM2-650M train_step_pp at M=SHARD_PP_CARDS_M, step 0 against
+    a one-card step."""
+    import torch
+    from esm_tpu_torch import training
+    from esm_tpu_torch.parallel.pipeline import make_pp_mesh
+    from esm_tpu_torch.parallel.sharding import shard_params
+
+    # ESM2-650M's 33 layers do not split over 4 stages: its depth is cut to
+    # the largest multiple of the stage count (32 on 4)
+    n = 33 - 33 % world
+    model, cfg, alphabet = shard_model("cuda", seed=45, num_layers=n)
+    toks = torch.from_numpy(bench_tokens(alphabet, 8, 1022, seed=46)).cuda()
+    c, m = training._corrupt_batch(cfg, torch.Generator(device="cuda").manual_seed(47), toks)
+    loss1, g1 = grads_of(model, cfg, (c, toks, m)) if rank == 0 else (None, None)
+    shard_params(model, make_pp_mesh(world))
+    torch.cuda.empty_cache()
+    zero_counts()
+    t0 = time.perf_counter()
+    metrics = training.pp_loss_and_grads(model, cfg, c, toks, m,
+                                         num_microbatches=SHARD_PP_CARDS_M)
+    torch.cuda.synchronize()
+    out = {"step0_s": time.perf_counter() - t0, "counts": read_counts(), "layers": n}
+    if rank == 0:  # stage 0's layers and the replicated parameters
+        grads = {k: p.grad for k, p in model.named_parameters() if k in g1}
+        cos, name, ratio = grad_agreement(grads, {k: g1[k] for k in grads},
+                                          names=lambda n_: n_.endswith("weight"))
+        out.update(loss=metrics["loss"].item(), one_card_loss=loss1, cos=cos, cos_name=name,
+                   ratio=ratio)
+    return out
+
+
+def shard_several_cards(n_cards):
+    """One NCCL rank per card (the largest power of two not above the count)."""
+    import torch.multiprocessing as mp
+
+    world = 1 << (n_cards.bit_length() - 1)
+    with tempfile.TemporaryDirectory() as out_dir:
+        ctx = mp.start_processes(shard_rank, args=(world, free_port(), out_dir), nprocs=world,
+                                 join=False, start_method="spawn")
+        deadline = time.monotonic() + SHARD_TIMEOUT
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                raise AssertionError(f"[shard] the {world} ranks did not end in {SHARD_TIMEOUT} s")
+        results = []
+        for rank in range(world):
+            with open(os.path.join(out_dir, f"rank{rank}.json")) as f:
+                results.append(json.load(f))
+    failed = []
+    for rank, res in enumerate(results):
+        ar, fwd, step = (res["shard_cards_allreduce"], res["shard_cards_15b_forward"],
+                         res["shard_cards_15b_step"])
+        log(f"[shard] {world} cards, rank {rank}: NCCL all-reduce "
+            + ", ".join(f"{v['bytes'] / 1e6:.1f} MB {v['ms']:.4f} ms ({v['bus_gbps']:.1f} GB/s bus)"
+                        for v in ar.values())
+            + f"; ESM2-15B tp={world} bf16 forward B={SHARD_15B_FWD[0]} x "
+            f"{SHARD_15B_FWD[1] + 2}: {fwd['forward_s'] * 1e3:.1f} ms, {fwd['resident_gb']:.2f} GB "
+            f"of parameters on the rank"
+            + (f" (one card {fwd['one_card_forward_s'] * 1e3:.1f} ms; logits max abs err "
+               f"{fwd['err']:.4f} of max |logit| {fwd['scale']:.2f}, argmax agreement "
+               f"{fwd['agree']:.5f}; vs a streamed fp32 forward: tp {fwd['f32_err']:.4f} / "
+               f"agreement {fwd['f32_agree']:.5f}, one card {fwd['one_card_f32_err']:.4f} / "
+               f"{fwd['one_card_f32_agree']:.5f})" if rank == 0 else ""))
+        log(f"[shard] {world} cards, rank {rank}: ESM2-15B fsdp={world} AdamW steps at "
+            f"B={step['batch']} x 1024: losses " + ", ".join(f"{x:.5f}" for x in step["losses"])
+            + "; s a step " + ", ".join(f"{s:.2f}" for s in step["step_s"])
+            + f"; peak {step['peak_gb']:.2f} GB, plan_train {step['plan_gb']:.2f} GB "
+            f"({step['verdict']})")
+        if not (np.isfinite(step["losses"]).all() and step["losses"][-1] < step["losses"][0]):
+            failed.append(f"rank {rank}: 15B losses {step['losses']}")
+        if rank == 0:
+            if not (fwd["finite"] and fwd["err"] <= 0.05 * fwd["scale"]
+                    and fwd["f32_err"] <= 1.5 * fwd["one_card_f32_err"]
+                    and fwd["f32_agree"] >= fwd["one_card_f32_agree"] - 0.02):
+                failed.append("15B tp forward off the one-card and fp32 forwards")
+            for key, label in (("shard_cards_3b", "ESM2-3B (fsdp, tp) = (2, "
+                                f"{world // 2}) step 0"),
+                               ("shard_cards_pp", f"ESM2-650M pp={world} M={SHARD_PP_CARDS_M} "
+                                "step 0")):
+                r = res[key]
+                log(f"[shard] {world} cards: {label}: loss {r['loss']:.6f} vs one card "
+                    f"{r['one_card_loss']:.6f}; gradients lowest cosine {r['cos']:.6f} "
+                    f"({r['cos_name']}), norm ratio {r['ratio']:.6f}; {r['step0_s']:.2f} s")
+                if not (abs(r["loss"] - r["one_card_loss"]) <= SHARD_PP_LOSS_TOL
+                        * abs(r["one_card_loss"]) and r["cos"] > 0.999
+                        and abs(r["ratio"] - 1) <= 0.01):
+                    failed.append(f"{label} off the one-card step")
+        pp = res["shard_cards_pp"]
+        want = flash_counts(pp["layers"] // world, lse=2 * SHARD_PP_CARDS_M, bwd=SHARD_PP_CARDS_M)
+        if pp["counts"] != want:
+            failed.append(f"rank {rank}: pipeline stage launches {pp['counts']} != {want}")
+    if failed:
+        raise AssertionError("[shard] " + "; ".join(failed))
+    return world
+
+
+def shard_counts(res):
+    """K1's, K1-with-the-lse's and K2's launches on [shard]'s one-card main
+    path, summed over its windows (forward, step 0, the steps, the pipeline's
+    forward and step, the 3B step)."""
+    windows = ("forward_counts", "step_counts", "train_counts", "pp_forward_counts",
+               "pp_step_counts", "3b_counts")
+    total = {k: sum(res[w][k] for w in windows) for k in res["forward_counts"]}
+    log(f"[shard] launches on the one-card main path: {total}")
+    return total
+
+
+def shard_entries(k1, backward, total):
+    """The kernels line's entries of [shard]'s path: K1, K1 with the lse and
+    K2 with this path's launches, and the times measured at [main]'s and
+    [train]'s shapes (the shapes [shard] runs them at)."""
+    by_name = {e["name"]: e for e in [k1] + backward}
+    return [dict(by_name["flash_attention"], name="flash_attention/shard",
+                 launches=total["flash_attention"]),
+            dict(by_name["flash_attention_with_lse"], name="flash_attention_with_lse/shard",
+                 launches=total["flash_attention_with_lse"]),
+            dict(by_name["flash_attention_bwd"], name="flash_attention_bwd/shard",
+                 launches=total["flash_attention_bwd.dq"])]
+
+
+def phase_shard(card):
+    """Parameter sharding and the pipeline: on a one-rank NCCL group of this
+    card, ESM2-650M through shard_params (forward and step 0 bit for bit
+    against the unsharded model, the launch counts, 3 steps), the pipeline
+    at pp=1, an ESM2-3B step, the plans against the peaks, the GEMM rate;
+    cli.pretrain and the sharded example under torchrun; with two or more
+    cards, tp/fsdp/pp over one rank per card."""
+    import torch
+    import torch.distributed as dist
+
+    t_phase = time.perf_counter()
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", world_size=1,
+                            rank=0)
+    try:
+        res = shard_one_card(card)
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    check_shard_one_card(res)
+    res["gemm"] = shard_gemm_rate(card)
+    shard_entry_points(card)
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        world = shard_several_cards(n_cards)
+        log(f"[shard] ran: the one-rank group, the entry points, and {world} ranks over "
+            f"{n_cards} cards")
+    else:
+        log("[shard] ran: the one-rank group and the entry points (one card present: no "
+            "several-card part)")
+    log(f"[shard] took {time.perf_counter() - t_phase:.1f} s")
+    return res
 
 
 def phase_fasta():
@@ -2984,7 +3687,7 @@ def phase_cli_variants():
     """esm-predict-variants (esm_tpu_torch.cli.predict_variants) on the card
     against --nogpu runs of the same command: a seeded 250-residue sequence,
     a seeded DMS of 40 single mutants (two at each of 20 sites) with a
-    measurement column; an ESM-1v-shaped checkpoint (full width, 6 of its 33
+    measurement column; an ESM-1v-shaped checkpoint (full width, 3 of its 33
     layers) for wt-marginals, masked-marginals and pseudo-ppl; an MSA-1b-shaped
     one (full width, 2 of its 12 layers, save_msa) with masked-marginals over a
     seeded a3m of 64 rows with lower-case insertions and '.' characters, both
@@ -3014,7 +3717,7 @@ def phase_cli_variants():
         dms_head = os.path.join(tmp, "dms_head.csv")
         with open(dms, newline="") as f, open(dms_head, "w", newline="") as g:
             g.writelines(f.readlines()[:1 + PPPL_CPU_ROWS])
-        esm1v = seeded_lm_checkpoint(tmp, "esm1v_t6_seeded.pt", "esm1v_t33_650M_UR90S_1", 6,
+        esm1v = seeded_lm_checkpoint(tmp, "esm1v_t3_seeded.pt", "esm1v_t33_650M_UR90S_1", 3,
                                      seed=41)
         mcfg = msa.MSATransformerConfig.from_alphabet(
             Alphabet.from_architecture("msa_transformer"),
@@ -4807,20 +5510,29 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import esm_tpu_torch  # noqa: F401  (fails when run without the repo)
 
-    only_ring = sys.argv[1:] == ["--only", "ring"]  # [ring] alone (e.g. on 4 cards)
-    if sys.argv[1:] and not only_ring:
-        print(f"chip_smoke: unknown arguments {sys.argv[1:]} (only '--only ring')",
-              file=sys.stderr)
-        return 2
+    # --only ring,shard: those phases alone (after device, build and fasta),
+    # e.g. on 4 cards
+    only = None
+    if sys.argv[1:]:
+        only = sys.argv[2].split(",") if len(sys.argv) == 3 and sys.argv[1] == "--only" else []
+        if not only or not set(only) <= {"ring", "shard"}:
+            print(f"chip_smoke: unknown arguments {sys.argv[1:]} (--only takes ring, shard or "
+                  "ring,shard)", file=sys.stderr)
+            return 2
     t_start = time.perf_counter()
     card, smi = phase_device()
     phase_build()
     phase_fasta()
-    if only_ring:
-        ring = phase_ring(card)
-        log(f"[summary] [build], [fasta] and [ring] passed in {time.perf_counter() - t_start:.1f} s")
+    if only:
+        kernels = []
+        if "ring" in only:
+            kernels += phase_ring(card)
+        if "shard" in only:
+            shard_counts(phase_shard(card))
+        log(f"[summary] [build], [fasta] and [{'], ['.join(only)}] passed in "
+            f"{time.perf_counter() - t_start:.1f} s")
         log(smi)
-        log(json.dumps({"kernels": ring}))
+        log(json.dumps({"kernels": kernels}))
         log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card,
                                                "count": torch.cuda.device_count()}}))
         return 0
@@ -4829,6 +5541,7 @@ def main():
     counts = phase_train(card)
     backward = measure_backward(counts)
     ring = phase_ring(card)
+    shard = shard_entries(k1, backward, shard_counts(phase_shard(card)))
     phase_cli()
     phase_cli_pretrain()
     fold_counts, fold_handle = phase_fold(card)
@@ -4869,7 +5582,7 @@ def main():
     log(f"[design] [design], [ppl] and [cli-design] took {time.perf_counter() - t_design:.1f} s")
     log(f"[summary] all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(smi)
-    kernels = [k1] + k1_esm1 + backward + ring + [k6] + trimul
+    kernels = [k1] + k1_esm1 + backward + ring + shard + [k6] + trimul
     for entry in kernels:
         lib = entry["library_ms"]
         entry["vs_library"] = entry["ms"] / lib if lib else None

@@ -8,7 +8,10 @@ and without a GPU the run raises unless --cpu-only is given.
 --fused-triangle selects kernel K6 for triangle attention; --bf16-lm and
 --fp16-lm set the LM's dtype (exact attention); --profile-trace writes a
 torch.profiler trace. --int8 quantizes the LM's and trunk's linear layers
-to int8 (weight-only). --plan is not ported yet and raises.
+to int8 (weight-only). --plan prints the memory plan of the run these
+flags make (the worst token-budget batch, the CLI's frugal outputs,
+--in-flight batches held, --bucket rounding) and the longest sequence that
+fits, without folding.
 
     python -m esm_tpu_torch.cli.fold -i seqs.fasta -o pdbs/ -m esmfold.pt --bf16-trunk
 """
@@ -93,7 +96,7 @@ def create_parser():
                         help="pad each batch's length to a 64-multiple bucket (outputs are "
                         "identical: padded positions are masked)")
     parser.add_argument("--plan", action="store_true",
-                        help="print the memory plan and exit (not ported yet)")
+                        help="print the memory plan of this run and exit without folding")
     return parser
 
 
@@ -106,10 +109,6 @@ def run(args):
     from ..data import FastaBatchedDataset
     from ..models.esmfold import esmfold as ef
 
-    if args.plan:
-        raise NotImplementedError(
-            "--plan: the mesh memory plan (esm_tpu/parallel/memory_plan.py) must be re-derived "
-            "for the H100 and is not ported yet (ROADMAP Queue 1, item 13b)")
     if args.fp16_lm and args.bf16_lm:
         raise SystemExit("esm-fold: pass at most one of --fp16-lm / --bf16-lm")
     device = pretrained.resolve_device("cpu" if args.cpu_only else None)
@@ -139,10 +138,13 @@ def run(args):
 
         quantize_params(handle.model)
 
+    batches = list(create_batched_sequence_dataset(all_sequences, args.max_tokens_per_batch))
+    if args.plan:
+        print_plan(args, handle, batches, device)
+        return 0
     args.pdb.mkdir(exist_ok=True, parents=True)
     num_completed = 0
     num_sequences = len(all_sequences)
-    batches = list(create_batched_sequence_dataset(all_sequences, args.max_tokens_per_batch))
 
     profiler = None
     if args.profile_trace:
@@ -225,6 +227,49 @@ def run(args):
         profiler.export_chrome_trace(str(trace_dir / "esm_fold_trace.json"))
         logger.info(f"Profiler trace written to {args.profile_trace}")
     return num_completed
+
+
+def print_plan(args, handle, batches, device) -> dict:
+    """The memory plan of the run the flags make (esm_tpu/cli/fold.py:195-245):
+    every token-budget batch at its folded length (multimer linkers
+    included, rounded up to the bucket with --bucket), the CLI's frugal
+    outputs, --in-flight batches holding theirs (one with --serial), the
+    live model's parameter and buffer bytes; printed for the worst batch,
+    with the longest single sequence that fits. Returns the worst plan."""
+    import itertools
+
+    from ..models.esmfold import esmfold as ef
+    from ..parallel.memory_plan import max_fold_length, plan_fold
+
+    lm_bytes = 1 if args.int8 else 2 if (args.fp16_lm or args.bf16_lm) else 4
+    held = 1 if args.serial else max(args.in_flight, 1)
+    params_bytes = sum(t.numel() * t.element_size() for t in itertools.chain(
+        handle.model.parameters(), handle.model.buffers()))
+    kw = dict(lm_dtype_bytes=lm_bytes, frugal=True, held_outputs=held,
+              params_bytes=params_bytes, device=device)
+    worst = None
+    for _, sequences in batches:
+        length = max(len(ef.encode_sequence(seq)[0]) for seq in sequences)
+        if args.bucket:
+            length = -(-length // ef.FOLD_LENGTH_BUCKET) * ef.FOLD_LENGTH_BUCKET
+        p = plan_fold(handle.cfg, length, batch=len(sequences), **kw)
+        if worst is None or p["per_device_bytes"] > worst["per_device_bytes"]:
+            worst, shape = p, (len(sequences), length)
+    max_l = max_fold_length(handle.cfg, **kw)
+    lm = "int8" if args.int8 else "bf16/fp16" if lm_bytes == 2 else "fp32"
+    name = torch.cuda.get_device_name(device) if device.type == "cuda" else "the host's memory"
+    p = worst
+    print(f"memory plan (worst batch B={shape[0]} x L={shape[1]}, one device: {name}, {lm} LM, "
+          f"held_outputs={held}):\n"
+          f"  verdict: {p['verdict']}  ({p['per_device_bytes'] / 1e9:.2f} GB of "
+          f"{p['hbm_bytes'] / 1e9:.2f} GB)\n"
+          f"  params {p['params_bytes'] / 1e9:.2f} GB | LM activations "
+          f"{p['lm_bytes'] / 1e9:.2f} GB | pair working set {p['pair_bytes'] / 1e9:.2f} GB | "
+          f"held outputs {p['output_bytes'] / 1e9:.2f} GB (frugal={p['frugal']})\n"
+          f"  largest L that fits (single sequence) under these flags: ~{max_l}\n"
+          f"  (an estimate: trust the verdict, not the decimals; 'over': try --int8, "
+          f"--chunk-size 128, --bf16-trunk, or a lower --max-tokens-per-batch / --in-flight 1)")
+    return dict(p, shape=shape, max_length=max_l)
 
 
 def main():

@@ -1,14 +1,30 @@
-"""Masked-LM pretraining / fine-tuning of ESM-2 on one device, on the port.
+"""Masked-LM pretraining / fine-tuning of ESM-2 on the port, on one device or
+on a mesh of them.
 
-Port of examples/pretrain_mlm.py with the same flags and defaults, for one
-device and full parameters: FASTA data with token-budget batching (sequence
-axis padded to a multiple of 128), BERT-style masking, AdamW
-(esm_tpu_torch.training), optional rematerialization, gradient accumulation,
-global-norm clipping, bf16 first moments, masked-perplexity evaluation, and
-checkpoints that resume bit for bit: the batch order and each step's
-corruption generator are functions of (seed, step) alone.
+Port of examples/pretrain_mlm.py with the same flags and defaults: FASTA
+data with token-budget batching (sequence axis padded to a multiple of
+128), BERT-style masking, AdamW (esm_tpu_torch.training), optional
+rematerialization, gradient accumulation, global-norm clipping, bf16 first
+moments, masked-perplexity evaluation, and checkpoints that resume bit for
+bit: the batch order and each step's corruption generator are functions of
+(seed, step) alone.
 
     python -m esm_tpu_torch.cli.pretrain --fasta seqs.fasta --steps 100
+
+Under torchrun (or in a process group already joined) the run shards the
+model over a (data, fsdp, tp) mesh (esm_tpu_torch.parallel.sharding):
+``MeshConfig.for_devices(world)``, or --data/--fsdp/--tp. No rank's card
+holds the whole model: it is drawn a layer at a time and each layer cut as
+it comes (--init-from reads the checkpoint on the host). Every rank reads
+the same batch and keeps its rows (the batch is padded to a multiple of
+data x fsdp x accum-steps with copies of its first row), prints the memory
+plan of a rank and the mesh-scaling warnings, and checkpoints gather the
+whole model (rank 0 writes; --resume re-shards onto any mesh). Rank 0 logs.
+
+    torchrun --nproc_per_node 4 -m esm_tpu_torch.cli.pretrain --fasta seqs.fasta
+
+A one-process run without a launcher is the one-device run. --lora and
+--adafactor do not run on a mesh (ROADMAP Queue 1, item 13d).
 
 --lora RANK fine-tunes rank-RANK LoRA adapters (esm_tpu_torch.lora) on a
 frozen base: bf16 compute, the flash path and remat "dots" ("full" with
@@ -17,9 +33,9 @@ frozen base: bf16 compute, the flash path and remat "dots" ("full" with
 alpha / rank; the final save is the merged model, or the adapters alone
 over an int8 base. --adafactor trains with adafactor instead of AdamW.
 
-Runs on the GPU; --cpu runs on the CPU, and without a GPU the run raises
-unless --cpu is given. The JAX example's memory plan and mesh-scaling
-warnings were fitted to a 16 GB TPU and are not carried over.
+Runs on the GPU (on a mesh, the GPU of each rank's LOCAL_RANK); --cpu
+runs on the CPU (gloo on a mesh), and without a GPU the run raises unless
+--cpu is given.
 """
 
 from __future__ import annotations
@@ -32,6 +48,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 def create_parser():
@@ -114,7 +131,20 @@ def create_parser():
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--log-every", type=int, default=10)
     p.add_argument("--cpu", action="store_true", help="run on the CPU even when a GPU is present")
+    for axis in ("data", "fsdp", "tp"):
+        p.add_argument(f"--{axis}", type=int, default=None,
+                       help=f"on a mesh: the {axis} axis's size (default: "
+                       "MeshConfig.for_devices of the world size; give all three)")
     return p
+
+
+def _mesh_config(args, world: int):
+    from ..parallel.mesh import MeshConfig
+
+    given = [getattr(args, a) for a in ("data", "fsdp", "tp")]
+    if all(g is None for g in given):
+        return MeshConfig.for_devices(world)
+    return MeshConfig(*(g or 1 for g in given))
 
 
 def step_generator(seed: int, step: int, device) -> torch.Generator:
@@ -148,28 +178,50 @@ def run(args):
     from .. import lora
     from ..io.checkpoint import load_train_state, save_params, save_train_state
     from ..models import esm2
+    from ..parallel.sharding import batch_rows, dp_sum, sharding_of
 
+    mesh = mesh_cfg = None
+    say = print
+    if "WORLD_SIZE" in os.environ or dist.is_initialized():
+        from ..parallel.mesh import init_multihost, make_mesh
+
+        if args.lora or args.adafactor:
+            raise SystemExit("--lora and --adafactor do not run on a mesh yet "
+                             "(ROADMAP Queue 1, item 13d)")
+        device_type = "cpu" if args.cpu else None
+        rank = init_multihost(device_type=device_type)
+        mesh_cfg = _mesh_config(args, dist.get_world_size())
+        mesh = make_mesh(mesh_cfg, device_type)
+        if rank:
+            say = lambda *a, **k: None  # noqa: E731  (rank 0 logs)
     device = pretrained.resolve_device("cpu" if args.cpu else None)
+    # on a mesh no rank holds the whole model on its device: a warm start is
+    # read on the host and its shards moved over, a random one drawn a layer
+    # at a time and each layer cut as it comes (shard_params)
     if args.init_from:
-        handle, alphabet = pretrained.load_model_and_alphabet(args.init_from, device=device)
+        handle, alphabet = pretrained.load_model_and_alphabet(
+            args.init_from, device="cpu" if mesh is not None else device)
         cfg = dataclasses.replace(handle.cfg, remat=args.remat)
         model = handle.model
-        print(f"warm start from {args.init_from} ({cfg.num_layers} layers)")
+        say(f"warm start from {args.init_from} ({cfg.num_layers} layers)")
     else:
         alphabet = Alphabet.from_architecture("ESM-1b")
         cfg = esm2.ESM2Config.from_alphabet(
             alphabet, num_layers=args.num_layers, embed_dim=args.embed_dim,
             attention_heads=args.attention_heads, remat=args.remat,
         )
-        model = esm2.init(cfg, torch.Generator(device=device).manual_seed(args.seed),
-                          device=device)
-    print(f"device: {device}" + (f" ({torch.cuda.get_device_name(device)})"
-                                 if device.type == "cuda" else ""))
+        build = esm2.init if mesh is None else esm2.init_parts
+        model = build(cfg, torch.Generator(device=device).manual_seed(args.seed), device=device)
+    say(f"device: {device}" + (f" ({torch.cuda.get_device_name(device)})"
+                               if device.type == "cuda" else ""))
 
     dataset = FastaBatchedDataset.from_file(args.fasta)
     batches = dataset.get_batch_indices(args.toks_per_batch, extra_toks_per_seq=2)
     converter = alphabet.get_batch_converter(args.truncation_seq_length, pad_to_multiple=128)
-    print(f"{len(dataset)} sequences, {len(batches)} batches/epoch")
+    say(f"{len(dataset)} sequences, {len(batches)} batches/epoch")
+    dp = 1  # the batch's row shards: data x fsdp on a mesh
+    if mesh is not None:
+        model, dp = _shard_on_mesh(args, cfg, model, mesh, mesh_cfg, device, say)
 
     base = lora_scale = None
     if args.lora:
@@ -187,7 +239,7 @@ def run(args):
         adapters = lora.init_lora(torch.Generator(device=device).manual_seed(args.seed + 3),
                                   base, rank=args.lora)
         n_base = sum(p.numel() for p in base.parameters())
-        print(f"LoRA rank {args.lora}: {lora.num_params(adapters) / 1e6:.2f}M trainable "
+        say(f"LoRA rank {args.lora}: {lora.num_params(adapters) / 1e6:.2f}M trainable "
               f"adapters on a frozen {n_base / 1e6:.0f}M base"
               + (" (int8)" if args.lora_int8_base else " (bf16)"))
         state = training.init_state(adapters, tx)
@@ -201,7 +253,7 @@ def run(args):
             raise SystemExit(f"--resume: no saved state at {state_dir}")
         state = load_train_state(state_dir, state)
         start_step = state.step
-        print(f"resumed from {state_dir} at step {start_step}")
+        say(f"resumed from {state_dir} at step {start_step}")
 
     eval_batches = None
     if args.eval_fasta:
@@ -215,12 +267,20 @@ def run(args):
                    else contextlib.nullcontext(state.model))
         with patched as eval_model:
             for j, toks in enumerate(eval_batches):
+                real = toks.shape[0]
+                toks = pad_rows(toks, dp)  # eval never accumulates
                 sums = training.eval_step(eval_model, cfg,
                                           step_generator(args.seed + 2, j, device),
                                           toks.to(device))
-                nll += float(sums["nll_sum"].sum())
-                cnt += float(sums["count"].sum())
-        print(f"step {step:5d}  eval masked-ppl {np.exp(nll / max(cnt, 1)):8.3f}")
+                keep = torch.arange(toks.shape[0], device=device) < real  # not the copies
+                if mesh is not None:
+                    keep = batch_rows(keep, sharding_of(state.model))
+                nll_cnt = torch.stack([sums["nll_sum"][keep].sum(), sums["count"][keep].sum()])
+                if mesh is not None:
+                    dp_sum(nll_cnt, sharding_of(state.model))
+                nll += float(nll_cnt[0])
+                cnt += float(nll_cnt[1])
+        say(f"step {step:5d}  eval masked-ppl {np.exp(nll / max(cnt, 1)):8.3f}")
 
     perm_cache = {}
 
@@ -240,10 +300,8 @@ def run(args):
     last_step = start_step
     for step in range(start_step, args.steps):
         last_step = step + 1
-        toks = converter([dataset[i] for i in batch_for_step(step)])[2]
-        if toks.shape[0] % args.accum_steps:  # pad the batch with copies of its first row
-            pad = args.accum_steps - toks.shape[0] % args.accum_steps
-            toks = torch.cat([toks, toks[:1].repeat(pad, 1)])
+        toks = pad_rows(converter([dataset[i] for i in batch_for_step(step)])[2],
+                        dp * args.accum_steps)
         toks = toks.to(device)
         gen = step_generator(args.seed + 1, step, device)
         if args.lora:
@@ -259,15 +317,15 @@ def run(args):
             loss = float(metrics["loss"])
             acc = float(metrics["acc"])
             rate = tokens_seen / (time.perf_counter() - t0)
-            print(f"step {step + 1:5d}  loss {loss:7.4f}  masked-acc {acc:6.3f}  "
-                  f"{rate / 1e3:8.1f}k tok/s")
+            say(f"step {step + 1:5d}  loss {loss:7.4f}  masked-acc {acc:6.3f}  "
+                f"{rate / 1e3:8.1f}k tok/s")
         if state_dir and args.save_every and (step + 1) % args.save_every == 0:
             save_train_state(state_dir, state)
-            print(f"saved train state at step {step + 1}")
+            say(f"saved train state at step {step + 1}")
         if eval_batches is not None and args.eval_every and (step + 1) % args.eval_every == 0:
             run_eval(step + 1)
         if args.stop_after and step + 1 >= args.stop_after:
-            print(f"stopping after step {step + 1} (--stop-after)")
+            say(f"stopping after step {step + 1} (--stop-after)")
             break
 
     if eval_batches is not None and (not args.eval_every or last_step % args.eval_every):
@@ -275,7 +333,7 @@ def run(args):
     if args.checkpoint_dir:
         if not args.lora:
             save_params(args.checkpoint_dir, state.model)
-            print(f"saved params to {args.checkpoint_dir}")
+            say(f"saved params to {args.checkpoint_dir}")
         elif args.lora_int8_base:
             # an int8 base is not merged (lora.merge refuses): ship the adapters,
             # which inference attaches to the frozen base with lora.patch
@@ -288,8 +346,45 @@ def run(args):
     return state
 
 
+def pad_rows(toks: torch.Tensor, multiple: int) -> torch.Tensor:
+    """``toks`` with copies of its first row appended up to a multiple of
+    ``multiple`` rows."""
+    if toks.shape[0] % multiple:
+        pad = multiple - toks.shape[0] % multiple
+        toks = torch.cat([toks, toks[:1].repeat(pad, 1)])
+    return toks
+
+
+def _shard_on_mesh(args, cfg, model_or_parts, mesh, mesh_cfg, device, say):
+    """Shard a model, or a layer-at-a-time builder, over ``mesh`` and move
+    the shards to ``device``; print the mesh, a rank's memory plan and the
+    scaling model's warnings. Returns (the sharded model, the batch's row
+    shards)."""
+    from ..parallel.memory_plan import plan_train
+    from ..parallel.scaling import warn_if_inefficient
+    from ..parallel.sharding import shard_params
+
+    model = shard_params(model_or_parts, mesh).to(device)
+    dp = mesh_cfg.data * mesh_cfg.fsdp
+    say(f"mesh: data={mesh_cfg.data} fsdp={mesh_cfg.fsdp} tp={mesh_cfg.tp}")
+    est_b = max(dp * args.accum_steps, args.toks_per_batch // (args.truncation_seq_length + 2))
+    mp = plan_train(cfg, mesh_cfg, est_b, args.truncation_seq_length + 2,
+                    accum_steps=args.accum_steps, mu_dtype_bytes=2 if args.bf16_moments else 4,
+                    device=device)
+    say(f"memory plan (est. B={est_b}): {mp['per_device_bytes'] / 1e9:.1f} GB/rank of "
+        f"{mp['hbm_bytes'] / 1e9:.1f} -> {mp['verdict']}"
+        + ("  (hint: --accum-steps / --bf16-moments / more devices)"
+           if mp["verdict"] != "fits" else ""))
+    if say is print:  # the layout's warnings, once
+        warn_if_inefficient(cfg, mesh_cfg, batch=est_b, seqlen=args.truncation_seq_length + 2,
+                            mode="train")
+    return model, dp
+
+
 def main():
     run(create_parser().parse_args())
+    if dist.is_initialized():  # a launcher's group
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

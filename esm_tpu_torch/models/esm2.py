@@ -11,8 +11,11 @@ state dict loads with ``load_state_dict``. :func:`apply` takes the options
 (compute dtype, flash path) from an explicit ``ESM2Config``, so one set of
 weights serves several configurations (``LMHandle.with_options``).
 :func:`apply_seq_sharded` is the sequence-parallel forward (the T axis split
-over a mesh dimension, ring attention in every layer); the pipelined
-forward is not ported yet (ROADMAP Queue 1, item 13b).
+over a mesh dimension, ring attention in every layer). A model sharded by
+``parallel.sharding.shard_params`` runs through :func:`apply` as it is
+(tensor parallelism and ZeRO-3 over the mesh; ``tokens`` are this rank's
+rows), and through :func:`apply_pipelined` when its layers are split into
+pipeline stages (GPipe, ``parallel/pipeline.py``).
 """
 
 from __future__ import annotations
@@ -42,6 +45,8 @@ from ..ops.heads import (
     weighted_apc_symmetrize,
 )
 from ..parallel.mesh import local_shard
+from ..parallel.sharding import sharding_of
+from ..parallel.tensor_parallel import gather_from_tp
 from .lm_common import (
     LayerStatic,
     embedding_lookup,
@@ -117,7 +122,7 @@ class ESM2(nn.Module):
     """ESM-2 parameters, named as the reference's ESM2 module. Built without
     init: call :func:`init` for seeded random weights, or load a state dict."""
 
-    def __init__(self, cfg: ESM2Config, device=None):
+    def __init__(self, cfg: ESM2Config, device=None, *, with_layers: bool = True):
         super().__init__()
         self.cfg = cfg
         d = cfg.embed_dim
@@ -125,8 +130,7 @@ class ESM2(nn.Module):
             cfg.alphabet_size, d, padding_idx=cfg.padding_idx, device=device
         )
         self.layers = nn.ModuleList(
-            TransformerLayer(d, cfg.ffn_embed_dim, cfg.attention_heads, device=device)
-            for _ in range(cfg.num_layers)
+            new_layer(cfg, device) for _ in range(cfg.num_layers if with_layers else 0)
         )
         self.contact_head = ContactPredictionHead(
             cfg.num_layers * cfg.attention_heads, device=device
@@ -139,23 +143,44 @@ class ESM2(nn.Module):
         return apply(self, self.cfg, tokens, **kw)
 
 
-@torch.no_grad()
+def new_layer(cfg: ESM2Config, device=None) -> TransformerLayer:
+    """One uninitialised transformer layer of ``cfg``'s widths."""
+    return TransformerLayer(cfg.embed_dim, cfg.ffn_embed_dim, cfg.attention_heads, device=device)
+
+
 def init(cfg: ESM2Config, generator: torch.Generator, device=None) -> ESM2:
     """ESM2 with seeded random weights (esm_tpu/models/esm2.py:93-115): N(0, 1)
     embedding with a zero padding row, the reference's layer init, torch
     default LM-head dense layer, unit LNs, zero LM-head bias and zero
     contact regression. ``generator`` must live on ``device``."""
-    model = ESM2(cfg, device=device)
-    init_embedding(model.embed_tokens, generator, padding_idx=cfg.padding_idx)
-    for layer in model.layers:
-        layer.init_(generator)
-    init_layer_norm(model.emb_layer_norm_after)
-    init_linear_torch_default(model.lm_head.dense, generator)
-    init_layer_norm(model.lm_head.layer_norm)
-    model.lm_head.bias.zero_()
-    model.contact_head.regression.weight.zero_()
-    model.contact_head.regression.bias.zero_()
+    parts = init_parts(cfg, generator, device)
+    _, model = next(parts)
+    model.layers.extend(parts)
     return model
+
+
+def init_parts(cfg: ESM2Config, generator: torch.Generator, device=None):
+    """:func:`init`'s weights one layer at a time, drawn in its order, as
+    ``parallel.sharding.shard_params`` takes a builder: yields (cfg, the
+    shell: the model without layers), then each layer. The shell's final
+    LN, LM head and contact regression are set once the last layer has been
+    taken (the dense layer is drawn after the layers), so a consumer reads
+    them only when the iteration has ended."""
+    shell = ESM2(cfg, device=device, with_layers=False)
+    with torch.no_grad():
+        init_embedding(shell.embed_tokens, generator, padding_idx=cfg.padding_idx)
+    yield cfg, shell
+    for _ in range(cfg.num_layers):
+        with torch.no_grad():
+            layer = new_layer(cfg, device).init_(generator)
+        yield layer
+    with torch.no_grad():
+        init_layer_norm(shell.emb_layer_norm_after)
+        init_linear_torch_default(shell.lm_head.dense, generator)
+        init_layer_norm(shell.lm_head.layer_norm)
+        shell.lm_head.bias.zero_()
+        shell.contact_head.regression.weight.zero_()
+        shell.contact_head.regression.bias.zero_()
 
 
 def _sequence_counts(is_mask, padding_mask, ring):
@@ -172,9 +197,13 @@ def embed_tokens(model: ESM2, cfg: ESM2Config, tokens: torch.Tensor, ring=None) 
     """Token embedding with mask-token dropout rescale (reference
     esm/model/esm2.py:84-95). Runs in fp32, returns the compute dtype. With
     ``ring`` = (mesh, axis_name) ``tokens`` is this rank's block of columns:
-    the rescale's counts are the whole sequence's."""
+    the rescale's counts are the whole sequence's. On a sharded model each
+    tp rank looks up its columns of the features, which are then gathered."""
     padding_mask = tokens == cfg.padding_idx
     x = embedding_lookup(model.embed_tokens.weight, tokens)
+    shard = sharding_of(model)
+    if shard is not None:
+        x = gather_from_tp(x, -1, shard.tp)
 
     if cfg.token_dropout:
         is_mask = (tokens == cfg.mask_idx)[..., None]
@@ -218,7 +247,19 @@ def apply(
     ``ring`` = (mesh, axis_name): ``tokens`` is this rank's block of columns
     of a sequence split over that mesh dimension (see
     :func:`apply_seq_sharded`); no attention maps or contacts then.
+
+    A sharded model (``parallel.sharding.shard_params``): ``tokens`` are this
+    rank's rows (``parallel.sharding.batch_rows``; the tp ranks of a row
+    group pass the same rows), and every output is those rows', whole in T
+    and in the features; attention maps carry every head.
     """
+    shard = sharding_of(model)
+    if shard is not None and ring is not None:
+        raise ValueError("a sharded model runs without ring attention (sequence parallelism "
+                         "keeps its parameters replicated)")
+    if shard is not None and shard.stages > 1:
+        raise ValueError("this model's layers are split into pipeline stages: run "
+                         "apply_pipelined")
     if ring is not None and (need_head_weights or return_contacts):
         raise ValueError(
             "sequence-parallel (ring) forward cannot materialize T x T attention maps; "
@@ -245,13 +286,14 @@ def apply(
                 "need_head_weights=True or return_representations=True"
             )
         x, hiddens, contact_acc = _stack_with_streaming_contacts(
-            model, cfg, x, tokens, padding_mask, return_representations
+            model, cfg, x, tokens, padding_mask, return_representations,
+            static=dataclasses.replace(cfg.layer_static(), shard=shard),
         )
     else:
         x, hiddens, attn = transformer_stack_apply(
             model.layers,
             x,
-            static=dataclasses.replace(cfg.layer_static(), ring=ring),
+            static=dataclasses.replace(cfg.layer_static(), ring=ring, shard=shard),
             key_padding_mask=padding_mask,
             collect_hiddens=return_representations,
             collect_layer_ids=mid_layers,
@@ -276,7 +318,7 @@ def apply(
         result["representations"] = reps
 
     result["logits"] = roberta_lm_head(
-        model.lm_head, x.float(), model.embed_tokens.weight
+        model.lm_head, x.float(), model.embed_tokens.weight, shard
     )
 
     if need_head_weights:
@@ -320,17 +362,47 @@ def apply_seq_sharded(model: ESM2, cfg: ESM2Config, tokens: torch.Tensor, *, mes
     return apply(model, cfg, local, ring=(mesh, seq_axis), **kw)
 
 
+def apply_pipelined(model: ESM2, cfg: ESM2Config, tokens: torch.Tensor, *,
+                    num_microbatches: int):
+    """Logits-only forward with the layer stack pipelined over the mesh's
+    ``pp`` axis (esm_tpu/models/esm2.py:279; GPipe microbatching,
+    parallel/pipeline.py). ``model`` is sharded over a
+    ``pipeline.make_pp_mesh`` mesh: each rank holds its stage's layers, with
+    tp and fsdp inside the stage. The embedding, final LN and LM head run on
+    every stage; the last stage's output is sent to all of them, so every
+    rank returns the logits of ``tokens``, this rank's rows (over data and
+    fsdp; every stage passes the same). A forward only: training runs
+    through ``training.train_step_pp``."""
+    from ..parallel.pipeline import pipeline_transformer_stack
+
+    shard = sharding_of(model)
+    if shard is None:
+        raise ValueError("apply_pipelined runs a model sharded over a pp mesh "
+                         "(parallel.sharding.shard_params with pipeline.make_pp_mesh)")
+    with torch.no_grad():
+        padding_mask = tokens == cfg.padding_idx
+        x = embed_tokens(model, cfg, tokens)
+        x = pipeline_transformer_stack(
+            [model.layers[i] for i in shard.layer_ids], x,
+            static=dataclasses.replace(cfg.layer_static(), shard=shard), shard=shard,
+            num_microbatches=num_microbatches, key_padding_mask=padding_mask)
+        x = layer_norm(model.emb_layer_norm_after, x)
+        logits = roberta_lm_head(model.lm_head, x.float(), model.embed_tokens.weight, shard)
+    return {"logits": logits}
+
+
 def _stack_with_streaming_contacts(
     model, cfg, x, tokens, padding_mask, collect_hiddens: bool,
-    strip_last_key: bool = False,
+    strip_last_key: bool = False, static=None,
 ):
     """Layer loop with the contact regression folded in: each layer's
     (B, H, T, S) map is masked, bos/eos-stripped, symmetrized + APC'd and
     contracted with that layer's regression weights into a (B, T', T') sum
     (esm_tpu/models/esm2.py:312-366). ``strip_last_key`` first drops the
     bias_kv key column (ESM-1, reference esm/model/esm1.py:181-183).
-    ``model`` is an ESM2 or ESM1 module, ``cfg`` its config."""
-    static = cfg.layer_static()
+    ``model`` is an ESM2 or ESM1 module, ``cfg`` its config; ``static``
+    the layers' options (``cfg.layer_static()`` by default)."""
+    static = static or cfg.layer_static()
     keep = 1.0 - padding_mask.float()
     pair_mask = keep[:, None, :] * keep[:, :, None]              # (B, T, T)
     if cfg.append_eos:

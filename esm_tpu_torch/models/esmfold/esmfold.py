@@ -208,11 +208,11 @@ def apply(
 
 def apply_sharded(*args, **kwargs):
     """esm_tpu's multi-device fold (the ring-attention LM with the sharded
-    pair tensor, ``pair_spec``) is not ported yet: it waits for parameter
-    sharding (ROADMAP Queue 1, item 13b)."""
+    pair tensor, ``pair_spec``) is not ported yet: it needs pair-row
+    collectives inside every trunk op (ROADMAP Queue 1, item 13c)."""
     raise NotImplementedError(
         "apply_sharded: the sharded fold (pair_spec) is not ported yet (ROADMAP Queue 1, "
-        "item 13b)")
+        "item 13c)")
 
 
 # ---------------------------------------------------------------------------

@@ -38,6 +38,7 @@ from ..ops.common import (
     new_layer_norm,
     new_linear,
 )
+from ..parallel.tensor_parallel import copy_to_tp, row_parallel_linear
 
 
 @dataclass(frozen=True)
@@ -61,6 +62,11 @@ class LayerStatic:
     # (parallel/ring_attention.py). Under remat the recompute runs the ring's
     # forward again, so every rank of the ring must issue it in step.
     ring: Optional[tuple] = None
+    # Parameter sharding: the model's parallel.sharding.Sharding. Each layer
+    # gathers its fsdp-sharded weights before it runs (again in the remat
+    # recompute) and runs this tp rank's heads and MLP columns, with
+    # Megatron's collectives (parallel/tensor_parallel.py).
+    shard: Optional[object] = None
 
 
 # The matrix products a "dots" layer keeps (dispatcher-level ops: nn.Linear
@@ -141,24 +147,31 @@ def transformer_layer_apply(
     need_head_weights: bool = False,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One pre-LN block on (B, T, D). Returns (x, probs (B, H, T, S) or None)."""
+    tp_group, num_heads = None, static.num_heads
+    if static.shard is not None:
+        layer = static.shard.gather_layer(layer, x.dtype)
+        tp_group = static.shard.tp
+        num_heads //= static.shard.sizes["tp"]
     residual = x
     h = layer_norm(layer.self_attn_layer_norm, x, eps=static.ln_eps)
     attn_out, probs = multihead_attention(
         layer.self_attn,
         h,
-        num_heads=static.num_heads,
+        num_heads=num_heads,
         key_padding_mask=key_padding_mask,
         use_rotary=static.use_rotary,
         use_bias_kv=static.use_bias_kv,
         need_weights=need_head_weights,
         use_flash=static.use_flash,
         ring=static.ring,
+        tp_group=tp_group,
     )
     x = residual + attn_out
 
     residual = x
     h = layer_norm(layer.final_layer_norm, x, eps=static.ln_eps)
-    h = linear(layer.fc2, gelu_erf(linear(layer.fc1, h)))
+    h = linear(layer.fc1, copy_to_tp(h, tp_group))  # column-parallel
+    h = row_parallel_linear(layer.fc2, gelu_erf(h), tp_group)
     return residual + h, probs
 
 

@@ -33,6 +33,7 @@ from typing import NamedTuple, Optional
 import torch
 from torch import nn
 
+from ..parallel.tensor_parallel import copy_to_tp, gather_from_tp, row_parallel_linear
 from .common import linear, new_linear, softmax_fp32
 from .rotary import apply_rotary, inv_freq, rotary_tables
 
@@ -94,6 +95,7 @@ def multihead_attention(
     need_weights: bool = False,
     use_flash: bool = False,
     ring=None,
+    tp_group=None,
 ) -> AttentionOutput:
     """Self-attention over (B, T, D) activations.
 
@@ -104,16 +106,22 @@ def multihead_attention(
     block of T/N rows of the sequence, the rotary takes the rows' global
     positions, and attention runs as a ring (parallel/ring_attention.py;
     ``use_flash`` selects kernels K4/K5 inside each ring step).
+    ``tp_group``: tensor parallelism (parallel/sharding.py): the projections
+    hold this tp rank's heads (q/k/v column-parallel, ``num_heads`` the local
+    count) and out_proj its input columns (row-parallel, all-reduced);
+    attention maps come back with every head.
     """
     if ring is not None and (use_bias_kv or need_weights or attn_mask is not None):
         raise ValueError("ring attention takes no bias_kv key (S = T + 1), no attention "
                          "mask and returns no attention maps")
 
     b, t, d = x.shape
-    head_dim = d // num_heads
+    x = copy_to_tp(x, tp_group)
+    q = linear(attn.q_proj, x)
+    head_dim = q.shape[-1] // num_heads  # a tp rank's projections hold D/tp features
     scaling = head_dim ** -0.5
 
-    q = linear(attn.q_proj, x) * scaling
+    q = q * scaling
     k = linear(attn.k_proj, x)
     v = linear(attn.v_proj, x)
     if use_bias_kv:
@@ -154,7 +162,8 @@ def multihead_attention(
             q.contiguous(), k.contiguous(), v.contiguous(),
             key_padding_mask=key_padding_mask, rotary=use_rotary,
         )
-        return AttentionOutput(linear(attn.out_proj, _merge_heads(out)), None)
+        return AttentionOutput(row_parallel_linear(attn.out_proj, _merge_heads(out), tp_group),
+                               None)
 
     if use_rotary:
         # tables sized to the source length; queries use the first T rows
@@ -171,5 +180,7 @@ def multihead_attention(
 
     probs = softmax_fp32(logits)
     out = torch.matmul(probs, v)
-    out = linear(attn.out_proj, _merge_heads(out))
+    out = row_parallel_linear(attn.out_proj, _merge_heads(out), tp_group)
+    if need_weights:
+        probs = gather_from_tp(probs, 1, tp_group)
     return AttentionOutput(out, probs if need_weights else None)

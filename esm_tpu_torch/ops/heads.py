@@ -10,6 +10,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..parallel import tensor_parallel as tpar
 from .common import (
     gelu_erf,
     layer_norm,
@@ -44,11 +45,26 @@ class ContactPredictionHead(nn.Module):
 
 
 def roberta_lm_head(
-    head: RobertaLMHead, features: torch.Tensor, embed_weight: torch.Tensor
+    head: RobertaLMHead, features: torch.Tensor, embed_weight: torch.Tensor, shard=None,
 ) -> torch.Tensor:
-    """features (B, T, D) -> logits (B, T, V), in features' dtype."""
-    x = gelu_erf(linear(head.dense, features))
+    """features (B, T, D) -> logits (B, T, V), in features' dtype.
+
+    ``shard``: the model's parallel.sharding.Sharding. The dense layer's
+    weight is then gathered (over fsdp, and over tp for a product every tp
+    rank runs alike), and the tied projection contracts this tp rank's
+    features with its columns of the embedding: the partial logits are
+    all-reduced over tp."""
+    dense = head.dense
+    tp = None
+    if shard is not None:
+        dense = tpar.gather_linear(head.dense, 1, shard.fsdp, shard.tp, 0, features.dtype)
+        tp = shard.tp
+    x = gelu_erf(linear(dense, features))
     x = layer_norm(head.layer_norm, x)
+    if tp is not None:
+        x = tpar.own_block(tpar.copy_to_tp(x, tp), -1, tp)
+        return (tpar.reduce_from_tp(torch.matmul(x, embed_weight.to(x.dtype).t()), tp)
+                + head.bias.to(x.dtype))
     return torch.matmul(x, embed_weight.to(x.dtype).t()) + head.bias.to(x.dtype)
 
 

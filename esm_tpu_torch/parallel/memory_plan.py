@@ -1,19 +1,34 @@
-"""Device-memory planning for an ESMFold fold on one device.
+"""Device-memory planning: an ESM-2 on a (data, fsdp, tp) mesh, its training
+step, and an ESMFold fold on one device.
 
-Port of the fold planner of esm_tpu/parallel/memory_plan.py:84-232
-(``_held_output_bytes_per_pair``, ``plan_fold``, ``max_fold_length``) for
-one device: no mesh, a pair-shard factor of 1. ``hbm_bytes=None`` means the
-memory of the device the caller names (``device``; the GPU when none is
-named): the card's ``total_memory``, or the host's physical memory for the
-CPU. The server derives its fold-length cap from ``max_fold_length``.
+Port of esm_tpu/parallel/memory_plan.py. The mesh half (:func:`plan`,
+:func:`plan_model`, :func:`plan_train`, :func:`plan_train_lora`) charges a
+rank the parameter bytes that ``parallel.sharding.shard_params`` leaves on
+it, exactly: the specs are the sharding's, and shards are even (the
+sharding refuses the others; esm_tpu's plan takes the ceiling). The model
+is built on the ``meta`` device, so no memory is allocated. The fold half
+(``_held_output_bytes_per_pair``, :func:`plan_fold`,
+:func:`max_fold_length`, :184-232) is for one device: a pair-shard factor
+of 1 (the sharded fold is ROADMAP Queue 1, item 13c).
+
+The training plan's activation term is the eager port's, measured on the
+card (``ACT_UNITS``; esm_tpu's 10 through ``act_units``), as the fold's
+working set is (``PAIR_TEMPS``); the LoRA plan keeps esm_tpu's terms (not
+measured on the card). ``hbm_bytes=None`` means the memory
+of the device the caller names (``device``; the GPU when none is named):
+the card's ``total_memory``, or the host's physical memory for the CPU.
+The server derives its fold-length cap from ``max_fold_length``.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import Dict, Optional
 
 import torch
+
+from .mesh import AXES, MeshConfig
 
 
 def device_memory_bytes(device=None) -> int:
@@ -25,6 +40,166 @@ def device_memory_bytes(device=None) -> int:
     if device.type == "cuda":
         return int(torch.cuda.get_device_properties(device).total_memory)
     return int(os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES"))
+
+
+# bf16 values a training step holds per layer, per token and per feature:
+# the saved matrix-product outputs of remat "dots" with flash attention;
+# esm_tpu charges 10 (XLA's fused program). The eager port's steps fit 7.81
+# (ESM2-650M, B=8 x 1024: peak 15.822 GB) and 3.98 (ESM2-3B, B=8 x 1024:
+# 51.437 GB) on the card (chip_smoke.py [shard]; NVIDIA H100 80GB HBM3,
+# 700.00 W); 8 covers both (+0.9% and +12% over their peaks).
+ACT_UNITS = 8
+
+
+def _verdict(total: float, hbm_bytes: int) -> str:
+    """"fits" with 10% of the device free, "close" down to 5% over, else "over"."""
+    headroom = hbm_bytes - total
+    if headroom > 0.1 * hbm_bytes:
+        return "fits"
+    return "close" if headroom > -0.05 * hbm_bytes else "over"
+
+
+def plan(model: torch.nn.Module, mesh_cfg: MeshConfig, dtype_bytes: Optional[int] = None) -> Dict:
+    """{"total_bytes", "per_device_bytes", "largest_param_bytes"} of a model's
+    parameters and int8 scales on ``mesh_cfg`` (esm_tpu :18): each entry
+    divided by the shard factor of its spec (``sharding.param_specs``).
+    ``model`` may live on the ``meta`` device. ``dtype_bytes`` overrides
+    every entry's element size. The largest parameter is esm_tpu's largest
+    leaf: one parameter's tensors in all layers (``io.from_jax.jax_leaf``)."""
+    from ..io.from_jax import jax_leaf
+    from .sharding import _sharded_entries, param_specs, shard_factor
+
+    sizes = dict(zip(AXES, mesh_cfg.shape))
+    specs = param_specs(model)
+    total = per_dev = 0
+    leaves: Dict[tuple, int] = {}
+    for name, t in _sharded_entries(model).items():
+        nbytes = t.numel() * (dtype_bytes or t.element_size())
+        shard_bytes = -(-nbytes // shard_factor(specs[name], sizes))
+        total += nbytes
+        per_dev += shard_bytes
+        leaf = jax_leaf(name)[0]
+        leaves[leaf] = leaves.get(leaf, 0) + shard_bytes
+    return {"total_bytes": total, "per_device_bytes": per_dev,
+            "largest_param_bytes": max(leaves.values(), default=0)}
+
+
+@functools.lru_cache(maxsize=8)
+def _meta_model(cfg, dtype: Optional[torch.dtype]) -> torch.nn.Module:
+    from ..models import esm2
+
+    model = esm2.ESM2(cfg, device="meta")
+    return model if dtype is None else model.to(dtype)
+
+
+def plan_model(cfg, mesh_cfg: MeshConfig, dtype: Optional[torch.dtype] = None) -> Dict:
+    """:func:`plan` of an ESM-2 of ``cfg`` built on the meta device (no
+    memory allocated), its parameters in ``dtype`` (fp32 by default)."""
+    return plan(_meta_model(cfg, dtype), mesh_cfg)
+
+
+def plan_train(
+    cfg,
+    mesh_cfg: MeshConfig,
+    batch: int,
+    seqlen: int,
+    *,
+    accum_steps: int = 1,
+    mu_dtype_bytes: int = 4,
+    factored: bool = False,
+    seq_shards: int = 1,
+    hbm_bytes: Optional[int] = None,
+    device=None,
+    act_units: float = ACT_UNITS,
+) -> Dict:
+    """Estimate a rank's memory for one MLM training step (AdamW, remat and
+    flash attention: the configuration ``training.train_step`` targets;
+    esm_tpu :235).
+
+    Model: fp32 parameters + AdamW mu/nu + gradients (+ an accumulation
+    buffer) + the activations: per layer ``act_units`` x D x T x B bf16
+    values of saved products, and the fp32 logits. B
+    and T are a rank's (the batch over data x fsdp, T over ``seq_shards``).
+    Use the verdict ("fits" / "close" / "over"), not the raw number."""
+    if hbm_bytes is None:
+        hbm_bytes = device_memory_bytes(device)
+    per_dev_params = plan_model(cfg, mesh_cfg)["per_device_bytes"]
+    if factored:  # adafactor: row/column statistics only, no mu
+        opt = per_dev_params // 500
+    else:
+        opt = per_dev_params * (mu_dtype_bytes / 4.0) + per_dev_params  # mu + nu
+    grads = per_dev_params
+    micro_b = max(1, batch // accum_steps)
+    accum_buf = per_dev_params if accum_steps > 1 else 0
+    dp = mesh_cfg.data * mesh_cfg.fsdp
+    b_local = -(-micro_b // dp)
+    d = cfg.embed_dim
+    t_local = -(-seqlen // max(seq_shards, 1))
+    acts = cfg.num_layers * (act_units * d * t_local * b_local * 2)
+    logits = b_local * t_local * getattr(cfg, "alphabet_size", 33) * 4
+    total = per_dev_params + opt + grads + accum_buf + acts + logits
+    return {
+        "per_device_bytes": int(total),
+        "params_bytes": int(per_dev_params),
+        "optimizer_bytes": int(opt),
+        "grads_bytes": int(grads + accum_buf),
+        "activations_bytes": int(acts + logits),
+        "hbm_bytes": hbm_bytes,
+        "verdict": _verdict(total, hbm_bytes),
+    }
+
+
+def plan_train_lora(
+    cfg,
+    mesh_cfg: MeshConfig,
+    batch: int,
+    seqlen: int,
+    *,
+    rank: int,
+    base_dtype_bytes: int = 2,
+    remat_policy: str = "dots",
+    seq_shards: int = 1,
+    hbm_bytes: Optional[int] = None,
+    device=None,
+) -> Dict:
+    """Estimate a rank's memory for one LoRA step (``training.train_step_lora``;
+    esm_tpu :297): the frozen base in its storage dtype (2 = bf16, 1 = int8,
+    4 = fp32) + fp32 adapters with AdamW moments and gradients + the
+    activations: 15 x D x T x B x 2 bytes a layer under "dots", the layer
+    inputs and one layer's recompute under "full"; an int8 base adds
+    12 x D^2 x 2 x 4 bytes of backward weight transients.
+    Use the verdict, not the raw number."""
+    if hbm_bytes is None:
+        hbm_bytes = device_memory_bytes(device)
+    bf16 = plan_model(cfg, mesh_cfg, dtype=torch.bfloat16)["per_device_bytes"]
+    base = bf16 // 2 if base_dtype_bytes == 1 else bf16 * (base_dtype_bytes // 2)
+    d = cfg.embed_dim
+    # q/k/v/o: 4(D r + r D) = 8 D r; fc1/fc2: (D r + r 4D) + (4D r + r D) = 10 D r
+    adapters = cfg.num_layers * 18 * d * rank * 4  # fp32
+    opt = 2 * adapters
+    grads = adapters
+    dp = mesh_cfg.data * mesh_cfg.fsdp
+    b_local = -(-batch // dp)
+    t_local = -(-seqlen // max(seq_shards, 1))
+    layer_body = 15 * d * t_local * b_local * 2
+    if remat_policy == "full":
+        acts = cfg.num_layers * (b_local * t_local * d * 2) + layer_body
+    else:
+        acts = cfg.num_layers * layer_body
+    weight_transients = 12 * d * d * 2 * 4 if base_dtype_bytes == 1 else 0
+    logits = b_local * t_local * getattr(cfg, "alphabet_size", 33) * 4
+    total = base + adapters + opt + grads + acts + weight_transients + logits
+    return {
+        "per_device_bytes": int(total),
+        "params_bytes": int(base),
+        "adapter_bytes": int(adapters),
+        "optimizer_bytes": int(opt),
+        "grads_bytes": int(grads),
+        "activations_bytes": int(acts + logits),
+        "weight_transient_bytes": int(weight_transients),
+        "hbm_bytes": hbm_bytes,
+        "verdict": _verdict(total, hbm_bytes),
+    }
 
 
 # Compute-dtype pair tensors the trunk holds at its peak, beside s_z_0 and
@@ -138,11 +313,7 @@ def plan_fold(
     outputs = held_outputs * (pairs * out_pair_bytes + out_linear)
 
     total = params_bytes + lm_act + trunk_work + outputs
-    headroom = hbm_bytes - total
-    verdict = (
-        "fits" if headroom > 0.1 * hbm_bytes
-        else ("close" if headroom > -0.05 * hbm_bytes else "over")
-    )
+    verdict = _verdict(total, hbm_bytes)
     return {
         "per_device_bytes": int(total),
         "params_bytes": int(params_bytes),

@@ -5,18 +5,19 @@ Port of esm_tpu/parallel/mesh.py. One global mesh with named dimensions
     ("data", "fsdp", "tp")
 
   * data: batch parallelism;
-  * fsdp: parameter sharding in esm_tpu; here the parameters stay
-    replicated (parameter sharding is not ported yet, ROADMAP Queue 1 item
-    13b), so the port's sequence-parallel paths use it as a second batch
-    dimension;
-  * tp: the ring of sequence parallelism (``ring_attention``): the T axis
-    is split over it.
+  * fsdp: ZeRO-3 parameter sharding (``sharding.shard_params``): each rank
+    holds a shard of every weight, gathered per layer; the batch is split
+    over (data, fsdp);
+  * tp: Megatron tensor parallelism for a sharded model (heads and MLP
+    columns split over it), or the ring of sequence parallelism
+    (``ring_attention``, whose parameters stay replicated, so fsdp splits
+    only its batch): the T axis is split over it.
 
 A mesh is a ``torch.distributed.device_mesh.DeviceMesh`` over the ranks of
 the default process group, one rank per GPU (NCCL), or per CPU process
 (gloo) when the caller asks for the CPU. esm_tpu's ``named`` (a
-NamedSharding for a PartitionSpec) has no counterpart until parameter
-sharding lands.
+NamedSharding for a PartitionSpec) has no counterpart: a sharded model
+carries its placement (``sharding.Sharding``).
 """
 
 from __future__ import annotations

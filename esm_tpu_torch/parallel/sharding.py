@@ -1,0 +1,415 @@
+"""Parameter sharding of ESM-2 over the (data, fsdp, tp) mesh.
+
+Port of esm_tpu/parallel/sharding.py. The placement rules are esm_tpu's
+(``spec_for_param`` :43): Megatron tensor parallelism over ``tp`` and
+ZeRO-3 over ``fsdp``:
+
+  * q/k/v and fc1 are column-parallel: their outputs over ``tp``, their
+    inputs over ``fsdp`` (gathered per layer before it runs);
+  * out_proj and fc2 are row-parallel: their inputs over ``tp`` (partial
+    sums all-reduced), their outputs over ``fsdp``;
+  * the token embedding holds its features over ``tp`` (the tied LM head
+    contracts over them, so its partial logits are all-reduced);
+  * the LM head's dense layer is column-parallel;
+  * norms, the contact head and the row-parallel biases are replicated;
+    int8 ``scale``s follow the bias rules;
+  * activations: the batch over (data, fsdp); the tp ranks hold the same
+    rows and all of T (:func:`batch_rows`).
+
+The port's ``nn.Linear.weight`` is (out, in), the transpose of esm_tpu's
+(in, out) ``kernel``: esm_tpu's (fsdp, tp) is (tp, fsdp) here. A spec names,
+per dimension of the port's tensor, the mesh axis it is split over (or None).
+
+:func:`shard_params` keeps on each rank only its shard of every parameter,
+so its resident bytes are what ``memory_plan.plan`` charges. A sharded
+model carries its :class:`Sharding`, which ``esm2.apply``, the layers and
+the training step read; the collectives are in ``tensor_parallel``. With
+a four-axis mesh whose outermost axis is ``pp`` (``pipeline.make_pp_mesh``)
+the layers are split into stages as well: a rank keeps its stage's layers
+only.
+
+Shards must be even: a dimension that the mesh axes do not divide is
+refused, so every ``all_gather_into_tensor`` and ``reduce_scatter_tensor``
+sees equal pieces and the plan's bytes are exact.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.distributed as dist
+from torch import nn
+
+from . import tensor_parallel as tpar
+from .mesh import AXES, AXIS_DATA, AXIS_FSDP, AXIS_TP
+
+AXIS_PP = "pp"
+COLUMN_PARALLEL = ("q_proj", "k_proj", "v_proj", "fc1")
+ROW_PARALLEL = ("out_proj", "fc2")
+
+Spec = Tuple[Optional[str], ...]
+
+
+def spec_for(name: str, ndim: int) -> Spec:
+    """The spec of one state-dict entry (parameter or int8 scale), by name."""
+    parts = name.split(".")
+    leaf = parts[-1]
+    replicated = (None,) * ndim
+    if "embed_tokens" in parts or name == "lm_head.weight":  # the tied projection
+        return (None, AXIS_TP)
+    owner = next((p for p in parts if p in COLUMN_PARALLEL + ROW_PARALLEL), None)
+    if owner in COLUMN_PARALLEL:
+        return (AXIS_TP, AXIS_FSDP) if leaf == "weight" else (AXIS_TP,)
+    if owner in ROW_PARALLEL:
+        return (AXIS_FSDP, AXIS_TP) if leaf == "weight" else replicated
+    if parts[0] == "lm_head" and "dense" in parts:
+        # esm_tpu replicates the dense layer's int8 scale (no rule names it)
+        return {"weight": (AXIS_TP, AXIS_FSDP), "bias": (AXIS_TP,)}.get(leaf, replicated)
+    return replicated
+
+
+def _sharded_entries(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """The tensors a sharded model splits: its parameters (the tied
+    projection once) and its int8 scales, by state-dict name; not the
+    rotary ``inv_freq`` buffers (replicated, and not parameters in esm_tpu)."""
+    out = dict(model.named_parameters())
+    for name, buf in model.named_buffers():
+        if name.rpartition(".")[2].endswith("scale"):
+            out[name] = buf
+    return out
+
+
+def param_specs(model: nn.Module) -> Dict[str, Spec]:
+    """Spec of every parameter and int8 scale of ``model``, by state-dict name."""
+    return {name: spec_for(name, t.dim()) for name, t in _sharded_entries(model).items()}
+
+
+def shard_factor(spec: Spec, sizes: Dict[str, int]) -> int:
+    n = 1
+    for axis in spec:
+        if axis is not None:
+            n *= sizes.get(axis, 1)
+    return n
+
+
+def _check_family(model) -> None:
+    from ..models import esm2
+
+    if not isinstance(model, esm2.ESM2):
+        raise NotImplementedError(
+            f"parameter sharding covers ESM-2 only; {type(model).__name__} is not sharded "
+            "yet (ROADMAP Queue 1, item 13d)")
+
+
+def _layer_of(name: str) -> Optional[int]:
+    parts = name.split(".")
+    return int(parts[1]) if parts[0] == "layers" else None
+
+
+class Elsewhere(nn.Module):
+    """The place of a layer that another pipeline stage holds."""
+
+
+class Sharding:
+    """A sharded model's place on the mesh: each axis's process group (None
+    for an axis of size 1), size and this rank's coordinate; the combined
+    (data, fsdp) group of the batch rows; the specs; with a ``pp`` axis the
+    stage this rank runs and its layers. Every rank of the mesh must build
+    it at the same time (it creates process groups)."""
+
+    def __init__(self, mesh, specs: Dict[str, Spec], num_layers: int):
+        names = tuple(mesh.mesh_dim_names)
+        if names not in (AXES, (AXIS_PP,) + AXES):
+            raise ValueError(f"a sharding mesh has axes {AXES} (optionally 'pp' first): {names}")
+        self.mesh = mesh
+        self.specs = specs
+        self.sizes = {a: mesh.size(i) for i, a in enumerate(names)}
+        self.coords = {a: mesh.get_local_rank(a) for a in names}
+        self.group = {a: mesh.get_group(a) if self.sizes[a] > 1 else None for a in names}
+        self.group["dp"] = self._rows_group(mesh, names)
+        self.stages = self.sizes.get(AXIS_PP, 1)
+        self.layer_ids = stage_layers(num_layers, self.stages, self.coords.get(AXIS_PP, 0))
+
+    @staticmethod
+    def _rows_group(mesh, names):
+        """The process group over (data, fsdp) that holds this rank (every
+        rank creates every such group, as new_group requires)."""
+        data, fsdp = mesh.size(names.index(AXIS_DATA)), mesh.size(names.index(AXIS_FSDP))
+        if data == 1 or fsdp == 1:
+            return mesh.get_group(AXIS_FSDP if data == 1 else AXIS_DATA) if data * fsdp > 1 \
+                else None
+        ranks = mesh.mesh
+        order = [names.index(a) for a in names if a not in (AXIS_DATA, AXIS_FSDP)]
+        ranks = ranks.permute(*order, names.index(AXIS_DATA), names.index(AXIS_FSDP))
+        mine = None
+        for row in ranks.reshape(-1, data * fsdp).tolist():
+            group = dist.new_group(row)
+            if dist.get_rank() in row:
+                mine = group
+        return mine
+
+    @property
+    def tp(self):
+        return self.group[AXIS_TP]
+
+    @property
+    def fsdp(self):
+        return self.group[AXIS_FSDP]
+
+    def axes_of(self, name: str):
+        """The mesh axes ``name`` is split over (``pp`` for a stage's layer)."""
+        axes = {a for a in self.specs[name] if a is not None}
+        if self.stages > 1 and _layer_of(name) is not None:
+            axes.add(AXIS_PP)
+        return axes
+
+    def counts_once(self, name: str) -> bool:
+        """Whether this rank is the one copy of ``name``'s shard that a sum
+        over the mesh counts: coordinate 0 on every axis it is replicated over."""
+        axes = self.axes_of(name)
+        return all(self.coords[a] == 0 for a in self.coords if a not in axes)
+
+    # -- the pieces ---------------------------------------------------------
+
+    def cut(self, name: str, full: torch.Tensor) -> torch.Tensor:
+        """This rank's shard of the whole tensor ``full`` of entry ``name``."""
+        out = full
+        for dim, axis in enumerate(self.specs[name]):
+            if axis is None or self.sizes[axis] == 1:
+                continue
+            n = self.sizes[axis]
+            if out.shape[dim] % n:
+                raise ValueError(
+                    f"{name}: dimension {dim} of size {full.shape[dim]} does not split evenly "
+                    f"over the {axis!r} axis of size {n}")
+            out = out.chunk(n, dim=dim)[self.coords[axis]]
+        return out.contiguous()
+
+    def whole(self, name: str, local: torch.Tensor) -> torch.Tensor:
+        """The whole tensor of entry ``name`` from every rank's shard, a new
+        tensor (every rank of the mesh calls it; not differentiable)."""
+        out = local
+        for dim, axis in enumerate(self.specs[name]):
+            if axis is not None:
+                out = tpar.all_gather(out, dim, self.group[axis])
+        return local.clone() if out is local else out
+
+    # -- the layers ---------------------------------------------------------
+
+    def gather_layer(self, layer, dtype: Optional[torch.dtype] = None):
+        """A stand-in for ``layer`` whose weights are gathered over fsdp
+        (ZeRO-3; their tp shards stay) as ``dtype``, the compute dtype:
+        column-parallel weights along their input dimension, row-parallel
+        ones along their output dimension."""
+        from types import SimpleNamespace
+
+        g = self.fsdp
+        attn = layer.self_attn
+        gather = lambda lin, dim: tpar.gather_linear(lin, dim, g, dtype=dtype)  # noqa: E731
+        return SimpleNamespace(
+            self_attn=SimpleNamespace(
+                q_proj=gather(attn.q_proj, 1),
+                k_proj=gather(attn.k_proj, 1),
+                v_proj=gather(attn.v_proj, 1),
+                out_proj=gather(attn.out_proj, 0)),
+            self_attn_layer_norm=layer.self_attn_layer_norm,
+            fc1=gather(layer.fc1, 1),
+            fc2=gather(layer.fc2, 0),
+            final_layer_norm=layer.final_layer_norm,
+        )
+
+    # -- the gradients ------------------------------------------------------
+
+    def sync_grads(self, model: nn.Module) -> None:
+        """Make every parameter's ``.grad`` its shard of the whole batch's
+        gradient: the fsdp-sharded weights were reduce-scattered over fsdp by
+        their gathers' backward and are all-reduced over data; the others
+        over (data, fsdp); the parameters every pipeline stage holds over pp
+        too (each stage's share of their gradient: the embedding's input on
+        the first, the head on the last). A parameter without a gradient
+        takes zeros, so every rank issues the same collectives."""
+        works = []
+        for name, p in model.named_parameters():
+            if not p.requires_grad:
+                continue
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            axes = self.axes_of(name)
+            groups = [self.group[AXIS_DATA] if AXIS_FSDP in axes else self.group["dp"]]
+            if self.stages > 1 and AXIS_PP not in axes:
+                groups.append(self.group[AXIS_PP])
+            groups = [g for g in groups if g is not None]
+            for group in groups[:-1]:  # the last sum reads the earlier ones
+                dist.all_reduce(p.grad, group=group)
+            if groups:
+                works.append(dist.all_reduce(p.grad, group=groups[-1], async_op=True))
+        for work in works:
+            work.wait()
+
+    def norm_sq(self, tensors: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """sum over the whole model of sum(t * t), each shard once: the
+        copies of replicated entries count on one rank only."""
+        total = sum(torch.sum(t * t) if self.counts_once(name) else torch.zeros_like(t.sum())
+                    for name, t in tensors.items())
+        if dist.get_world_size() > 1:
+            dist.all_reduce(total)
+        return total
+
+
+def stage_layers(num_layers: int, stages: int, stage: int) -> range:
+    """The layers of pipeline stage ``stage`` of ``stages``: L/S each, in order."""
+    if num_layers % stages:
+        raise ValueError(f"{num_layers} layers not divisible by {stages} stages")
+    per = num_layers // stages
+    return range(stage * per, (stage + 1) * per)
+
+
+def sharding_of(model: nn.Module) -> Optional[Sharding]:
+    """The :class:`Sharding` of a sharded model, or None."""
+    return model.__dict__.get("_sharding")
+
+
+@torch.no_grad()
+def _shard_module(module: nn.Module, prefix: str, sharding: Sharding, dtype,
+                  skip: Optional[str] = None) -> None:
+    """Replace each parameter's and int8 scale's data of ``module`` (whose
+    names in the model start with ``prefix``) by this rank's shard; names
+    that start with ``skip`` are left as they are."""
+    for name, p in list(module.named_parameters(recurse=True)):
+        if skip is not None and name.startswith(skip):
+            continue
+        local = sharding.cut(prefix + name, p.data)
+        if dtype is not None and local.is_floating_point():
+            local = local.to(dtype)
+        p.data = local
+    for name, buf in list(module.named_buffers(recurse=True)):
+        full = prefix + name
+        if full in sharding.specs and not (skip is not None and name.startswith(skip)):
+            owner, _, attr = name.rpartition(".")
+            target = module.get_submodule(owner) if owner else module
+            target._buffers[attr] = sharding.cut(full, buf)
+
+
+def shard_params(model_or_parts, mesh, *, dtype: Optional[torch.dtype] = None) -> nn.Module:
+    """Keep on this rank only its shard of every parameter of an ESM-2 and
+    attach the :class:`Sharding` (every rank of ``mesh`` calls it alike).
+
+    ``model_or_parts``: a whole ``esm2.ESM2``, or a layer-at-a-time builder
+    as ``esm2.init_parts`` and ``examples.esm2_15b_int8_single_chip.
+    seeded_parts`` yield one: (cfg, the shell without layers), then each
+    layer. Each layer is cut as soon as it arrives, and the shell when the
+    builder has ended (``init_parts`` fills its head last), so no rank ever
+    holds more than the shell and one whole layer; with a ``pp`` axis, the
+    layers of other stages are dropped. ``dtype`` casts the floating
+    shards (e.g. ``torch.bfloat16`` for a bf16 forward). Returns the model."""
+    if isinstance(model_or_parts, nn.Module):
+        model, layers = model_or_parts, None
+    else:
+        parts = iter(model_or_parts)
+        cfg, model = next(parts)
+        layers = parts
+    _check_family(model)
+    cfg = model.cfg
+    sharding = Sharding(mesh, param_specs(model), cfg.num_layers)
+    if cfg.attention_heads % sharding.sizes[AXIS_TP]:
+        raise ValueError(f"{cfg.attention_heads} attention heads do not split evenly over the "
+                         f"'tp' axis of size {sharding.sizes[AXIS_TP]}")
+    if layers is None:
+        for i, layer in enumerate(model.layers):
+            if i not in sharding.layer_ids:
+                model.layers[i] = Elsewhere()
+        _shard_module(model, "", sharding, dtype)
+    else:
+        for i, layer in enumerate(layers):
+            if i not in sharding.layer_ids:
+                model.layers.append(Elsewhere())
+                continue
+            prefix = f"layers.{i}."
+            sharding.specs.update(
+                {prefix + n: s for n, s in param_specs(layer).items()})
+            _shard_module(layer, prefix, sharding, dtype)
+            model.layers.append(layer)
+        if len(model.layers) != cfg.num_layers:
+            raise ValueError(f"the builder gave {len(model.layers)} layers, the config "
+                             f"{cfg.num_layers}")
+        _shard_module(model, "", sharding, dtype, skip="layers.")
+    model.__dict__["_sharding"] = sharding
+    return model
+
+
+def batch_rows(x: torch.Tensor, sharding_or_mesh, dim: int = 0) -> torch.Tensor:
+    """This rank's rows of a full batch that every rank holds: rows over
+    (data, fsdp), the data coordinate outermost; the tp (and pp) ranks hold
+    the same rows and the whole of T (``mesh.local_shard`` splits T: that is
+    the ring's layout, not this one)."""
+    s = sharding_or_mesh
+    if isinstance(s, Sharding):
+        data, fsdp = s.sizes[AXIS_DATA], s.sizes[AXIS_FSDP]
+        row = s.coords[AXIS_DATA] * fsdp + s.coords[AXIS_FSDP]
+    else:
+        data, fsdp = s.size(s.mesh_dim_names.index(AXIS_DATA)), s.size(
+            s.mesh_dim_names.index(AXIS_FSDP))
+        row = s.get_local_rank(AXIS_DATA) * fsdp + s.get_local_rank(AXIS_FSDP)
+    n = data * fsdp
+    if x.shape[dim] % n:
+        raise ValueError(f"batch {x.shape[dim]} is not divisible by the {n} row shards "
+                         f"(data x fsdp) of the mesh")
+    return x.chunk(n, dim=dim)[row] if n > 1 else x
+
+
+def dp_sum(t: torch.Tensor, sharding: Sharding) -> torch.Tensor:
+    """``t`` summed over the (data, fsdp) ranks, in place."""
+    if sharding.group["dp"] is not None:
+        dist.all_reduce(t, group=sharding.group["dp"])
+    return t
+
+
+def iter_whole_state(model: nn.Module, tensors: Optional[Dict[str, torch.Tensor]] = None):
+    """(name, whole tensor) of each entry of a sharded model's state dict (or
+    of ``tensors``, keyed like its parameters, e.g. optimizer moments), one
+    entry at a time, gathered over the mesh onto the shards' device: a
+    caller that lets each go before taking the next holds one whole entry
+    at a time. Every rank iterates it alike. With a ``pp`` axis, the stages
+    are not gathered: a rank gets its own stage's layers."""
+    sharding = sharding_of(model)
+    source = model.state_dict() if tensors is None else tensors
+    for name, t in source.items():
+        key = "embed_tokens.weight" if name == "lm_head.weight" else name
+        yield name, (sharding.whole(key, t.detach()) if key in sharding.specs
+                     else t.detach().clone())
+
+
+def whole_state(model: nn.Module, tensors: Optional[Dict[str, torch.Tensor]] = None,
+                ) -> Dict[str, torch.Tensor]:
+    """:func:`iter_whole_state` as one dict: every whole entry at once, on
+    every rank (for a small model; a checkpoint gathers one at a time)."""
+    return dict(iter_whole_state(model, tensors))
+
+
+@torch.no_grad()
+def load_whole_state(model: nn.Module, state: Dict[str, torch.Tensor]) -> nn.Module:
+    """Copy a whole state dict (as saved from any mesh, or unsharded) into a
+    sharded model: each rank takes its shard. Strict: the names must match."""
+    sharding = sharding_of(model)
+    own = model.state_dict()
+    if own.keys() != state.keys():
+        missing, extra = own.keys() - state.keys(), state.keys() - own.keys()
+        raise KeyError(f"state dict mismatch: missing {sorted(missing)}, unexpected "
+                       f"{sorted(extra)}")
+    for name, dst in own.items():
+        key = "embed_tokens.weight" if name == "lm_head.weight" else name
+        src = state[name]
+        dst.copy_(sharding.cut(key, src) if key in sharding.specs else src)
+    return model
+
+
+def cut_like(model: nn.Module, tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """This rank's shards of whole tensors keyed like the model's parameters."""
+    sharding = sharding_of(model)
+    return {n: sharding.cut(n, t) for n, t in tensors.items()}
+
+
+def resident_bytes(model: nn.Module) -> int:
+    """Bytes of the parameters and int8 scales this rank holds."""
+    return sum(t.numel() * t.element_size() for t in _sharded_entries(model).values())

@@ -556,8 +556,8 @@ class ESMFoldHandle:
         with flash raises: K1 has no float16 path."""
         if "pair_spec" in trunk_updates:
             raise NotImplementedError(
-                "pair_spec: the sharded pair tensor waits for parameter sharding, not ported "
-                "yet (ROADMAP Queue 1, item 13b)")
+                "pair_spec: the sharded pair tensor of the sharded fold is not ported yet "
+                "(ROADMAP Queue 1, item 13c)")
         cfg = self.cfg
         lm = {k: v for k, v in (("compute_dtype", lm_dtype), ("use_flash", use_flash))
               if v is not None}

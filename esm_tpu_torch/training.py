@@ -35,13 +35,21 @@ What differs from the JAX package, and why:
     ``requires_grad`` off), where esm_tpu passes it to the step as a
     separate tree; the optimizers cover the parameters that require grad.
   * The sequence-parallel step keeps the parameters replicated on every
-    rank and all-reduces their gradients (parameter sharding is not ported
-    yet). Not ported yet (ROADMAP Queue 1, item 13b): the pipelined step.
+    rank and all-reduces their gradients.
+  * A model sharded by ``parallel.sharding.shard_params`` trains through
+    the same steps (:func:`train_step`, :func:`train_step_accum`): every
+    rank passes the whole batch and keeps its rows; the NLL sums and counts
+    are summed over (data, fsdp), the gradients reduce-scattered over fsdp
+    by the layers' gathers and all-reduced over data, and the optimizers run
+    on the shards (the global-norm clip sums every shard once). Adafactor's
+    row and column statistics are not those of a shard: it refuses a
+    sharded model. :func:`train_step_pp` is the pipelined step.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import math
 from dataclasses import dataclass, fields
@@ -55,7 +63,10 @@ from torch import nn
 from . import lora as _lora
 from .io.from_jax import jax_leaf
 from .models import esm2
+from .ops.common import layer_norm
+from .ops.heads import roberta_lm_head
 from .parallel.mesh import local_shard
+from .parallel.sharding import batch_rows, dp_sum, sharding_of
 
 
 @dataclass
@@ -106,11 +117,17 @@ def _grads(params: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return {n: p.grad if p.grad is not None else torch.zeros_like(p) for n, p in params.items()}
 
 
-def _clip_by_global_norm(grads: Dict[str, torch.Tensor], max_norm: Optional[float]):
-    """optax.clip_by_global_norm."""
+def _clip_by_global_norm(grads: Dict[str, torch.Tensor], max_norm: Optional[float],
+                         shard=None):
+    """optax.clip_by_global_norm. ``shard``: the model's Sharding; the norm
+    is then the whole model's, each shard counted once (a replicated
+    parameter's copies are not added up)."""
     if max_norm is None:
         return grads
-    norm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
+    if shard is not None:
+        norm = torch.sqrt(shard.norm_sq(grads))
+    else:
+        norm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
     keep = norm < max_norm
     return {n: torch.where(keep, g, (g / norm) * max_norm) for n, g in grads.items()}
 
@@ -166,7 +183,7 @@ class AdamW:
     def update(self, model: nn.Module, state: AdamWState) -> None:
         """One step: the parameters and ``state`` change in place."""
         params = trainable(model)
-        grads = _clip_by_global_norm(_grads(params), self.grad_clip_norm)
+        grads = _clip_by_global_norm(_grads(params), self.grad_clip_norm, sharding_of(model))
         if not self.weight_decay:
             decay = {}
         elif self.decay_all:
@@ -266,6 +283,10 @@ class Adafactor:
         return plan
 
     def init(self, model: nn.Module) -> AdafactorState:
+        if sharding_of(model) is not None:
+            raise NotImplementedError(
+                "adafactor on a sharded model: its row and column statistics would be a "
+                "shard's, not the whole matrix's (ROADMAP Queue 1, item 13d)")
         plan = self._plan(model)
         v_row, v_col, v = {}, {}, {}
         for name, p in model.named_parameters():
@@ -410,6 +431,10 @@ def _mlm_terms(model, cfg, corrupted, targets, target_mask, apply_fn=None):
     the tokens. ``apply_fn`` is the family's apply (esm2.apply by default;
     esm1.apply, msa_transformer.apply)."""
     logits = (apply_fn or esm2.apply)(model, cfg, corrupted)["logits"]
+    return _terms_of_logits(logits, targets, target_mask)
+
+
+def _terms_of_logits(logits, targets, target_mask):
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
     w = target_mask.to(nll.dtype)
@@ -439,16 +464,25 @@ def _step(state: TrainState, tx, loss_fn, context=None) -> Tuple[TrainState, dic
     ``context`` (the backward, and remat's recompute, need what the forward
     had), then one update of ``state.model``'s parameters. Metrics stay on
     the device."""
+    def loss_and_grads():
+        with context or contextlib.nullcontext():
+            loss, metrics = loss_fn()
+            loss.backward()
+        return {k: v.detach() for k, v in metrics.items()}
+
+    return _grads_step(state, tx, loss_and_grads)
+
+
+def _grads_step(state: TrainState, tx, loss_and_grads) -> Tuple[TrainState, dict]:
+    """``loss_and_grads()`` (which leaves each parameter's ``.grad`` and
+    returns the metrics) on zeroed gradients, then one update of
+    ``state.model``'s parameters."""
     model = state.model
     model.zero_grad(set_to_none=True)
-    with context or contextlib.nullcontext():
-        loss, metrics = loss_fn()
-        loss.backward()
+    metrics = loss_and_grads()
     tx.update(model, state.opt_state)
     model.zero_grad(set_to_none=True)
-    return TrainState(model, state.opt_state, state.step + 1), {
-        k: v.detach() for k, v in metrics.items()
-    }
+    return TrainState(model, state.opt_state, state.step + 1), metrics
 
 
 @contextlib.contextmanager
@@ -465,6 +499,54 @@ def frozen_and_patched(base: nn.Module, adapters: _lora.LoRA, scale: float):
     finally:
         for p, flag in flags:
             p.requires_grad_(flag)
+
+
+def _mlm_piece(model, cfg, corrupted, targets, target_mask, apply_fn):
+    nll_sum, aux = mlm_loss_sums(model, cfg, corrupted, targets, target_mask, apply_fn)
+    return nll_sum, aux["correct"], aux["count"]
+
+
+def _mlm_pieces(model, cfg, batch, accum_steps: int, apply_fn=None):
+    """One loss piece (see :func:`_mlm_backward`) per microbatch of ``batch``
+    = (corrupted, targets, target_mask), split into ``accum_steps``."""
+    return [functools.partial(_mlm_piece, model, cfg, *mb, apply_fn)
+            for mb in zip(*(x.chunk(accum_steps) for x in batch))]
+
+
+def _mlm_backward(model: nn.Module, pieces, sum_over=None) -> torch.Tensor:
+    """The backward of the masked-LM loss of ``pieces``: callables, one per
+    microbatch, each returning (its NLL sum, with the graph; its correct
+    count; its masked count). The three sums over every piece, and with
+    ``sum_over`` (an in-place sum, e.g. over the ranks that hold other rows)
+    over the group, give the one denominator: a single piece's NLL sum is
+    divided by it before its backward; several pieces' NLL-sum gradients
+    add up and are divided once. Each parameter's ``.grad`` is left holding
+    this rank's part. Returns the sums (nll, correct, count)."""
+    if len(pieces) == 1:
+        nll_sum, correct, count = pieces[0]()
+        sums = torch.stack([nll_sum.detach(), correct, count])
+        if sum_over is not None:
+            sum_over(sums)
+        (nll_sum / sums[2].clamp_min(1.0)).backward()
+        return sums
+    sums = 0.0
+    for piece in pieces:
+        nll_sum, correct, count = piece()
+        nll_sum.backward()
+        sums = sums + torch.stack([nll_sum.detach(), correct, count])
+    if sum_over is not None:
+        sum_over(sums)
+    denom = sums[2].clamp_min(1.0)
+    for p in model.parameters():
+        if p.grad is not None:
+            p.grad.div_(denom)
+    return sums
+
+
+def _metrics(sums: torch.Tensor) -> dict:
+    """The step's metrics from :func:`_mlm_backward`'s sums."""
+    denom = sums[2].clamp_min(1.0)
+    return {"loss": sums[0] / denom, "acc": sums[1] / denom, "num_masked": sums[2]}
 
 
 def train_step_corrupted(
@@ -487,29 +569,14 @@ def train_step_corrupted(
         raise ValueError(
             f"batch {corrupted.shape[0]} not divisible by accum_steps={accum_steps}"
         )
-    if accum_steps == 1:
-        return _step(state, tx, lambda: mlm_loss(state.model, cfg, corrupted, targets,
-                                                 target_mask, apply_fn))
     model = state.model
-    model.zero_grad(set_to_none=True)
-    nll = correct = count = 0.0
-    for c, t, m in zip(corrupted.chunk(accum_steps), targets.chunk(accum_steps),
-                       target_mask.chunk(accum_steps)):
-        nll_sum, aux = mlm_loss_sums(model, cfg, c, t, m, apply_fn)
-        nll_sum.backward()
-        nll = nll + nll_sum.detach()
-        correct = correct + aux["correct"]
-        count = count + aux["count"]
-    denom = count.clamp_min(1.0)
-    for p in model.parameters():
-        if p.grad is not None:
-            p.grad.div_(denom)
-    metrics = {"loss": nll / denom, "acc": correct / denom, "num_masked": count}
-    tx.update(model, state.opt_state)
-    model.zero_grad(set_to_none=True)
-    return TrainState(model, state.opt_state, state.step + 1), {
-        k: v.detach() for k, v in metrics.items()
-    }
+    if sharding_of(model) is not None:
+        return _grads_step(state, tx, lambda: sharded_loss_and_grads(
+            model, cfg, corrupted, targets, target_mask, accum_steps=accum_steps,
+            apply_fn=apply_fn))
+    batch = (corrupted, targets, target_mask)
+    return _grads_step(state, tx, lambda: _metrics(_mlm_backward(
+        model, _mlm_pieces(model, cfg, batch, accum_steps, apply_fn))))
 
 
 def train_step(state: TrainState, cfg: esm2.ESM2Config, tx,
@@ -531,6 +598,87 @@ def train_step_accum(state: TrainState, cfg: esm2.ESM2Config, tx,
                                 accum_steps=accum_steps)
 
 
+def sharded_loss_and_grads(model: nn.Module, cfg, corrupted: torch.Tensor,
+                           targets: torch.Tensor, target_mask: torch.Tensor, *,
+                           accum_steps: int = 1, apply_fn=None) -> dict:
+    """The masked-LM loss of a full (B, T) batch that every rank of a sharded
+    model's mesh holds: each rank keeps its rows (``batch_rows``; the tp
+    ranks the same ones), the NLL sums and counts are summed over (data,
+    fsdp) before the division, and each parameter's ``.grad`` is left
+    holding its shard of the whole batch's gradient (``Sharding.sync_grads``).
+    With ``accum_steps`` > 1 a rank's rows run as that many microbatches
+    whose NLL-sum gradients add up and are divided once. Returns the
+    metrics."""
+    shard = sharding_of(model)
+    rows = [batch_rows(x, shard) for x in (corrupted, targets, target_mask)]
+    sums = _mlm_backward(model, _mlm_pieces(model, cfg, rows, accum_steps, apply_fn),
+                         functools.partial(dp_sum, sharding=shard))
+    shard.sync_grads(model)
+    return _metrics(sums)
+
+
+def pp_loss_and_grads(model: nn.Module, cfg: esm2.ESM2Config, corrupted: torch.Tensor,
+                      targets: torch.Tensor, target_mask: torch.Tensor, *,
+                      num_microbatches: int) -> dict:
+    """:func:`sharded_loss_and_grads` through the GPipe pipeline of a model
+    sharded over a pp mesh: the embedding on every stage (stage 0 feeds
+    it), the layer stack as ``num_microbatches`` microbatches through the
+    stages, the final LN, head and loss on the last stage, then the reverse
+    schedule (parallel/pipeline.py). The metrics are the last stage's,
+    broadcast to every stage."""
+    from .parallel.pipeline import Stage, pipeline_backward, pipeline_forward, stage_function
+
+    shard = sharding_of(model)
+    st = Stage(shard.mesh)
+    corrupted, targets, target_mask = (batch_rows(x, shard)
+                                       for x in (corrupted, targets, target_mask))
+    x = esm2.embed_tokens(model, cfg, corrupted)
+    static = dataclasses.replace(cfg.layer_static(), shard=shard)
+    run = stage_function([model.layers[i] for i in shard.layer_ids], static)
+    kw = dict(mesh=shard.mesh, num_microbatches=num_microbatches)
+    inputs, outputs = pipeline_forward(run, x, corrupted == cfg.padding_idx, keep_graph=True,
+                                       **kw)
+    sums = torch.zeros(3, device=x.device)
+    grads = None
+    if st.is_last:
+        hs = [o.detach().requires_grad_() for o in outputs]
+
+        def head_piece():
+            h = layer_norm(model.emb_layer_norm_after, torch.cat(hs))
+            logits = roberta_lm_head(model.lm_head, h.float(), model.embed_tokens.weight, shard)
+            nll_w, correct, w = _terms_of_logits(logits, targets, target_mask)
+            return nll_w.sum(), correct.sum(), w.sum()
+
+        sums = _mlm_backward(model, [head_piece], functools.partial(dp_sum, sharding=shard))
+        grads = [hh.grad for hh in hs]
+    in_grads = pipeline_backward(inputs, outputs, grads, **kw)
+    if st.index == 0:
+        x.backward(torch.cat(in_grads))
+    if st.group is not None:
+        dist.broadcast(sums, src=st.last, group=st.group)
+    shard.sync_grads(model)
+    return _metrics(sums)
+
+
+def train_step_pp_corrupted(state: TrainState, cfg: esm2.ESM2Config, tx, corrupted: torch.Tensor,
+                            targets: torch.Tensor, target_mask: torch.Tensor, *,
+                            num_microbatches: int) -> Tuple[TrainState, dict]:
+    """:func:`train_step_pp` on a given full-batch corruption."""
+    return _grads_step(state, tx, lambda: pp_loss_and_grads(
+        state.model, cfg, corrupted, targets, target_mask, num_microbatches=num_microbatches))
+
+
+def train_step_pp(state: TrainState, cfg: esm2.ESM2Config, tx, generator: torch.Generator,
+                  tokens: torch.Tensor, *, num_microbatches: int) -> Tuple[TrainState, dict]:
+    """Pipeline-parallel MLM step (esm_tpu/training.py:546): the objective of
+    :func:`train_step`, with the layer stack run as a GPipe pipeline over the
+    model's ``pp`` mesh axis (tp and fsdp inside each stage). Every rank
+    passes the same full batch and a generator in the same state."""
+    corrupted, target_mask = _corrupt_batch(cfg, generator, tokens)
+    return train_step_pp_corrupted(state, cfg, tx, corrupted, tokens, target_mask,
+                                   num_microbatches=num_microbatches)
+
+
 def seq_loss_and_grads(model: nn.Module, cfg: esm2.ESM2Config, corrupted: torch.Tensor,
                        targets: torch.Tensor, target_mask: torch.Tensor, *, mesh,
                        seq_axis: str = "tp") -> dict:
@@ -542,20 +690,14 @@ def seq_loss_and_grads(model: nn.Module, cfg: esm2.ESM2Config, corrupted: torch.
     ``.grad`` is left holding the gradient of the whole batch's loss, summed
     over all ranks (every rank's local loss reaches the other ranks' keys
     and values through the backward ring). Returns the metrics."""
-    shard = lambda x: local_shard(x, mesh, seq_axis=seq_axis)
-    nll_w, correct, w = _mlm_terms(model, cfg, shard(corrupted), shard(targets),
-                                   shard(target_mask),
-                                   functools.partial(esm2.apply, ring=(mesh, seq_axis)))
-    nll_sum = nll_w.sum()
-    sums = torch.stack([nll_sum.detach(), correct.sum(), w.sum()])
-    dist.all_reduce(sums)
-    denom = sums[2].clamp_min(1.0)
-    (nll_sum / denom).backward()
+    rows = [local_shard(x, mesh, seq_axis=seq_axis) for x in (corrupted, targets, target_mask)]
+    ring = functools.partial(esm2.apply, ring=(mesh, seq_axis))
+    sums = _mlm_backward(model, _mlm_pieces(model, cfg, rows, 1, ring), dist.all_reduce)
     works = [dist.all_reduce(p.grad, async_op=True)
              for p in model.parameters() if p.grad is not None]
     for work in works:
         work.wait()
-    return {"loss": sums[0] / denom, "acc": sums[1] / denom, "num_masked": sums[2]}
+    return _metrics(sums)
 
 
 def train_step_seq_corrupted(state: TrainState, cfg: esm2.ESM2Config, tx,
@@ -566,13 +708,8 @@ def train_step_seq_corrupted(state: TrainState, cfg: esm2.ESM2Config, tx,
     every rank): :func:`seq_loss_and_grads`, then one optimizer update of the
     replicated parameters, which every rank makes alike (the global-norm
     clip sees the whole gradient)."""
-    model = state.model
-    model.zero_grad(set_to_none=True)
-    metrics = seq_loss_and_grads(model, cfg, corrupted, targets, target_mask, mesh=mesh,
-                                 seq_axis=seq_axis)
-    tx.update(model, state.opt_state)
-    model.zero_grad(set_to_none=True)
-    return TrainState(model, state.opt_state, state.step + 1), metrics
+    return _grads_step(state, tx, lambda: seq_loss_and_grads(
+        state.model, cfg, corrupted, targets, target_mask, mesh=mesh, seq_axis=seq_axis))
 
 
 def train_step_seq(state: TrainState, cfg: esm2.ESM2Config, tx, generator: torch.Generator,
@@ -583,8 +720,9 @@ def train_step_seq(state: TrainState, cfg: esm2.ESM2Config, tx, generator: torch
     activations are O(T/N) per rank. Every rank passes the same tokens and a
     ``generator`` in the same state, so all draw the same corruption of the
     full batch, then keep their shards. The parameters stay replicated on
-    every rank (parameter sharding is not ported yet): until it is, the
-    mesh's ``fsdp`` dimension splits the batch as ``data`` does."""
+    every rank (sequence parallelism does not compose with
+    ``parallel.sharding``), so the mesh's ``fsdp`` dimension splits the
+    batch as ``data`` does here."""
     corrupted, target_mask = _corrupt_batch(cfg, generator, tokens)
     return train_step_seq_corrupted(state, cfg, tx, corrupted, tokens, target_mask, mesh=mesh,
                                     seq_axis=seq_axis)
@@ -766,7 +904,13 @@ def eval_step(model: nn.Module, cfg, generator: torch.Generator,
     """Masked-LM evaluation on one batch: the training corruption
     (deterministic given ``generator``), returning per-sequence sums
     {"nll_sum", "correct", "count"}, each (B,), so callers aggregate an exact
-    masked perplexity, exp(sum nll / sum count), over any number of batches."""
+    masked perplexity, exp(sum nll / sum count), over any number of batches.
+    On a sharded model every rank passes the full batch and gets its rows'
+    sums."""
     corrupted, target_mask = _corrupt_batch(cfg, generator, tokens)
+    shard = sharding_of(model)
+    if shard is not None:  # this rank's rows of the full batch
+        corrupted, tokens, target_mask = (batch_rows(x, shard)
+                                          for x in (corrupted, tokens, target_mask))
     nll_w, correct, w = _mlm_terms(model, cfg, corrupted, tokens, target_mask)
     return {"nll_sum": nll_w.sum(-1), "correct": correct.sum(-1), "count": w.sum(-1)}

@@ -1,0 +1,313 @@
+"""Rank bodies of the parameter-sharding and pipeline tests
+(tests/test_torch_sharding.py, tests/test_torch_pipeline.py,
+tests/test_torch_pretrain_mesh.py).
+
+Each body runs in one of ``world`` processes spawned by :func:`spawn` over a
+gloo process group whose FileStore lives in the test's temporary directory,
+with one CPU thread. This module imports no JAX, so the spawned processes
+never do: the parent passes esm_tpu's results in and each rank returns what
+the parent asserts on.
+"""
+
+import contextlib
+import io
+import os
+import time
+import weakref
+
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+from esm_tpu_torch import training
+from esm_tpu_torch.data import Alphabet
+from esm_tpu_torch.io import checkpoint
+from esm_tpu_torch.models import esm2
+from esm_tpu_torch.parallel import pipeline, sharding
+from esm_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+from esm_tpu_torch.quantization import quantize_params
+
+JOIN_TIMEOUT = 240  # seconds a spawned group may take; a hung collective fails one test
+
+
+def spawn(body, world: int, inputs: dict, tmp_path) -> list:
+    """Run ``body(inputs, rank)`` on ``world`` gloo ranks; returns each rank's
+    result, in rank order. Raises when a rank fails or the group outlasts
+    JOIN_TIMEOUT."""
+    torch.save(inputs, tmp_path / "inputs.pt")
+    ctx = mp.start_processes(_main, args=(world, body.__name__, str(tmp_path)), nprocs=world,
+                             join=False, start_method="spawn")
+    deadline = time.monotonic() + JOIN_TIMEOUT
+    while not ctx.join(timeout=1):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise TimeoutError(f"{body.__name__}: {world} ranks did not end in {JOIN_TIMEOUT} s")
+    return [torch.load(tmp_path / f"out{r}.pt", weights_only=False) for r in range(world)]
+
+
+def _main(rank: int, world: int, body: str, tmp: str) -> None:
+    torch.set_num_threads(1)
+    store = dist.FileStore(os.path.join(tmp, "store"), world)
+    dist.init_process_group("gloo", store=store, rank=rank, world_size=world)
+    try:
+        inputs = torch.load(os.path.join(tmp, "inputs.pt"), weights_only=False)
+        torch.save(globals()[body](inputs, rank), os.path.join(tmp, f"out{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _mesh(shape):
+    return make_mesh(MeshConfig(*shape), device_type="cpu")
+
+
+def _model(inp, sharded_on=None, **options):
+    cfg = esm2.ESM2Config.from_alphabet(Alphabet.from_architecture("ESM-1b"), **inp["size"],
+                                        **options)
+    model = esm2.ESM2(cfg, device="cpu")
+    model.load_state_dict(inp["state_dict"], strict=True)
+    if inp.get("int8"):
+        quantize_params(model, min_size=1)
+    if sharded_on is not None:
+        sharding.shard_params(model, sharded_on)
+    return model, cfg
+
+
+def _errors(fn):
+    try:
+        fn()
+    except (ValueError, NotImplementedError) as e:
+        return str(e)
+    return "no error"
+
+
+@torch.no_grad()
+def forward_body(inp: dict, rank: int) -> dict:
+    """esm2.apply on each mesh of ``inp["want"]``, exact and flash, on this
+    rank's rows: logits and representations beside esm_tpu's on that mesh
+    (cut to the same rows), and each rank's resident parameter bytes. With
+    ``inp["int8_mesh"]`` the int8 forward on that mesh; with ``inp["maps"]``
+    (a mesh) the attention maps and contacts, both contact paths; with
+    ``inp["uneven"]`` (a mesh and a model size) the refusal of an uneven
+    shard."""
+    out = {}
+    meshes = {}
+    for shape, want in inp["want"].items():
+        mesh = meshes[shape] = _mesh(shape)
+        rows = lambda x, dim=0: sharding.batch_rows(x, mesh, dim=dim)  # noqa: E731
+        for use_flash in (False, True):
+            model, cfg = _model(inp, mesh, use_flash=use_flash)
+            res = esm2.apply(model, cfg, rows(inp["tokens"]), return_representations=True)
+            out[f"{shape}/{'flash' if use_flash else 'exact'}"] = {
+                "logits": res["logits"], "want_logits": rows(want["logits"]),
+                "reps": res["representations"], "want_reps": rows(want["reps"], 1)}
+        out[f"{shape}/bytes"] = sharding.resident_bytes(model)
+    if "int8_mesh" in inp:
+        mesh = meshes[inp["int8_mesh"]]
+        model, cfg = _model(dict(inp, int8=True), mesh)
+        rows = sharding.batch_rows(inp["tokens"], mesh)
+        out["int8"] = {"logits": esm2.apply(model, cfg, rows)["logits"],
+                       "want_logits": sharding.batch_rows(inp["int8_logits"], mesh),
+                       "dtype": model.layers[0].fc1.weight.dtype}
+    if "maps" in inp:
+        mesh = meshes[inp["maps"]]
+        model, cfg = _model(inp, mesh)
+        rows = lambda x: sharding.batch_rows(x, mesh)  # noqa: E731
+        res = esm2.apply(model, cfg, rows(inp["tokens"]), need_head_weights=True,
+                         return_contacts=True)
+        streamed = esm2.apply(model, cfg, rows(inp["tokens"]), return_contacts=True)
+        out["maps"] = {"attentions": res["attentions"], "contacts": res["contacts"],
+                       "streamed": streamed["contacts"],
+                       "want_attentions": rows(inp["attentions"]),
+                       "want_contacts": rows(inp["contacts"])}
+    if "uneven" in inp:
+        shape, size = inp["uneven"]
+        cfg = esm2.ESM2Config.from_alphabet(Alphabet.from_architecture("ESM-1b"), **size)
+        model = esm2.ESM2(cfg, device="cpu")
+        out["uneven"] = _errors(lambda: sharding.shard_params(model, meshes[shape]))
+    return out
+
+
+def _whole_grads(model):
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    return sharding.whole_state(model, grads)
+
+
+def _step_pieces(model, tx, state, loss_and_grads, grads_in) -> dict:
+    """Step 0 in pieces: the loss and the gradients (gathered whole), the
+    global norm the optimizer's clip sees, then the optimizer update on
+    ``grads_in`` (whole gradients, each rank given its shards: the update
+    is then a function of the same numbers on both sides; an Adam step
+    divides by |g| + 1e-8, so it would turn roundoff-level gradient
+    differences into visible ones) with the parameters gathered whole."""
+    model.zero_grad(set_to_none=True)
+    metrics = loss_and_grads()
+    grads = _whole_grads(model)
+    shard = sharding.sharding_of(model)
+    norm = torch.sqrt(shard.norm_sq({n: p.grad for n, p in model.named_parameters()}))
+    for name, p in model.named_parameters():
+        p.grad = shard.cut(name, grads_in[name]).clone()
+    tx.update(model, state.opt_state)
+    model.zero_grad(set_to_none=True)
+    params = {n: t for n, t in sharding.whole_state(model).items() if n in grads}
+    return {"loss": metrics["loss"].item(), "grads": grads, "norm": norm.item(),
+            "params": params}
+
+
+def train_body(inp: dict, rank: int) -> dict:
+    """Step 0 of a sharded train step on each case of ``inp["cases"]`` (mesh
+    shape, model options, grad clip) with esm_tpu's corruption, then a
+    whole step; and of the pipelined step on each of ``inp["pp_cases"]``
+    ((pp, data, fsdp, tp), microbatches, options)."""
+    out = {}
+    batch = (inp["corrupted"], inp["tokens"], inp["target_mask"])
+    for tag, shape, options, clip in inp.get("cases", ()):
+        mesh = _mesh(shape)
+        model, cfg = _model(inp, mesh, **options)
+        tx = training.make_optimizer(1e-3, warmup_steps=0, total_steps=10, grad_clip_norm=clip)
+        state = training.init_state(model, tx)
+        out[tag] = _step_pieces(model, tx, state, lambda: training.sharded_loss_and_grads(
+            model, cfg, *batch), inp["grads"])
+        state, metrics = training.train_step_corrupted(state, cfg, tx, *batch)
+        out[tag]["loss1"] = metrics["loss"].item()
+    for tag, shape, m, options in inp.get("pp_cases", ()):
+        mesh = pipeline.make_pp_mesh(*shape, device_type="cpu")
+        model, cfg = _model(inp, mesh, **options)
+        tx = training.make_optimizer(1e-3, warmup_steps=0, total_steps=10)
+        state = training.init_state(model, tx)
+        # a stage's tensors only: the parent puts the stages together
+        out[tag] = _step_pieces(model, tx, state, lambda: training.pp_loss_and_grads(
+            model, cfg, *batch, num_microbatches=m), inp["grads"])
+    return out
+
+
+@torch.no_grad()
+def pipeline_body(inp: dict, rank: int) -> dict:
+    """apply_pipelined on each ((pp, data, fsdp, tp), microbatches) of
+    ``inp["cases"]``; the validation errors."""
+    out = {}
+    for shape, m in inp["cases"]:
+        mesh = pipeline.make_pp_mesh(*shape, device_type="cpu")
+        model, cfg = _model(inp, mesh)
+        shard = sharding.sharding_of(model)
+        out[(shape, m)] = {
+            "logits": esm2.apply_pipelined(model, cfg, sharding.batch_rows(inp["tokens"], shard),
+                                           num_microbatches=m)["logits"],
+            "want": sharding.batch_rows(inp["want"][(shape, m)], shard)}
+    mesh = pipeline.make_pp_mesh(4, tp=2, device_type="cpu")
+    model, cfg = _model(inp, mesh)
+    out["batch_error"] = _errors(lambda: esm2.apply_pipelined(model, cfg, inp["tokens"],
+                                                              num_microbatches=3))
+    out["apply_error"] = _errors(lambda: esm2.apply(model, cfg, inp["tokens"]))
+    six = dict(inp, size=dict(inp["size"], num_layers=6), state_dict=inp["six_layers"])
+    out["layers_error"] = _errors(lambda: _model(six, mesh))
+    # the generic schedule: a per-stage affine map, checked in closed form
+    st = pipeline.Stage(mesh)
+    w = float(st.index + 1)
+    x = torch.arange(24.0).reshape(6, 2, 2)
+    out["generic"] = pipeline.pipeline_apply(lambda h, aux: h * w, x, mesh=mesh,
+                                             num_microbatches=3)
+    return out
+
+
+@contextlib.contextmanager
+def _gathered_bytes():
+    """Counts the bytes of the whole entries ``Sharding.whole`` gathers that
+    are alive at once; yields {"peak": the most}."""
+    live = {"now": 0, "peak": 0}
+    real = sharding.Sharding.whole
+
+    def let_go(n):
+        live["now"] -= n
+
+    def whole(self, name, local):
+        out = real(self, name, local)
+        n = out.numel() * out.element_size()
+        live["now"] += n
+        live["peak"] = max(live["peak"], live["now"])
+        weakref.finalize(out, let_go, n)
+        return out
+
+    sharding.Sharding.whole = whole
+    try:
+        yield live
+    finally:
+        sharding.Sharding.whole = real
+
+
+def checkpoint_body(inp: dict, rank: int) -> dict:
+    """Save a sharded model's parameters and its train state after one step
+    on ``inp["mesh"]`` (and return them gathered, with the most bytes of
+    gathered whole entries the saves held at once); load the unsharded save
+    of the parent onto the mesh and return it gathered whole."""
+    mesh = _mesh(inp["mesh"])
+    model, cfg = _model(inp, mesh)
+    tx = training.make_optimizer(1e-3, warmup_steps=0, total_steps=10)
+    state = training.init_state(model, tx)
+    state, _ = training.train_step_corrupted(
+        state, cfg, tx, inp["corrupted"], inp["tokens"], inp["target_mask"])
+    with _gathered_bytes() as live:
+        checkpoint.save_params(inp["dir"] + "/params", model)
+        checkpoint.save_train_state(inp["dir"] + "/state", state)
+    mine = {"params": sharding.whole_state(model),
+            "mu": sharding.whole_state(model, state.opt_state.mu),
+            "nu": sharding.whole_state(model, state.opt_state.nu),
+            "save_peak_bytes": live["peak"]}
+    # the reverse: a whole (one-device) save onto this mesh
+    other, _ = _model(inp, mesh)
+    checkpoint.load_params(inp["dir"] + "/one_device", other)
+    fresh = training.init_state(other, tx)
+    checkpoint.load_train_state(inp["dir"] + "/one_device_state", fresh)
+    return {"params": sharding.whole_state(other),
+            "mu": sharding.whole_state(other, fresh.opt_state.mu),
+            "step": fresh.step, "count": fresh.opt_state.count, "saved": mine}
+
+
+def pretrain_body(inp: dict, rank: int) -> dict:
+    """cli.pretrain on the ranks, as a torchrun launch runs it, for each argv
+    of ``inp["runs"]``: rank 0's log, each step's loss (recorded around
+    training.train_step), the final parameters gathered whole; the message
+    of each refused argv of ``inp["refused"]``."""
+    from esm_tpu_torch.cli import pretrain
+
+    def whole_init(*args, **kwargs):
+        raise AssertionError("the mesh run built the whole model (esm2.init)")
+
+    out = {"runs": [], "refused": []}
+    real, real_init = training.train_step, esm2.init
+    esm2.init = whole_init
+    for argv in inp["runs"]:
+        losses = []
+
+        def step(*a, **k):
+            state, metrics = real(*a, **k)
+            losses.append(metrics["loss"].item())
+            return state, metrics
+
+        training.train_step = step
+        buf = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(buf):
+                state = pretrain.run(pretrain.create_parser().parse_args(argv))
+        finally:
+            training.train_step = real
+        out["runs"].append({"log": buf.getvalue(), "losses": losses,
+                            "params": sharding.whole_state(state.model)})
+    esm2.init = real_init
+    for argv in inp.get("refused", ()):
+        try:
+            pretrain.run(pretrain.create_parser().parse_args(argv))
+            out["refused"].append("no error")
+        except SystemExit as e:
+            out["refused"].append(str(e))
+    return out
+
+
+def example_body(inp: dict, rank: int) -> dict:
+    """examples.esm2_infer_sharded on the ranks: its log."""
+    from esm_tpu_torch.examples import esm2_infer_sharded
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        esm2_infer_sharded.main(inp["argv"])
+    return {"log": buf.getvalue()}

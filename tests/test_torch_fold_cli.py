@@ -113,13 +113,44 @@ def test_fold_cli_skips_a_batch_that_runs_out_of_memory(cache, tmp_path, monkeyp
     assert "Failed (OOM) on sequence short" in caplog.text
 
 
-@pytest.mark.parametrize("flag,item", [("--plan", "item 13b")])
-def test_fold_cli_unported_flags_raise(cache, tmp_path, flag, item):
+@pytest.mark.parametrize("extra", [[], ["--bucket", "--serial", "--bf16-lm"],
+                                   ["--max-tokens-per-batch", "12", "--in-flight", "3"]])
+def test_fold_cli_plan_prints_without_folding(cache, tmp_path, capsys, extra):
+    """--plan prints the worst batch's plan_fold (frugal outputs, --in-flight
+    held, --bucket rounding, the live model's bytes, the host's memory on
+    the CPU) and max_fold_length under the same flags, and folds nothing."""
+    import itertools
+
+    from esm_tpu_torch.parallel import memory_plan
+
     _, path, fasta = cache
+    out = tmp_path / "pdb"
     args = fold.create_parser().parse_args(
-        ["-i", str(fasta), "-o", str(tmp_path / "pdb"), "-m", str(path), "--cpu-only", flag])
-    with pytest.raises(NotImplementedError, match=item):
-        fold.run(args)
+        ["-i", str(fasta), "-o", str(out), "-m", str(path), "--cpu-only", "--plan", *extra])
+    assert fold.run(args) == 0
+    printed = capsys.readouterr().out
+    assert not out.exists()
+    handle = pretrained.load_esmfold(str(path), device="cpu")
+    if args.bf16_lm:
+        handle = handle.with_options(lm_dtype=torch.bfloat16)
+    ordered = sorted(SEQS.items(), key=lambda kv: len(kv[1]))
+    kw = dict(lm_dtype_bytes=2 if args.bf16_lm else 4, frugal=True,
+              held_outputs=1 if args.serial else args.in_flight, device="cpu",
+              params_bytes=sum(t.numel() * t.element_size() for t in itertools.chain(
+                  handle.model.parameters(), handle.model.buffers())))
+    plans = []
+    for _, seqs in fold.create_batched_sequence_dataset(ordered, args.max_tokens_per_batch):
+        length = max(len(ef.encode_sequence(s)[0]) for s in seqs)  # "multi": 11 + 25 linker
+        if args.bucket:
+            length = -(-length // 64) * 64
+        plans.append((memory_plan.plan_fold(handle.cfg, length, batch=len(seqs), **kw),
+                      (len(seqs), length)))
+    want, shape = max(plans, key=lambda p: p[0]["per_device_bytes"])
+    assert f"worst batch B={shape[0]} x L={shape[1]}" in printed
+    assert f"verdict: {want['verdict']}" in printed
+    assert f"({want['per_device_bytes'] / 1e9:.2f} GB of" in printed
+    assert f"~{memory_plan.max_fold_length(handle.cfg, **kw)}" in printed
+    assert f"held_outputs={kw['held_outputs']}" in printed
 
 
 def _ca(pdb: str) -> np.ndarray:
@@ -165,9 +196,9 @@ def test_handle_options(cache):
     handle = pretrained.load_esmfold(str(path), device="cpu")
     with pytest.raises(ValueError, match="no float16 path"):
         handle.with_options(lm_dtype=torch.float16, use_flash=True)
-    with pytest.raises(NotImplementedError, match="item 13b"):
+    with pytest.raises(NotImplementedError, match="item 13c"):
         handle.with_options(pair_spec=("tp",))
-    with pytest.raises(NotImplementedError, match="item 13b"):
+    with pytest.raises(NotImplementedError, match="item 13c"):
         ef.esmfold.apply_sharded()
     fp16 = handle.with_options(lm_dtype=torch.float16)
     assert fp16.cfg.esm.compute_dtype == torch.float16 and not fp16.cfg.esm.use_flash

@@ -5,7 +5,9 @@
     fold losses, the metrics, the structural dataset, the profiling
     utilities, the examples, the server, the fold memory plan, the serving
     CLI, the design apps and their examples, the mesh, ring attention, the
-    hub entry points and the NaN checks among them), pulls in neither
+    hub entry points and the NaN checks, parameter sharding, its
+    collectives, the pipeline, the scaling model and the sharded example
+    among them), pulls in neither
     ``jax``, ``optax`` nor ``esm_tpu`` (checked in a fresh interpreter);
   * no source file of the port, nor chip_smoke.py, imports ``jax``,
     ``optax`` or ``esm_tpu``;
@@ -45,7 +47,10 @@ def test_import_leaves_out_jax_and_esm_tpu():
         "        'esm_tpu_torch.examples.lm_design_fixedbb',\n"
         "        'esm_tpu_torch.examples.ppl_two_level_multimer',\n"
         "        'esm_tpu_torch.parallel.mesh', 'esm_tpu_torch.parallel.ring_attention',\n"
-        "        'esm_tpu_torch.hubconf', 'esm_tpu_torch.utils.debug'} <= set(sys.modules)\n"
+        "        'esm_tpu_torch.hubconf', 'esm_tpu_torch.utils.debug',\n"
+        "        'esm_tpu_torch.parallel.sharding', 'esm_tpu_torch.parallel.pipeline',\n"
+        "        'esm_tpu_torch.parallel.scaling', 'esm_tpu_torch.parallel.tensor_parallel',\n"
+        "        'esm_tpu_torch.examples.esm2_infer_sharded'} <= set(sys.modules)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'optax', 'esm_tpu'))\n"
         "assert not bad, bad\n"
     )
@@ -83,7 +88,8 @@ def no_cuda():
      "random_esm1", "random_msa", "predict_variants", "random_if1", "if_sample",
      "if_score", "pretrain_lora", "extract_int8", "esmfold_finetune", "ss_finetune",
      "int8_15b", "contact_prediction", "sm_only", "serve", "serve_memory", "lm_design",
-     "ppl_free_hallucination", "ppl_fixed_backbone", "make_mesh", "init_multihost", "hub"],
+     "ppl_free_hallucination", "ppl_fixed_backbone", "make_mesh", "init_multihost", "hub",
+     "make_pp_mesh", "infer_sharded"],
 )
 def test_entry_points_without_device_raise_when_cuda_absent(no_cuda, entry, tmp_path):
     from esm_tpu_torch import pretrained
@@ -156,6 +162,12 @@ def test_entry_points_without_device_raise_when_cuda_absent(no_cuda, entry, tmp_
         elif entry in ("make_mesh", "init_multihost"):
             from esm_tpu_torch.parallel import mesh
             getattr(mesh, entry)()
+        elif entry == "make_pp_mesh":
+            from esm_tpu_torch.parallel import pipeline
+            pipeline.make_pp_mesh(1)
+        elif entry == "infer_sharded":
+            from esm_tpu_torch.examples import esm2_infer_sharded as ex
+            ex.main(["--random-seed", "0", "--model", "esm2_t6_8M_UR50D"])
         elif entry == "hub":
             from esm_tpu_torch.io.export import save_esm2
             from esm_tpu_torch.models import esm2

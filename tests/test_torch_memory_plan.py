@@ -218,3 +218,98 @@ def test_configs_carry_the_same_fields():
         assert getattr(jcfg.trunk.structure_module, f) == getattr(tcfg.trunk.structure_module, f)
     for f in ("distogram_bins", "lddt_bins", "use_esm_attn_map"):
         assert getattr(jcfg, f) == getattr(tcfg, f), f
+
+
+# ---------------------------------------------------------------------------
+# The mesh half: plan, plan_model, plan_train, plan_train_lora against
+# esm_tpu's, with esm_tpu's activation constants passed in (read from no
+# module: they are the defaults of its signatures) and an explicit device size.
+
+def _lm_cfgs(name):
+    size = jesm2.ESM2_SIZES[name]
+    return (jesm2.ESM2Config.from_alphabet(JaxAlphabet.from_architecture("ESM-1b"), **size),
+            tesm2.ESM2Config.from_alphabet(Alphabet.from_architecture("ESM-1b"), **size))
+
+
+def _mesh_cfgs(shape):
+    from esm_tpu.parallel.mesh import MeshConfig as JMesh
+    from esm_tpu_torch.parallel.mesh import MeshConfig as TMesh
+
+    return JMesh(*shape), TMesh(*shape)
+
+
+def _grid():
+    """Every ESM-2 size on esm_tpu's documented layouts (scaling.DOC_ROWS:
+    (1, 1, 1), (1, 1, 4), (1, 4, 2)) and (2, 2, 2)."""
+    from esm_tpu.parallel.scaling import DOC_ROWS
+
+    shapes = sorted({kw["mesh_cfg"].shape for _, kw in DOC_ROWS} | {(2, 2, 2)})
+    return [(n, s) for n in jesm2.ESM2_SIZES for s in shapes]
+
+
+@pytest.fixture
+def jax_plan_model_once(monkeypatch):
+    """esm_tpu's plan_model traces an init per call: once per argument set here."""
+    import functools
+
+    monkeypatch.setattr(jplan, "plan_model", functools.lru_cache(maxsize=None)(jplan.plan_model))
+
+
+@pytest.mark.parametrize("name,shape", _grid())
+def test_mesh_plans_match_jax(jax_plan_model_once, name, shape):
+    import inspect
+
+    jcfg, tcfg = _lm_cfgs(name)
+    jmesh_cfg, tmesh_cfg = _mesh_cfgs(shape)
+    acts = inspect.signature(jplan.plan_train).parameters  # esm_tpu's constants live inline
+    assert "act_units" not in acts
+    esm_tpu_train = dict(act_units=10)
+    assert tplan.plan_model(tcfg, tmesh_cfg) == jplan.plan_model(jcfg, jmesh_cfg)
+    assert tplan.plan_model(tcfg, tmesh_cfg, dtype=torch.bfloat16) == jplan.plan_model(
+        jcfg, jmesh_cfg, dtype=jnp.bfloat16)
+    for batch, seqlen, kw in ((8, 1024, {}), (1, 8192, dict(mu_dtype_bytes=2, seq_shards=4)),
+                              (16, 512, dict(accum_steps=2)), (4, 1024, dict(factored=True))):
+        assert tplan.plan_train(tcfg, tmesh_cfg, batch, seqlen, hbm_bytes=HBM, **kw,
+                                **esm_tpu_train) == jplan.plan_train(
+            jcfg, jmesh_cfg, batch, seqlen, hbm_bytes=HBM, **kw)
+    for kw in (dict(rank=16), dict(rank=8, base_dtype_bytes=1), dict(rank=4, remat_policy="full"),
+               dict(rank=16, base_dtype_bytes=4, seq_shards=2)):
+        assert tplan.plan_train_lora(tcfg, tmesh_cfg, 8, 1024, hbm_bytes=HBM, **kw) == \
+            jplan.plan_train_lora(jcfg, jmesh_cfg, 8, 1024, hbm_bytes=HBM, **kw)
+
+
+def test_plan_of_a_module_matches_jax_params():
+    """plan() of a model (on the meta device, or an int8 one) against
+    esm_tpu's plan() of the same parameters."""
+    import jax
+
+    from esm_tpu.quantization import quantize_params as jquantize
+    from esm_tpu_torch.quantization import quantize_params
+
+    jcfg, tcfg = _lm_cfgs("esm2_t6_8M_UR50D")
+    params = jesm2.init(jax.random.PRNGKey(0), jcfg)
+    model = tesm2.init(tcfg, torch.Generator(), device="cpu")
+    for shape in ((1, 1, 1), (1, 2, 2), (2, 1, 4)):
+        jm, tm = _mesh_cfgs(shape)
+        assert tplan.plan(model, tm) == jplan.plan(params, jm)
+        assert tplan.plan(model, tm, dtype_bytes=2) == jplan.plan(params, jm, dtype_bytes=2)
+    quantize_params(model, min_size=1)
+    for shape in ((1, 1, 1), (2, 2, 2)):
+        jm, tm = _mesh_cfgs(shape)
+        assert tplan.plan(model, tm) == jplan.plan(jquantize(params, min_size=1), jm)
+
+
+def test_port_activation_terms():
+    """The port's default charges its own activation term (ACT_UNITS): only
+    the activations differ from esm_tpu's plan, and the device size
+    defaults to the named device's memory."""
+    jcfg, tcfg = _lm_cfgs("esm2_t33_650M_UR50D")
+    jm, tm = _mesh_cfgs((1, 1, 1))
+    want = jplan.plan_train(jcfg, jm, 8, 1024, hbm_bytes=HBM)
+    got = tplan.plan_train(tcfg, tm, 8, 1024, hbm_bytes=HBM)
+    extra = 33 * (tplan.ACT_UNITS - 10) * 1280 * 1024 * 8 * 2
+    assert got["activations_bytes"] - want["activations_bytes"] == extra
+    for k in ("params_bytes", "optimizer_bytes", "grads_bytes"):
+        assert got[k] == want[k], k
+    assert tplan.plan_train(tcfg, tm, 8, 1024, device="cpu")["hbm_bytes"] == \
+        tplan.device_memory_bytes("cpu")
