@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch / CUDA port (esm_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py                     # every phase, on one card
-    python3 chip_smoke.py --only ring,shard   # device, build, fasta, then ring and/or
-                                              # shard (e.g. on 4 cards)
+    python3 chip_smoke.py                                # every phase, on one card
+    python3 chip_smoke.py --only ring,fold-shard,shard   # device, build, fasta, then any of
+                                                         # these, in this order (e.g. on 4
+                                                         # cards)
 
 Phases, each raising on failure (nothing is caught):
   1. device   — the card's name and power limit;
@@ -86,10 +87,12 @@ Phases, each raising on failure (nothing is caught):
                 bit; examples.esm2_infer_sharded at ESM2-650M. With two or
                 more cards (--only shard on 4): the NCCL all-reduce's bus
                 bandwidth, ESM2-15B's bf16 forward at tp=4 against rank 0's
-                one-card and fp32 forwards ([ring]'s rule), full-parameter AdamW ESM2-15B steps at
-                fsdp=4 (peak beside plan_train), ESM2-3B step 0 at (fsdp, tp)
-                = (2, 2) and ESM2-650M (32 layers) train_step_pp at pp=4,
-                M=8 against one-card steps;
+                one-card and fp32 forwards ([ring]'s rule), ESM2-3B step 0
+                at (fsdp, tp) = (2, 2) and ESM2-650M (32 layers)
+                train_step_pp at pp=4, M=8 against one-card steps, then
+                full-parameter AdamW ESM2-15B steps at fsdp=4 (one row a
+                rank, bf16 first moments; peak beside plan_train), each
+                part's result printed by every rank as it ends;
   6. cli      — esm-extract (esm_tpu_torch.cli.extract.run) on the card over a
                 seeded FASTA with an esm2_t6_8M-shaped checkpoint written in
                 the reference layout, its files checked against a CPU
@@ -112,6 +115,21 @@ Phases, each raising on failure (nothing is caught):
                 it stages, and [k6-variants], its other shapes and its
                 measurement modes (loads alone, no exponentials, no bias
                 loads) at that shape;
+ 7b. fold-shard — the sharded fold (esmfold.apply_sharded: the ring LM, the
+                pair tensors row-sharded over tp) of [fold]'s handle and L=512
+                sequence on a one-rank NCCL group of this card, through
+                ESMFoldHandle.with_options(pair_spec=("tp",)).infer(mesh=):
+                positions, pLDDT, pTM and PAE equal [fold]'s fast fold bit for
+                bit, K4 36 and K6 384 launches and nothing else (K1 none), its
+                time beside [fold]'s, max_memory_reserved beside plan_fold at
+                one shard, plan_fold's verdicts at tp 1, 2, 4 for L 2048, 3072,
+                4096; K4 and K6 timed at the shapes this fold gives them. With
+                two or more cards (--only fold-shard on 4): one NCCL rank per
+                card, ESMFold v1 at L=2048 with one recycle against rank 0's
+                one-card fold ([fold]'s agreement rule), K6 192 launches a
+                rank, each rank's peak beside plan_fold at N shards, the time
+                beside the one-card fold and plan_scaling_fold; then one fold
+                at the shortest multiple of 256 the one-card plan refuses;
   8. trimul   — triangle_multiplicative_update_fused (K7 + einsum + K8)
                 against z + triangle_multiplicative_update at B=1, L=1000,
                 C=128, bf16, with the trunk's mask, under torch.no_grad():
@@ -142,8 +160,9 @@ Phases, each raising on failure (nothing is caught):
                 1024 and 2048, what each fold holds against plan_fold / 0.9,
                 the server's default fold cap equal to the plan's; /design (1
                 and 8 samples at L=250 against IFHandle.sample, the score
-                path); the learned cost units; a 3 s /profile under load
-                naming K1;
+                path); the learned cost units; three 3 s /profile captures
+                under load, each naming K1 (with its device batches, CPU
+                operators and CUDA runtime calls);
  11. cli-serve — python -m esm_tpu_torch.cli.serve as a process (--bf16
                 --flash, a save_esm2 checkpoint in a temporary ESM_TPU_CACHE):
                 its /embed against the in-process handle bit for bit, SIGINT;
@@ -270,6 +289,7 @@ Exits non-zero, with no result line, when there is no GPU or when the port's
 package is not beside this file. Imports nothing of JAX or esm_tpu.
 """
 
+import collections
 import contextlib
 import io
 import json
@@ -314,6 +334,7 @@ FOLD_CA_RMSD, FOLD_PLDDT, FOLD_PTM = 2.0, 2.0, 0.02
 # places than the kernels, which gate in fp32: 5e-2 relative.
 TRIMUL_AB_TOL = 5e-2
 CLI_FOLD_TOL = 5e-3  # A, the fold CLI's PDBs on the card against a CPU run (fp32)
+SERVE_PROFILES = 3  # [serve]'s /profile captures under load, each must name K1
 TRAIN_STEPS = 6
 MEASURED = {}  # [main]'s seq/s, printed beside [serve]'s
 TRAIN_LR = 1e-6  # larger rates raised the loss of this random init on a fixed batch (PERF.md)
@@ -1587,6 +1608,11 @@ SHARD_PP_LOSS_TOL = 1e-3         # pipelined vs one-card step-0 loss, relative
 SHARD_TIMEOUT = 900              # seconds the ranks of the several-card part may take
 SHARD_15B_FWD = (4, 510)         # [shard] tp=4: ESM2-15B bf16 forward, B x L residues
 SHARD_PP_CARDS_M = 8             # pp=4: microbatches of the ESM2-650M step
+# [shard] fsdp=4: the ESM2-15B steps' learning rate. At TRAIN_LR (1e-6) this
+# random init's loss rose on every rank, 126.40 -> 175.43 -> 216.55 (PERF.md §6);
+# a smaller step tells a step too large from a wrong update (which no step
+# size makes fall).
+SHARD_15B_LR = 1e-7
 
 
 def shard_model(device, name="esm2_t33_650M_UR50D", seed=30, num_layers=None):
@@ -1929,8 +1955,9 @@ def shard_rank(rank, world, port, out_dir):
     dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=world,
                             rank=rank, timeout=datetime.timedelta(seconds=SHARD_TIMEOUT))
     res = {"seconds": {}}
-    for part in (shard_cards_allreduce, shard_cards_15b_forward, shard_cards_15b_step,
-                 shard_cards_3b, shard_cards_pp):
+    # the 15B AdamW step last: it has run out of memory on four cards
+    for part in (shard_cards_allreduce, shard_cards_15b_forward, shard_cards_3b, shard_cards_pp,
+                 shard_cards_15b_step):
         t0 = time.perf_counter()
         try:
             res[part.__name__] = part(rank, world)
@@ -1944,7 +1971,7 @@ def shard_rank(rank, world, port, out_dir):
             os._exit(1)
         res["seconds"][part.__name__] = time.perf_counter() - t0
         log(f"[shard] rank {rank}: {part.__name__} ended in "
-            f"{res['seconds'][part.__name__]:.1f} s")
+            f"{res['seconds'][part.__name__]:.1f} s: {json.dumps(res[part.__name__])[:600]}")
         torch.cuda.empty_cache()
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(res, f)
@@ -2032,9 +2059,13 @@ def shard_cards_15b_forward(rank, world):
 
 
 def shard_cards_15b_step(rank, world):
-    """fsdp=world: full-parameter AdamW ESM2-15B steps at the largest B x 1024
-    that plan_train says fits (up to 8 rows a rank), 3 steps; this rank's
-    peak beside the plan."""
+    """fsdp=world: full-parameter AdamW ESM2-15B steps at B x 1024, one row a
+    rank, first moments in bf16, 3 steps; this rank's peak beside the plan,
+    and what the train state holds before step 0. With fp32 moments the
+    step does not fit four 80 GB cards: 64.77 GB a rank before step 0, and
+    rank 0 ran out of memory in step 0's backward at 4 and at 12 rows
+    (79.2 GB allocated; plan_train 64.6 and 72.6 GB; NVIDIA H100 80GB HBM3,
+    PERF.md §6)."""
     import torch
     from esm_tpu_torch import training
     from esm_tpu_torch.parallel import memory_plan
@@ -2043,13 +2074,18 @@ def shard_cards_15b_step(rank, world):
 
     mesh_cfg = MeshConfig(1, world, 1)
     model, cfg = _seeded_sharded("esm2_t48_15B_UR50D", 39, make_mesh(mesh_cfg))
-    b = max([x for x in range(world, 9 * world, world) if memory_plan.plan_train(
-        cfg, mesh_cfg, x, 1024)["verdict"] == "fits"] or [world])
-    plan = memory_plan.plan_train(cfg, mesh_cfg, b, 1024)
+    b = world
+    plan = memory_plan.plan_train(cfg, mesh_cfg, b, 1024, mu_dtype_bytes=2)
     toks = torch.from_numpy(bench_tokens(_esm2_alphabet(), b, 1022, seed=40)).cuda()
     batch = training._corrupt_batch(cfg, torch.Generator(device="cuda").manual_seed(41), toks)
-    tx = training.make_optimizer(TRAIN_LR, warmup_steps=0, total_steps=1000)
+    tx = training.make_optimizer(SHARD_15B_LR, warmup_steps=0, total_steps=1000,
+                                 mu_dtype=torch.bfloat16)
     state = training.init_state(model, tx)
+    torch.cuda.synchronize()
+    log(f"[shard] rank {rank}: ESM2-15B fsdp={world} B={b}: {torch.cuda.memory_allocated() / 1e9:.2f}"
+        f" GB allocated before step 0 (plan_train: parameters {plan['params_bytes'] / 1e9:.2f}, "
+        f"AdamW state {plan['optimizer_bytes'] / 1e9:.2f}, gradients "
+        f"{plan['grads_bytes'] / 1e9:.2f}, activations {plan['activations_bytes'] / 1e9:.2f} GB)")
     torch.cuda.reset_peak_memory_stats()
     losses, secs = [], []
     for _ in range(3):
@@ -2161,8 +2197,8 @@ def shard_several_cards(n_cards):
                f"{fwd['agree']:.5f}; vs a streamed fp32 forward: tp {fwd['f32_err']:.4f} / "
                f"agreement {fwd['f32_agree']:.5f}, one card {fwd['one_card_f32_err']:.4f} / "
                f"{fwd['one_card_f32_agree']:.5f})" if rank == 0 else ""))
-        log(f"[shard] {world} cards, rank {rank}: ESM2-15B fsdp={world} AdamW steps at "
-            f"B={step['batch']} x 1024: losses " + ", ".join(f"{x:.5f}" for x in step["losses"])
+        log(f"[shard] {world} cards, rank {rank}: ESM2-15B fsdp={world} AdamW (bf16 first "
+            f"moments) steps at B={step['batch']} x 1024: losses " + ", ".join(f"{x:.5f}" for x in step["losses"])
             + "; s a step " + ", ".join(f"{s:.2f}" for s in step["step_s"])
             + f"; peak {step['peak_gb']:.2f} GB, plan_train {step['plan_gb']:.2f} GB "
             f"({step['verdict']})")
@@ -2534,6 +2570,7 @@ def phase_fold(card):
     fast = handle.infer([seq])
     torch.cuda.synchronize()
     counts = read_counts()
+    ref = fold_reference(fast)  # [fold-shard]'s one-rank fold must equal it
     want_k6 = 2 * cfg.trunk.num_blocks * passes
     log(f"[fold] fast preset (bf16 LM with K1, bf16 trunk with K6), B=1 L=512, {passes} passes: "
         f"launches {counts}")
@@ -2581,13 +2618,14 @@ def phase_fold(card):
         handle.infer([s])  # warm-up at this length
         torch.cuda.reset_peak_memory_stats()
         sec = timed_fold(handle, s)
+        MEASURED[f"fold_{length}_s"] = sec
         peak = torch.cuda.max_memory_allocated() / 1e9
         log(f"[fold] fast preset B=1 L={length}: {sec:.3f} s per fold, {1 / sec:.4f} folds/s, "
             f"peak memory {peak:.2f} GB (torch.cuda.max_memory_allocated; {card})")
     s = random_protein(1000, seed=1014)
     profile("one L=1000 fold (fast preset)", lambda: handle.infer([s])["positions"], top=12,
             by_op=True)
-    return counts, handle
+    return counts, handle, ref
 
 
 # esm_triangle_attention_variant's shapes and modes, measured beside the kernel
@@ -2664,6 +2702,360 @@ def measure_k6(counts):
             "replaces": "esm_tpu/kernels/triangle_attention.py:96",
             "launches": counts["triangle_attention_fused"], "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "library_ms": lib_ms}
+
+
+# --------------------------------------------------------------------------
+# The sharded fold ([fold-shard])
+# --------------------------------------------------------------------------
+
+FOLD_SHARD_L = 512                       # [fold]'s fast fold, sharded on one rank
+FOLD_SHARD_PLAN_LENGTHS = (2048, 3072, 4096)
+FOLD_SHARD_PLAN_TP = (1, 2, 4)
+FOLD_SHARD_CARDS_L = 2048                # the several-card fold (num_recycles=1)
+FOLD_SHARD_TIMEOUT = 900                 # seconds the several-card ranks may take
+FOLD_OUTPUTS = ("positions", "plddt", "ptm", "predicted_aligned_error")
+
+
+def fold_reference(out):
+    """The outputs [fold-shard] holds a sharded fold to, copied."""
+    return {k: out[k].clone() for k in FOLD_OUTPUTS + ("mean_plddt", "atom14_atom_exists")}
+
+
+def seeded_fold_handle(device="cuda"):
+    """[fold]'s ESMFold v1: seeded, fast preset, the zero layers re-drawn."""
+    from esm_tpu_torch import pretrained
+
+    handle = pretrained.random_esmfold("esmfold_v1", seed=11, device=device, fast=True)
+    redraw_zero_layers(handle.model, seed=12, device=device)
+    return handle
+
+
+def fold_plan_lines(cfg, params):
+    """plan_fold's verdicts for the sharded fold at tp x L on this card."""
+    from esm_tpu_torch.parallel.memory_plan import plan_fold
+    from esm_tpu_torch.parallel.mesh import MeshConfig
+
+    parts = []
+    for length in FOLD_SHARD_PLAN_LENGTHS:
+        for tp in FOLD_SHARD_PLAN_TP:
+            p = plan_fold(cfg, length, MeshConfig(1, 1, tp), params_bytes=params)
+            parts.append(f"L={length} tp={tp} {p['per_device_bytes'] / 1e9:.1f} GB {p['verdict']}")
+    return "; ".join(parts)
+
+
+def phase_fold_shard(card, handle=None, ref=None):
+    """The sharded fold (esmfold.apply_sharded) of [fold]'s L=512 fast fold on
+    a one-rank NCCL group of this card: equal to the unsharded fold bit for
+    bit, K4 36 and K6 384 launches (K1 none), its time and peak beside the
+    plan; with two or more cards, the several-card part. ``handle`` and
+    ``ref``: [fold]'s handle and fast fold (built here when None)."""
+    import torch
+    import torch.distributed as dist
+    from esm_tpu_torch.parallel.memory_plan import plan_fold
+    from esm_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+
+    t_phase = time.perf_counter()
+    seq = random_protein(FOLD_SHARD_L, seed=13)  # [fold]'s sequence
+    own = handle is None
+    if own:
+        handle = seeded_fold_handle()
+        ref = fold_reference(handle.infer([seq]))
+        handle.infer([seq])
+        MEASURED["fold_512_s"] = timed_fold(handle, seq)
+    cfg = handle.cfg
+    sharded = handle.with_options(pair_spec=("tp",))
+    passes = cfg.trunk.max_recycles
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", world_size=1,
+                            rank=0)
+    try:
+        mesh = make_mesh(MeshConfig(1, 1, 1))
+        zero_counts()
+        out = sharded.infer([seq], mesh=mesh)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        same = {k: torch.equal(out[k], ref[k]) for k in FOLD_OUTPUTS}
+        torch.cuda.reset_peak_memory_stats()
+        sec = timed_fold(_MeshFold(sharded, mesh), seq)
+        reserved = torch.cuda.max_memory_reserved()
+    finally:
+        dist.destroy_process_group()
+    want = {"flash_attention_with_lse": cfg.esm.num_layers,
+            "triangle_attention_fused": 2 * cfg.trunk.num_blocks * passes}
+    log(f"[fold-shard] one-rank NCCL group, ESMFold v1 fast, pair_spec ('tp',), B=1 L="
+        f"{FOLD_SHARD_L}, {passes} passes: launches {counts}; bit for bit against [fold]'s fast "
+        f"fold: {same}")
+    params = param_bytes(handle.model)
+    plan = plan_fold(sharded.cfg, FOLD_SHARD_L, MeshConfig(1, 1, 1), params_bytes=params)
+    log(f"[fold-shard] {sec:.3f} s per sharded fold against {MEASURED['fold_512_s']:.3f} s "
+        f"unsharded ([fold], L={FOLD_SHARD_L}); max_memory_reserved {reserved / 1e9:.3f} GB, "
+        f"plan_fold at one shard {plan['per_device_bytes'] / 1e9:.3f} GB ({plan['verdict']}; "
+        f"{card})")
+    log(f"[fold-shard] plan_fold on this card's {plan['hbm_bytes'] / 1e9:.1f} GB (fast, "
+        f"{params / 1e9:.2f} GB of weights): " + fold_plan_lines(sharded.cfg, params))
+    if not all(same.values()):
+        raise AssertionError(f"[fold-shard] the one-rank sharded fold differs from [fold]'s: "
+                             f"{same}")
+    if (any(counts[k] != v for k, v in want.items()) or counts["flash_attention"]
+            or sum(counts.values()) != sum(want.values())):
+        raise AssertionError(f"[fold-shard] launches {counts}, expected {want} and no other")
+    entries = measure_fold_shard_kernels(cfg, counts)
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        if own:
+            del handle, sharded, out
+            torch.cuda.empty_cache()
+        world = fold_shard_several_cards(n_cards)
+        log(f"[fold-shard] ran: the one-rank group and {world} ranks over {n_cards} cards")
+    else:
+        log("[fold-shard] ran: the one-rank group (one card present: no several-card part)")
+    log(f"[fold-shard] took {time.perf_counter() - t_phase:.1f} s")
+    return entries
+
+
+def measure_fold_shard_kernels(cfg, counts):
+    """K4 and K6 at the shapes the one-rank sharded fold gives them: the ring
+    LM's (B=1, H=40, T=L+2, d=64, no rotary, no padding) and a trunk block's
+    (B=1, I=J=L, H=4, d=32), bf16, each against its plain version, timed
+    beside scaled_dot_product_attention and the bound."""
+    import torch
+    import torch.nn.functional as F
+    from esm_tpu_torch.kernels import flash_attention as fa
+    from esm_tpu_torch.kernels import triangle_attention as ta
+
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    b, h, t = 1, cfg.esm.attention_heads, FOLD_SHARD_L + 2
+    d = cfg.esm.embed_dim // h
+    q, k, v = (torch.randn(b, h, t, d, device="cuda", generator=gen).bfloat16()
+               for _ in range(3))
+    q = q * d ** -0.5
+    k4 = lambda: fa.flash_attention_with_lse(q, k, v)
+    o4, l4 = k4()
+    r4, rl4 = fa.flash_attention_reference(q, k, v, return_lse=True)
+    err4 = max((o4.float() - r4.float()).abs().max().item(), rel_err(l4, rl4))
+    ms4 = cuda_time_ms(k4)
+    plain4 = cuda_time_ms(lambda: fa.flash_attention_reference(q, k, v, return_lse=True))
+    lib4 = cuda_time_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0))
+    flops4 = 4 * b * h * t * t * d
+    bound4, by4 = attention_bound_ms(flops4, 4 * b * h * t * d * 2 + b * h * t * 4)
+
+    i = j = FOLD_SHARD_L
+    th, td = cfg.trunk.pair_heads, cfg.trunk.pairwise_head_width
+    qt = (torch.randn(b, i, j, th, td, device="cuda", generator=gen) * td ** -0.5).bfloat16()
+    kt, vt = (torch.randn(b, i, j, th, td, device="cuda", generator=gen).bfloat16()
+              for _ in range(2))
+    tri = torch.randn(b, th, j, j, device="cuda", generator=gen)
+    mask_bias = torch.zeros(b, i, j, device="cuda")
+    k6 = lambda: ta.triangle_attention_fused(qt, kt, vt, tri, mask_bias)
+    err6 = rel_err(k6(), ta.triangle_attention_reference(qt, kt, vt, tri, mask_bias))
+    ms6 = cuda_time_ms(k6)
+    plain6 = cuda_time_ms(lambda: ta.triangle_attention_reference(qt, kt, vt, tri, mask_bias),
+                          iters=3, warmup=1)
+    qs, ks, vs = (x.reshape(b * i, j, th, td).transpose(1, 2).contiguous() for x in (qt, kt, vt))
+    bias = tri.bfloat16().expand(b * i, th, j, j)
+    lib6 = cuda_time_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=bias,
+                                                                scale=1.0), iters=5)
+    flops6 = 4 * b * i * th * j * j * td
+    bound6, by6 = attention_bound_ms(flops6, 4 * b * i * j * th * td * 2 + b * th * j * j * 4
+                                     + b * i * j * 4)
+    for tag, shape, ms, plain, lib, bound, by, err in (
+            ("k4", f"B={b} H={h} T={t} d={d}", ms4, plain4, lib4, bound4, by4, err4),
+            ("k6", f"B={b} I=J={i} H={th} d={td}", ms6, plain6, lib6, bound6, by6, err6)):
+        log(f"[fold-shard] {tag} at the one-rank sharded fold's shape ({shape}, bf16): kernel "
+            f"{ms:.4f} ms, plain {plain:.4f} ms, scaled_dot_product_attention {lib:.4f} ms, "
+            f"bound {bound:.4f} ms ({by}); err {err:.3e}")
+    if not (err4 <= BF16_TOL and err6 <= TRI_TOL["torch.bfloat16"]):
+        raise AssertionError(f"[fold-shard] K4 / K6 at the fold's shapes: err {err4}, {err6}")
+    return [
+        {"name": "flash_attention_with_lse/fold-shard", "route": "cuda",
+         "source": "esm_tpu_torch/csrc/flash_attention.cu",
+         "replaces": "esm_tpu/kernels/flash_attention.py:938",
+         "launches": counts["flash_attention_with_lse"], "max_abs_err": err4, "ms": ms4,
+         "plain_ms": plain4, "bound_ms": bound4, "bound_by": by4, "library_ms": lib4},
+        {"name": "triangle_attention_fused/fold-shard", "route": "cuda",
+         "source": "esm_tpu_torch/csrc/triangle_attention.cu",
+         "replaces": "esm_tpu/kernels/triangle_attention.py:96",
+         "launches": counts["triangle_attention_fused"], "max_abs_err": err6, "ms": ms6,
+         "plain_ms": plain6, "bound_ms": bound6, "bound_by": by6, "library_ms": lib6},
+    ]
+
+
+class _MeshFold:
+    """A handle whose infer folds on ``mesh`` (timed_fold's interface)."""
+
+    def __init__(self, handle, mesh):
+        self.handle, self.mesh = handle, mesh
+
+    def infer(self, seqs, **kw):
+        return self.handle.infer(seqs, mesh=self.mesh, **kw)
+
+
+def fold_shard_rank(rank, world, port, out_dir):
+    """One rank of [fold-shard]'s several-card part (spawned, one per card)."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=world,
+                            rank=rank, timeout=datetime.timedelta(seconds=FOLD_SHARD_TIMEOUT))
+    res = {"seconds": {}}
+    for part in (fold_shard_cards_2048, fold_shard_cards_long):
+        t0 = time.perf_counter()
+        try:
+            res[part.__name__] = part(rank, world, res)
+        except BaseException:
+            # leave at once: the other ranks' collectives would wait on this one
+            import traceback
+
+            log(f"[fold-shard] rank {rank}: {part.__name__} failed after "
+                f"{time.perf_counter() - t0:.1f} s:\n{traceback.format_exc()}")
+            os._exit(1)
+        res["seconds"][part.__name__] = time.perf_counter() - t0
+        log(f"[fold-shard] rank {rank}: {part.__name__} ended in "
+            f"{res['seconds'][part.__name__]:.1f} s")
+    res.pop("handle", None)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.destroy_process_group()
+
+
+def _sharded_fold(handle, mesh, seq, num_recycles):
+    """(output, seconds, peak allocated GB, peak reserved GB) of one sharded
+    fold on this rank, with the launch counts of the fold."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    out = handle.infer([seq], mesh=mesh, num_recycles=num_recycles)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    return (out, sec, torch.cuda.max_memory_allocated() / 1e9,
+            torch.cuda.max_memory_reserved() / 1e9, read_counts())
+
+
+def fold_shard_cards_2048(rank, world, res):
+    """ESMFold v1 fast at L=2048, one recycle, pair rows over every rank,
+    against rank 0's one-card fold of the same weights ([fold]'s agreement
+    rule); each rank's peak beside plan_fold at N shards; the time beside
+    the one-card fold and plan_scaling_fold."""
+    import torch
+    from esm_tpu_torch.parallel.memory_plan import plan_fold
+    from esm_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    from esm_tpu_torch.parallel.scaling import plan_scaling_fold
+
+    handle = seeded_fold_handle(f"cuda:{rank}")
+    res["handle"] = handle
+    seq = random_protein(FOLD_SHARD_CARDS_L, seed=17)
+    out = {}
+    if rank == 0:
+        handle.infer([random_protein(256, seed=18)], num_recycles=0)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one = handle.infer([seq], num_recycles=1)
+        torch.cuda.synchronize()
+        out["one_card_s"] = time.perf_counter() - t0
+    mesh = make_mesh(MeshConfig(1, 1, world))
+    sharded = handle.with_options(pair_spec=("tp",))
+    sharded.infer([random_protein(256, seed=18)], mesh=mesh, num_recycles=0)  # warm-up
+    got, sec, peak, reserved, counts = _sharded_fold(sharded, mesh, seq, 1)
+    plan = plan_fold(sharded.cfg, FOLD_SHARD_CARDS_L, MeshConfig(1, 1, world),
+                     params_bytes=param_bytes(handle.model))
+    pred = plan_scaling_fold(sharded.cfg, MeshConfig(1, 1, world), FOLD_SHARD_CARDS_L,
+                             num_recycles=1)
+    out.update(sharded_s=sec, peak_gb=peak, reserved_gb=reserved, counts=counts,
+               want_k6=2 * handle.cfg.trunk.num_blocks * 2,
+               plan_gb=plan["per_device_bytes"] / 1e9, verdict=plan["verdict"],
+               pred_compute_s=pred["t_compute_ms"] / 1e3, pred_link_s=pred["t_link_ms"] / 1e3,
+               finite=bool(all(torch.isfinite(got[k]).all() for k in FOLD_OUTPUTS)))
+    if rank == 0:
+        err, rmsd, dpl, dtm = fold_agreement(got, one)
+        out.update(err=err, rmsd=rmsd, dpl=dpl, dtm=dtm, plddt=got["mean_plddt"].item(),
+                   one_plddt=one["mean_plddt"].item(), ptm=got["ptm"].item(),
+                   one_ptm=one["ptm"].item())
+    del got
+    torch.cuda.empty_cache()
+    return out
+
+
+def fold_shard_cards_long(rank, world, res):
+    """One fold (no recycle) at the shortest multiple of 256 that the one-card
+    plan refuses, sharded over every rank: each rank's peak beside the plan."""
+    import torch
+    from esm_tpu_torch.parallel.memory_plan import plan_fold
+    from esm_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+
+    handle = res["handle"]
+    params = param_bytes(handle.model)
+    length = FOLD_SHARD_CARDS_L
+    while plan_fold(handle.cfg, length, params_bytes=params)["verdict"] == "fits":
+        length += 256
+    mesh = make_mesh(MeshConfig(1, 1, world))
+    sharded = handle.with_options(pair_spec=("tp",))
+    got, sec, peak, reserved, counts = _sharded_fold(sharded, mesh,
+                                                     random_protein(length, seed=19), 0)
+    one = plan_fold(handle.cfg, length, params_bytes=params)
+    plan = plan_fold(sharded.cfg, length, MeshConfig(1, 1, world), params_bytes=params)
+    return {"length": length, "sharded_s": sec, "peak_gb": peak, "reserved_gb": reserved,
+            "counts": counts, "plan_gb": plan["per_device_bytes"] / 1e9,
+            "verdict": plan["verdict"], "one_card_plan_gb": one["per_device_bytes"] / 1e9,
+            "one_card_verdict": one["verdict"],
+            "finite": bool(all(torch.isfinite(got[k]).all() for k in FOLD_OUTPUTS))}
+
+
+def fold_shard_several_cards(n_cards):
+    """One NCCL rank per card (the largest power of two not above the count)."""
+    import torch.multiprocessing as mp
+
+    world = 1 << (n_cards.bit_length() - 1)
+    with tempfile.TemporaryDirectory() as out_dir:
+        ctx = mp.start_processes(fold_shard_rank, args=(world, free_port(), out_dir),
+                                 nprocs=world, join=False, start_method="spawn")
+        deadline = time.monotonic() + FOLD_SHARD_TIMEOUT
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                raise AssertionError(f"[fold-shard] the {world} ranks did not end in "
+                                     f"{FOLD_SHARD_TIMEOUT} s")
+        results = []
+        for rank in range(world):
+            with open(os.path.join(out_dir, f"rank{rank}.json")) as f:
+                results.append(json.load(f))
+    failed = []
+    for rank, res in enumerate(results):
+        a, b = res["fold_shard_cards_2048"], res["fold_shard_cards_long"]
+        log(f"[fold-shard] {world} cards, rank {rank}: ESMFold v1 fast L={FOLD_SHARD_CARDS_L}, "
+            f"one recycle, pair tp={world}: {a['sharded_s']:.2f} s"
+            + (f" (one card {a['one_card_s']:.2f} s)" if rank == 0 else "")
+            + f", plan_scaling_fold compute {a['pred_compute_s']:.3f} s + link "
+            f"{a['pred_link_s']:.3f} s; peak {a['peak_gb']:.2f} GB allocated, "
+            f"{a['reserved_gb']:.2f} GB reserved, plan_fold {a['plan_gb']:.2f} GB "
+            f"({a['verdict']}); launches {a['counts']}")
+        log(f"[fold-shard] {world} cards, rank {rank}: L={b['length']} (the one-card plan: "
+            f"{b['one_card_plan_gb']:.2f} GB, {b['one_card_verdict']}), no recycle: "
+            f"{b['sharded_s']:.2f} s; peak {b['peak_gb']:.2f} GB allocated, "
+            f"{b['reserved_gb']:.2f} GB reserved, plan_fold {b['plan_gb']:.2f} GB "
+            f"({b['verdict']})")
+        if not (a["finite"] and b["finite"]):
+            failed.append(f"rank {rank}: non-finite outputs")
+        if (a["counts"]["triangle_attention_fused"] != a["want_k6"]
+                or a["counts"]["flash_attention"]):
+            failed.append(f"rank {rank}: launches {a['counts']} (K6 x {a['want_k6']}, no K1)")
+        if rank == 0:
+            log(f"[fold-shard] {world} cards against one card: max atom position error "
+                f"{a['err']:.4f} A, CA-RMSD {a['rmsd']:.4f} A, mean pLDDT {a['plddt']:.3f} vs "
+                f"{a['one_plddt']:.3f}, pTM {a['ptm']:.4f} vs {a['one_ptm']:.4f}; bounds "
+                f"{FOLD_CA_RMSD} A, {FOLD_PLDDT}, {FOLD_PTM}")
+            if not (a["rmsd"] <= FOLD_CA_RMSD and a["dpl"] <= FOLD_PLDDT
+                    and a["dtm"] <= FOLD_PTM):
+                failed.append("the sharded fold is off the one-card fold")
+    if failed:
+        raise AssertionError("[fold-shard] " + "; ".join(failed))
+    return world
 
 
 # K7's and K8's times at 10^6 rows, C=128, bf16, before the Hopper redesign
@@ -3289,23 +3681,31 @@ def phase_serve(card, fold):
                 http_json(srv.url, {"sequences": [seqs[i % len(seqs)]]}, "/embed")
                 i += 1
 
-        with tempfile.TemporaryDirectory() as tmp:
-            loaders = [threading.Thread(target=load) for _ in range(4)]
-            [t.start() for t in loaders]
-            time.sleep(0.5)
-            t0 = time.perf_counter()
-            prof = http_json(srv.url, {"seconds": 3, "dir": tmp}, "/profile")
-            sec = time.perf_counter() - t0
+        # several captures: one earlier capture held no kernel at all
+        loaders = [threading.Thread(target=load) for _ in range(4)]
+        [t.start() for t in loaders]
+        time.sleep(0.5)
+        try:
+            for capture in range(SERVE_PROFILES):
+                with tempfile.TemporaryDirectory() as tmp:
+                    t0 = time.perf_counter()
+                    prof = http_json(srv.url, {"seconds": 3, "dir": tmp}, "/profile")
+                    sec = time.perf_counter() - t0
+                    with open(os.path.join(tmp, "trace.json")) as f:
+                        events = json.load(f)["traceEvents"]
+                cats = collections.Counter(e.get("cat") for e in events)
+                kernels = [e for e in events if e.get("cat") == "kernel"]
+                k1 = [e for e in kernels if "flash_fwd_bf16" in e.get("name", "")]
+                log(f"[serve] /profile {capture + 1} of {SERVE_PROFILES}: {prof['batches']} "
+                    f"device batches in {sec:.2f} s under /embed load: {len(events)} trace "
+                    f"events ({cats.get('cpu_op', 0)} CPU operators, "
+                    f"{cats.get('cuda_runtime', 0)} CUDA runtime calls), {len(kernels)} kernels, "
+                    f"{len(k1)} of K1 ({k1[0]['name'][:60] if k1 else '-'})")
+                if not k1:
+                    raise AssertionError("the /profile trace names no K1 kernel")
+        finally:
             stop.set()
             [t.join() for t in loaders]
-            with open(os.path.join(tmp, "trace.json")) as f:
-                events = json.load(f)["traceEvents"]
-        kernels = [e for e in events if e.get("cat") == "kernel"]
-        k1 = [e for e in kernels if "flash_fwd_bf16" in e.get("name", "")]
-        log(f"[serve] /profile {prof} in {sec:.2f} s under /embed load: {len(events)} trace "
-            f"events, {len(kernels)} kernels, {len(k1)} of K1 ({k1[0]['name'][:60] if k1 else '-'})")
-        if not k1:
-            raise AssertionError("the /profile trace names no K1 kernel")
 
         stats = http_json(srv.url)
         log(f"[serve] /stats learned cost units after /profile {stats['cost_unit_s']}; requests {stats['requests']}, errors {stats['errors']}, "
@@ -5510,14 +5910,14 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import esm_tpu_torch  # noqa: F401  (fails when run without the repo)
 
-    # --only ring,shard: those phases alone (after device, build and fasta),
-    # e.g. on 4 cards
+    # --only ring,fold-shard,shard: those phases alone, in that order (after
+    # device, build and fasta), e.g. on 4 cards
     only = None
     if sys.argv[1:]:
         only = sys.argv[2].split(",") if len(sys.argv) == 3 and sys.argv[1] == "--only" else []
-        if not only or not set(only) <= {"ring", "shard"}:
-            print(f"chip_smoke: unknown arguments {sys.argv[1:]} (--only takes ring, shard or "
-                  "ring,shard)", file=sys.stderr)
+        if not only or not set(only) <= {"ring", "fold-shard", "shard"}:
+            print(f"chip_smoke: unknown arguments {sys.argv[1:]} (--only takes a comma-separated "
+                  "list of ring, fold-shard and shard)", file=sys.stderr)
             return 2
     t_start = time.perf_counter()
     card, smi = phase_device()
@@ -5527,6 +5927,8 @@ def main():
         kernels = []
         if "ring" in only:
             kernels += phase_ring(card)
+        if "fold-shard" in only:
+            kernels += phase_fold_shard(card)
         if "shard" in only:
             shard_counts(phase_shard(card))
         log(f"[summary] [build], [fasta] and [{'], ['.join(only)}] passed in "
@@ -5544,8 +5946,10 @@ def main():
     shard = shard_entries(k1, backward, shard_counts(phase_shard(card)))
     phase_cli()
     phase_cli_pretrain()
-    fold_counts, fold_handle = phase_fold(card)
+    fold_counts, fold_handle, fold_ref = phase_fold(card)
     k6 = measure_k6(fold_counts)
+    fold_shard = phase_fold_shard(card, fold_handle, fold_ref)
+    del fold_ref
     trimul = phase_trimul()
     phase_cli_fold()
     t_serve = time.perf_counter()
@@ -5582,7 +5986,7 @@ def main():
     log(f"[design] [design], [ppl] and [cli-design] took {time.perf_counter() - t_design:.1f} s")
     log(f"[summary] all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(smi)
-    kernels = [k1] + k1_esm1 + backward + ring + shard + [k6] + trimul
+    kernels = [k1] + k1_esm1 + backward + ring + shard + [k6] + fold_shard + trimul
     for entry in kernels:
         lib = entry["library_ms"]
         entry["vs_library"] = entry["ms"] / lib if lib else None

@@ -4,10 +4,13 @@ from .esmfold import (
     FOLD_LENGTH_BUCKET,
     ESMFold,
     ESMFoldConfig,
+    PAIR_OUTPUTS,
     apply,
+    apply_sharded,
     auto_frugal,
     batch_encode_sequences,
     encode_sequence,
+    gather_pair_outputs,
     infer,
     infer_pdb,
     infer_pdbs,

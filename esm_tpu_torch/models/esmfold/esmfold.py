@@ -4,7 +4,9 @@ Port of esm_tpu/models/esmfold/esmfold.py (reference semantics:
 esm/esmfold/v1/esmfold.py): the LM over AF2-indexed tokens (bos/eos added,
 then stripped), a softmax-weighted combination of its layers, the s (and,
 for v0, z) MLPs, the folding trunk, and the distogram / LM / pLDDT / pTM /
-PAE heads; multimer inference through the ':' linker encoding.
+PAE heads; multimer inference through the ':' linker encoding;
+:func:`apply_sharded`, one fold over a mesh with the pair tensors
+row-sharded and the LM sequence-parallel.
 
 ``ESMFold`` holds the parameters under the reference checkpoint's names
 (the key layout of esm_tpu/io/export.py:572-676, plus the LM under
@@ -105,10 +107,18 @@ class ESMFold(nn.Module):
 
 
 def _lm_representations(model: esm2.ESM2, esm_cfg: esm2.ESM2Config, esmaa: torch.Tensor,
-                        need_attn_map: bool = False):
+                        combine: torch.Tensor, need_attn_map: bool = False, ring=None):
     """Run the frozen LM with bos/eos handling (reference
-    esm/esmfold/v1/esmfold.py:118-145). Returns ((B, L, layers+1, C) in the
-    LM's dtype, the (B, L, L, layers*H) attention stack or None)."""
+    esm/esmfold/v1/esmfold.py:118-145) and combine its layers with the
+    weights ``combine`` (layers+1,) (esmfold.py:200). Returns ((B, L, C)
+    fp32, the (B, L, L, layers*H) attention stack or None).
+
+    ``ring=(mesh, axis_name)`` runs the LM sequence-parallel (ring attention
+    over the axis, ``esm2.apply`` on this rank's block of T): T = L+2 is
+    padded with <pad> columns to a multiple of the ring size, as esm_tpu
+    pads it (esm_tpu/models/esmfold/esmfold.py:117-123); padded keys are
+    masked everywhere. Each rank combines its block's layers, and the
+    (B, T, C) result is gathered once."""
     b, l = esmaa.shape
     bos = esmaa.new_full((b, 1), esm_cfg.cls_idx)
     pad = esmaa.new_full((b, 1), esm_cfg.padding_idx)
@@ -118,9 +128,27 @@ def _lm_representations(model: esm2.ESM2, esm_cfg: esm2.ESM2Config, esmaa: torch
     positions = torch.arange(esmaa.shape[1], device=esmaa.device)[None, :]
     esmaa = torch.where(positions == eos_pos[:, None], esm_cfg.eos_idx, esmaa)
 
-    res = esm2.apply(model, esm_cfg, esmaa, return_representations=True,
-                     need_head_weights=need_attn_map)
-    esm_s = res["representations"].permute(1, 2, 0, 3)  # (B, T, layers+1, C)
+    # the LM is frozen: no gradient reaches it (esm_tpu stops it at esm_s
+    # and esm_z), so its activations are not kept
+    with torch.no_grad():
+        if ring is None:
+            res = esm2.apply(model, esm_cfg, esmaa, return_representations=True,
+                             need_head_weights=need_attn_map)
+        else:
+            from ...parallel.pair_sharding import gather_rows, pair_shard
+
+            mesh, axis_name = ring
+            n = mesh.size(mesh.mesh_dim_names.index(axis_name))
+            esmaa = torch.cat([esmaa, esmaa.new_full((b, (-esmaa.shape[1]) % n),
+                                                     esm_cfg.padding_idx)], dim=1)
+            blocks = pair_shard(mesh, axis_name, esmaa.shape[1])
+            res = esm2.apply(model, esm_cfg, blocks.local(esmaa), return_representations=True,
+                             ring=ring)
+    # (L+1, B, T, C) -> (B, T, layers+1, C), combined over the layers in fp32
+    # (the combination weights' gradient is kept)
+    esm_s = torch.einsum("k,btkc->btc", combine, res["representations"].permute(1, 2, 0, 3).float())
+    if ring is not None:
+        esm_s = gather_rows(esm_s, blocks)
     esm_z = None
     if need_attn_map:
         # (B, layers, H, T, T) -> (B, Tk, Tq, layers*H), bos/eos stripped
@@ -145,7 +173,23 @@ def apply(
     esmfold.py:152-278). ``frugal=True`` drops the O(L²) diagnostic outputs
     (s_z, distogram/pTM logits, aligned-confidence probabilities, the
     per-block lddt head and states); coordinates, pLDDT, pTM and PAE are
-    unchanged."""
+    unchanged. A config with ``trunk.pair_spec`` folds through
+    :func:`apply_sharded` on a mesh."""
+    if cfg.trunk.pair_spec is not None:
+        raise ValueError(f"trunk.pair_spec={cfg.trunk.pair_spec!r} shards the pair tensor over "
+                         "a mesh: fold with apply_sharded(..., mesh=...)")
+    return _apply(model, cfg, aa, mask, residx, masking_pattern, num_recycles, frugal)
+
+
+# the outputs indexed (B, L, L, ...): a rank's rows under apply_sharded
+PAIR_OUTPUTS = ("s_z", "distogram_logits", "ptm_logits", "aligned_confidence_probs",
+                "predicted_aligned_error")
+
+
+def _apply(model, cfg, aa, mask, residx, masking_pattern, num_recycles, frugal,
+           pair=None, ring=None):
+    """:func:`apply`'s body; with ``pair`` every pair tensor is this rank's
+    rows, and ``ring`` runs the LM sequence-parallel."""
     if mask is None:
         mask = torch.ones_like(aa)
     b, l = aa.shape
@@ -155,29 +199,32 @@ def apply(
     esmaa = model.af2_to_esm[torch.where(mask == 1, aa + 1, torch.zeros_like(aa))]
     if masking_pattern is not None:
         esmaa = torch.where(masking_pattern == 1, cfg.esm.mask_idx, esmaa)
-    # the LM is frozen: no gradient reaches it (esm_tpu stops it at esm_s
-    # and esm_z), so its activations are not kept
-    with torch.no_grad():
-        esm_s, esm_z = _lm_representations(model.esm, cfg.esm, esmaa,
-                                           need_attn_map=cfg.use_esm_attn_map)
-    esm_s = esm_s.float()
-
-    # softmax-weighted combination over the LM's layers (esmfold.py:200)
-    w = torch.softmax(model.esm_s_combine, dim=0)
-    esm_s = torch.einsum("k,blkc->blc", w, esm_s)
+    # the LM's layers, combined with softmax weights (esmfold.py:200)
+    esm_s, esm_z = _lm_representations(model.esm, cfg.esm, esmaa,
+                                       torch.softmax(model.esm_s_combine, dim=0),
+                                       need_attn_map=cfg.use_esm_attn_map, ring=ring)
     s_s_0 = mlp_apply(model.esm_s_mlp, esm_s)
     if cfg.use_esm_attn_map:
         # pair features from the LM's attention maps (esmfold.py:78-84,203-208)
+        if pair is not None:
+            esm_z = pair.local(esm_z)
         s_z_0 = mlp_apply(model.esm_z_mlp, esm_z.float())
     else:
-        s_z_0 = s_s_0.new_zeros((b, l, l, cfg.trunk.pairwise_state_dim))
+        rows = l if pair is None else pair.rows
+        s_z_0 = s_s_0.new_zeros((b, rows, l, cfg.trunk.pairwise_state_dim))
     s_s_0 = s_s_0 + embedding_lookup(model.embedding.weight, aa)
 
     structure = folding_trunk_apply(model.trunk, cfg.trunk, s_s_0, s_z_0, aa, residx, mask,
-                                    no_recycles=num_recycles)
+                                    no_recycles=num_recycles, pair=pair)
 
     disto = linear(model.distogram_head, structure["s_z"])
-    structure["distogram_logits"] = (disto + disto.transpose(1, 2)) / 2
+    if pair is None:
+        disto_t = disto.transpose(1, 2)
+    else:
+        from ...parallel.pair_sharding import transpose_rows
+
+        disto_t = transpose_rows(disto, pair)
+    structure["distogram_logits"] = (disto + disto_t) / 2
     structure["lm_logits"] = linear(model.lm_head, structure["s_s"])
     structure["aatype"] = aa
     structure.update(make_atom14_masks(aa))
@@ -196,7 +243,7 @@ def apply(
     ptm_logits = linear(model.ptm_head, structure["s_z"])
     structure["ptm_logits"] = ptm_logits
     structure["ptm"] = compute_tm(ptm_logits, residue_weights=mask.to(ptm_logits.dtype),
-                                  max_bin=31, no_bins=cfg.distogram_bins)
+                                  max_bin=31, no_bins=cfg.distogram_bins, pair=pair)
     structure.update(compute_predicted_aligned_error(ptm_logits, max_bin=31,
                                                      no_bins=cfg.distogram_bins))
     if frugal:
@@ -206,13 +253,108 @@ def apply(
     return structure
 
 
-def apply_sharded(*args, **kwargs):
-    """esm_tpu's multi-device fold (the ring-attention LM with the sharded
-    pair tensor, ``pair_spec``) is not ported yet: it needs pair-row
-    collectives inside every trunk op (ROADMAP Queue 1, item 13c)."""
-    raise NotImplementedError(
-        "apply_sharded: the sharded fold (pair_spec) is not ported yet (ROADMAP Queue 1, "
-        "item 13c)")
+@torch.no_grad()
+def apply_sharded(
+    model: ESMFold,
+    cfg: ESMFoldConfig,
+    aa: torch.Tensor,
+    *,
+    mesh,
+    seq_axis: str = "tp",
+    mask: Optional[torch.Tensor] = None,
+    residx: Optional[torch.Tensor] = None,
+    masking_pattern: Optional[torch.Tensor] = None,
+    num_recycles: Optional[int] = None,
+    frugal: bool = False,
+) -> Dict[str, torch.Tensor]:
+    """The multi-device fold (esm_tpu/models/esmfold/esmfold.py:268-306):
+    every rank of ``mesh`` passes the same (B, L) inputs. The LM runs
+    sequence-parallel (ring attention over ``seq_axis``; replicated for v0,
+    ``use_esm_attn_map``, whose T x T maps the ring cannot give), and the
+    trunk's and heads' (B, L, L, ·) pair tensors are row-sharded over
+    ``seq_axis`` (FastFold's Dynamic Axial Parallelism): rank r of that
+    dimension holds rows [r·L/N, (r+1)·L/N) with every column, and the
+    collectives of ``parallel.pair_sharding`` run inside each trunk op. The
+    batch is replicated over the mesh's other dimensions. A forward only
+    (under ``torch.no_grad()``).
+
+    The residues are padded to Lp = ⌈L/N⌉·N with mask 0, which keeps them
+    out of every real residue's numbers, and the padding is stripped from
+    every output. The pair outputs (``PAIR_OUTPUTS``: s_z, the distogram
+    and pTM logits, the aligned-confidence probabilities and the PAE) are
+    this rank's real rows, rows [r·Lp/N, min((r+1)·Lp/N, L)) of the whole
+    (:func:`gather_pair_outputs` gathers them); every other output is whole.
+    On a group of one rank every collective is the identity, and the fold
+    equals :func:`apply`'s (the LM through K4 rather than K1: the same
+    kernel and numbers).
+
+    ``cfg.trunk.pair_spec`` must name ``seq_axis``, e.g. ("tp",);
+    ``chunk_size`` chunks triangle attention's rows within the shard. Budget
+    memory with ``parallel.memory_plan.plan_fold(cfg, L, mesh_cfg)`` and
+    time with ``parallel.scaling.plan_scaling_fold``: pair sharding is a
+    long-L tool, since at short L the per-block collectives outweigh the
+    triangle compute (``scaling.fold_crossover_length``)."""
+    spec = cfg.trunk.pair_spec
+    if spec is None:
+        raise ValueError(
+            "apply_sharded needs cfg.trunk.pair_spec set (e.g. "
+            f"({seq_axis!r},)) so the trunk/pair heads shard; without it only the LM "
+            "would be sequence-parallel")
+    if seq_axis not in spec:
+        raise ValueError(f"trunk.pair_spec {spec!r} must shard the pair rows over "
+                         f"seq_axis={seq_axis!r}")
+    from ...parallel.pair_sharding import pair_shard
+
+    b, l = aa.shape
+    n = mesh.size(mesh.mesh_dim_names.index(seq_axis))
+    lp = -(-l // n) * n
+    if mask is None:
+        mask = torch.ones_like(aa)
+    if residx is None:
+        residx = torch.arange(l, device=aa.device).expand(b, l)
+
+    def pad(x):
+        return torch.nn.functional.pad(x, (0, lp - l)) if lp != l else x
+
+    if lp != l:
+        # padded residues carry mask 0; their residue index repeats the last
+        # (any value does: they are masked everywhere)
+        residx = torch.cat([residx, residx[:, -1:].expand(b, lp - l)], dim=1)
+    pair = pair_shard(mesh, seq_axis, lp)
+    ring = None if cfg.use_esm_attn_map else (mesh, seq_axis)
+    out = _apply(model, cfg, pad(aa), pad(mask), residx,
+                 None if masking_pattern is None else pad(masking_pattern),
+                 num_recycles, frugal, pair=pair, ring=ring)
+    if lp == l:
+        return out
+    real = max(0, min(pair.rows, l - pair.rank * pair.rows))  # this rank's real rows
+    for k, v in out.items():
+        if k in PAIR_OUTPUTS:
+            out[k] = v[:, :real, :l]
+        elif k in ("positions", "frames", "sidechain_frames", "unnormalized_angles", "angles",
+                   "states", "lddt_head"):
+            out[k] = v[:, :, :l]  # (K, B, L, ...)
+        elif v.dim() >= 2 and v.shape[1] == lp:
+            out[k] = v[:, :l]
+    return out
+
+
+def gather_pair_outputs(output: Dict[str, torch.Tensor], mesh, seq_axis: str = "tp"):
+    """The whole (B, L, L, ...) pair outputs of an :func:`apply_sharded`
+    result, gathered from every rank of ``seq_axis`` (every rank must call
+    it). Returns a new dict; the other entries are shared."""
+    from ...parallel.pair_sharding import gather_rows, pair_shard
+
+    l = output["aatype"].shape[1]
+    n = mesh.size(mesh.mesh_dim_names.index(seq_axis))
+    shard = pair_shard(mesh, seq_axis, -(-l // n) * n)
+    out = dict(output)
+    for k in PAIR_OUTPUTS:
+        if k in out:
+            v = out[k]
+            v = torch.nn.functional.pad(v, (0, 0) * (v.dim() - 2) + (0, shard.rows - v.shape[1]))
+            out[k] = gather_rows(v, shard)[:, :l]
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -303,11 +445,22 @@ def infer(
     chain_linker: Optional[str] = "G" * 25,
     frugal: Optional[bool] = None,
     pad_to_multiple: Optional[int] = None,
+    mesh=None,
+    seq_axis: str = "tp",
 ) -> Dict[str, torch.Tensor]:
     """Sequence(s) -> structure output on the model's device (reference
     esmfold.py:281-339). ``frugal=None`` resolves through :func:`auto_frugal`.
     ``pad_to_multiple`` rounds the padded length up to a bucket; padded
-    positions carry mask 0, so outputs on real rows are unchanged."""
+    positions carry mask 0, so outputs on real rows are unchanged. With
+    ``cfg.trunk.pair_spec`` set the fold runs through :func:`apply_sharded`
+    on ``mesh`` (every rank calls infer with the same sequences; the pair
+    outputs are the rank's rows)."""
+    if cfg.trunk.pair_spec is not None and mesh is None:
+        raise ValueError(f"trunk.pair_spec={cfg.trunk.pair_spec!r} shards the fold over a "
+                         "mesh, and no mesh was given: pass mesh=parallel.mesh.make_mesh(...)")
+    if mesh is not None and cfg.trunk.pair_spec is None:
+        raise ValueError("a mesh was given, but the config has no trunk.pair_spec: set it "
+                         f"(e.g. with_options(pair_spec=({seq_axis!r},))) to fold on the mesh")
     if isinstance(sequences, str):
         sequences = [sequences]
     aatype, mask, residx, linker_mask, chain_index = batch_encode_sequences(
@@ -327,8 +480,13 @@ def infer(
     def t(x):
         return torch.from_numpy(x).to(dev)
 
-    output = apply(model, cfg, t(aatype), mask=t(mask), residx=t(residx),
-                   num_recycles=num_recycles, frugal=frugal)
+    if mesh is None:
+        output = apply(model, cfg, t(aatype), mask=t(mask), residx=t(residx),
+                       num_recycles=num_recycles, frugal=frugal)
+    else:
+        output = apply_sharded(model, cfg, t(aatype), mesh=mesh, seq_axis=seq_axis,
+                               mask=t(mask), residx=t(residx), num_recycles=num_recycles,
+                               frugal=frugal)
     output["atom37_atom_exists"] = output["atom37_atom_exists"] * t(linker_mask)[..., None]
     exists = output["atom37_atom_exists"]
     output["mean_plddt"] = (output["plddt"] * exists).sum((1, 2)) / exists.sum((1, 2))

@@ -49,11 +49,17 @@ def compute_tm(
     max_bin: int = 31,
     no_bins: int = 64,
     eps: float = 1e-8,
+    pair=None,
 ) -> torch.Tensor:
     """Predicted TM-score from pairwise error-bin logits (AF2 suppl. 1.9.7).
     logits (..., L, L, no_bins); residue_weights (..., L) (the mask). The
     effective residue count comes from the weights, which with 0/1 weights
-    equals the reference's slicing to the true length."""
+    equals the reference's slicing to the true length. ``pair`` (the sharded
+    fold): logits are this rank's rows (..., L/N, L, no_bins) and the
+    weights 0/1; each rank takes its rows' maximum of the weighted
+    per-alignment score, and the group its maximum: with 0/1 weights that
+    is the score at the unsharded argmax, bit for bit (every row with a real
+    column scores above 0, and a weight of 1 multiplies exactly)."""
     if residue_weights is None:
         residue_weights = logits.new_ones(logits.shape[:-2])
     centers = _bin_centers(max_bin, no_bins, device=logits.device)
@@ -64,6 +70,10 @@ def compute_tm(
     predicted_tm = (probs * tm_per_bin[..., None, :]).sum(-1)       # (..., L, L)
     normed = residue_weights / (eps + residue_weights.sum(-1, keepdim=True))
     per_alignment = (predicted_tm * normed[..., None, :]).sum(-1)   # (..., L)
+    if pair is not None:
+        from ...parallel.pair_sharding import all_reduce_max
+
+        return all_reduce_max((per_alignment * pair.local(residue_weights, -1)).amax(-1), pair)
     best = (per_alignment * residue_weights).argmax(-1, keepdim=True)
     return torch.gather(per_alignment, -1, best)[..., 0]
 

@@ -9,6 +9,11 @@ tables in ``esm_tpu_torch/data/residue_constants.npz``. It always runs in
 fp32 (geometry is precision-sensitive); the IPA's point-distance cross term
 is a matrix product computed with TF32 off whatever the global setting.
 
+With ``pair`` (the sharded fold) z is this rank's rows of the pair
+tensor and everything else is whole: IPA's pair terms (the ``linear_b``
+bias and ``o_pair``) are row-local, so IPA attends from the local query
+rows to every key and gathers its (B, L/N, c_s) output; z is never gathered.
+
 Config (reference esm/esmfold/v1/trunk.py:16-32): c_s 384, c_z 128, c_ipa
 16, 12 IPA heads, 4 qk / 8 v points, 8 blocks, 7 angles, translation scale 10.
 """
@@ -148,16 +153,22 @@ def invariant_point_attention(
     z: torch.Tensor,
     r: rg.Rigid,
     mask: torch.Tensor,
+    pair=None,
 ) -> torch.Tensor:
     """IPA (AF2 Alg. 22). s: (B, L, c_s); z: (B, L, L, c_z); r over (B, L);
-    mask: (B, L). Returns the s update (B, L, c_s)."""
+    mask: (B, L). Returns the s update (B, L, c_s). ``pair``: z is this
+    rank's rows (B, L/N, L, c_z)."""
     b, l, _ = s.shape
     h, c = cfg.no_heads_ipa, cfg.c_ipa
     pq, pv = cfg.no_qk_points, cfg.no_v_points
+    # the query rows: this rank's with pair, else all
+    sq, rq, mq = (s, r, mask) if pair is None else (pair.local(s), r[:, pair.row_slice],
+                                                    pair.local(mask))
+    lq = sq.shape[1]
 
-    q = linear(mod.linear_q, s).reshape(b, l, h, c)
+    q = linear(mod.linear_q, sq).reshape(b, lq, h, c)
     k, v = linear(mod.linear_kv, s).reshape(b, l, h, 2 * c).split(c, dim=-1)
-    q_pts = _global_points(linear(mod.linear_q_points, s), r, b, l, h, pq)
+    q_pts = _global_points(linear(mod.linear_q_points, sq), rq, b, lq, h, pq)
     kv_pts = _global_points(linear(mod.linear_kv_points, s), r, b, l, h, pq + pv)
     k_pts, v_pts = kv_pts.split([pq, pv], dim=-2)
 
@@ -174,27 +185,32 @@ def invariant_point_attention(
     qq = (q_pts * q_pts).sum((-1, -2))  # (B, L, H)
     kk = (k_pts * k_pts).sum((-1, -2))
     with _full_fp32_matmul():
-        qk = torch.matmul(q_pts.reshape(b, l, h, pq * 3).transpose(1, 2),
+        qk = torch.matmul(q_pts.reshape(b, lq, h, pq * 3).transpose(1, 2),
                           k_pts.reshape(b, l, h, pq * 3).permute(0, 2, 3, 1))
     d2 = qq.transpose(1, 2)[..., :, None] + kk.transpose(1, 2)[..., None, :] - 2.0 * qk
     a = a + d2 * (head_w[None, :, None, None] * -0.5)
 
-    square_mask = mask[:, :, None] * mask[:, None, :]
+    square_mask = mq[:, :, None] * mask[:, None, :]
     a = a + (cfg.inf * (square_mask - 1.0))[:, None]
     a = softmax_fp32(a)
 
-    o = torch.matmul(a, v.transpose(1, 2)).transpose(1, 2).reshape(b, l, h * c)
-    o_pt = torch.matmul(a, v_pts.reshape(b, l, h, pv * 3).transpose(1, 2))  # (B, H, L, pv*3)
-    o_pt = o_pt.reshape(b, h, l, pv, 3).permute(0, 2, 1, 3, 4)            # (B, L, H, pv, 3)
-    o_pt = rg.invert_apply(r.unsqueeze(-1).unsqueeze(-1), o_pt)
-    o_pt_norm = torch.sqrt((o_pt ** 2).sum(-1) + cfg.epsilon).reshape(b, l, h * pv)
-    o_pt_flat = o_pt.reshape(b, l, h * pv, 3)
-    o_pair = torch.matmul(a.transpose(1, 2), z).reshape(b, l, h * cfg.c_z)  # (B, Li, H, c_z)
+    o = torch.matmul(a, v.transpose(1, 2)).transpose(1, 2).reshape(b, lq, h * c)
+    o_pt = torch.matmul(a, v_pts.reshape(b, l, h, pv * 3).transpose(1, 2))  # (B, H, Lq, pv*3)
+    o_pt = o_pt.reshape(b, h, lq, pv, 3).permute(0, 2, 1, 3, 4)           # (B, Lq, H, pv, 3)
+    o_pt = rg.invert_apply(rq.unsqueeze(-1).unsqueeze(-1), o_pt)
+    o_pt_norm = torch.sqrt((o_pt ** 2).sum(-1) + cfg.epsilon).reshape(b, lq, h * pv)
+    o_pt_flat = o_pt.reshape(b, lq, h * pv, 3)
+    o_pair = torch.matmul(a.transpose(1, 2), z).reshape(b, lq, h * cfg.c_z)  # (B, Lq, H, c_z)
 
     # concatenated as openfold does: scalar, point x, y, z, point norms, pair
     cat = torch.cat([o, o_pt_flat[..., 0], o_pt_flat[..., 1], o_pt_flat[..., 2], o_pt_norm,
                      o_pair], dim=-1)
-    return linear(mod.linear_out, cat)
+    out = linear(mod.linear_out, cat)
+    if pair is not None:
+        from ...parallel.pair_sharding import gather_rows
+
+        out = gather_rows(out, pair)
+    return out
 
 
 def angle_resnet(mod: AngleResnet, cfg: StructureModuleConfig, s, s_initial):
@@ -264,8 +280,10 @@ def structure_module_apply(
     z: torch.Tensor,
     aatype: torch.Tensor,
     mask: Optional[torch.Tensor] = None,
+    pair=None,
 ) -> Dict[str, torch.Tensor]:
-    """The full module (AF2 Alg. 20), fp32. Returns per-block stacks: frames
+    """The full module (AF2 Alg. 20), fp32. ``pair``: z is this rank's rows
+    (the outputs are whole on every rank). Returns per-block stacks: frames
     (K, B, L, 7), sidechain_frames (K, B, L, 8, 4, 4), unnormalized_angles and
     angles (K, B, L, 7, 2), positions (K, B, L, 14, 3), states (K, B, L, c_s),
     and single (B, L, c_s)."""
@@ -279,7 +297,7 @@ def structure_module_apply(
     rigids = rg.identity(s.shape[:-1], s.dtype, device=s.device)
     outputs = []
     for _ in range(cfg.no_blocks):  # shared weights across blocks (AF2)
-        s = s + invariant_point_attention(mod.ipa, cfg, s, z, rigids, mask)
+        s = s + invariant_point_attention(mod.ipa, cfg, s, z, rigids, mask, pair)
         s = layer_norm(mod.layer_norm_ipa, s)
         s = transition(mod.transition, s)
         rigids = rg.compose_q_update_vec(rigids, linear(mod.bb_update.linear, s))

@@ -9,12 +9,17 @@ and recycles; here the blocks are an ``nn.ModuleList`` and both loops are
 Python loops. The gradient is stopped on the recycled carry, as in esm_tpu:
 every pass but the last reaches the loss only through that carry, so those
 passes run without autograd and keep no activations.
+
+With ``pair`` (the sharded fold, ``esmfold.apply_sharded``) every pair
+tensor, s_z_0, the recycle carry and bins, the triangle mask and the
+relative positions, holds this rank's rows; the sequence track, the
+coordinates and the structure module's single state are whole on every rank.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -40,6 +45,10 @@ class FoldingTrunkConfig:
     position_bins: int = 32
     max_recycles: int = 4
     chunk_size: Optional[int] = None  # triangle-attention row chunking (memory)
+    # the sharded fold: the mesh dimension(s) the pair tensors' rows are split
+    # over, e.g. ("tp",) (esm_tpu's PartitionSpec(None, "tp")); the fold then
+    # runs through esmfold.apply_sharded on a mesh
+    pair_spec: Optional[Tuple[str, ...]] = None
     # compute dtype of the blocks (LN and softmax stay fp32; the structure
     # module always runs fp32)
     compute_dtype: torch.dtype = torch.float32
@@ -80,28 +89,30 @@ class FoldingTrunk(nn.Module):
 
 
 def distogram_bins(coords: torch.Tensor, min_bin=3.375, max_bin=21.375,
-                   num_bins=RECYCLE_BINS) -> torch.Tensor:
+                   num_bins=RECYCLE_BINS, pair=None) -> torch.Tensor:
     """Coords (..., L, 3, 3) = N/CA/C -> CB distance-bin ids (..., L, L)
-    (reference trunk.py:225-243: CB inferred from the backbone)."""
+    (reference trunk.py:225-243: CB inferred from the backbone); with
+    ``pair``, this rank's rows (..., L/N, L)."""
     boundaries = torch.linspace(min_bin, max_bin, num_bins - 1, device=coords.device) ** 2
     n, ca, c = coords[..., 0, :], coords[..., 1, :], coords[..., 2, :]
     b = ca - n
     c_ = c - ca
     a = torch.cross(b, c_, dim=-1)
     cb = -0.58273431 * a + 0.56802827 * b - 0.54067466 * c_ + ca
-    d2 = ((cb[..., None, :, :] - cb[..., :, None, :]) ** 2).sum(-1, keepdim=True)
+    rows = cb if pair is None else pair.local(cb, cb.dim() - 2)
+    d2 = ((cb[..., None, :, :] - rows[..., :, None, :]) ** 2).sum(-1, keepdim=True)
     return (d2 > boundaries).sum(-1)
 
 
-def trunk_iter(trunk: FoldingTrunk, cfg: FoldingTrunkConfig, s, z, residx, mask):
+def trunk_iter(trunk: FoldingTrunk, cfg: FoldingTrunkConfig, s, z, residx, mask, pair=None):
     s = s.to(cfg.compute_dtype)
     z = z.to(cfg.compute_dtype)
     z = z + relative_position(trunk.pairwise_positional_embedding, residx, mask,
-                              bins=cfg.position_bins).to(z.dtype)
+                              bins=cfg.position_bins, pair=pair).to(z.dtype)
     for block in trunk.blocks:
         s, z = triangular_self_attention_block(
             block, s, z, seq_heads=cfg.seq_heads, pair_heads=cfg.pair_heads, mask=mask,
-            chunk_size=cfg.chunk_size, use_flash_tri=cfg.use_flash_tri,
+            chunk_size=cfg.chunk_size, use_flash_tri=cfg.use_flash_tri, pair=pair,
         )
     return s.float(), z.float()
 
@@ -115,20 +126,21 @@ def folding_trunk_apply(
     residx: torch.Tensor,
     mask: torch.Tensor,
     no_recycles: Optional[int] = None,
+    pair=None,
 ) -> Dict[str, torch.Tensor]:
     """seq_feats: (B, L, c_s); pair_feats: (B, L, L, c_z); residx/mask: (B, L).
     Runs ``no_recycles`` + 1 passes (``max_recycles`` passes when None), the
-    structure module after each; returns the last structure with s_s, s_z."""
+    structure module after each; returns the last structure with s_s, s_z.
+    ``pair``: pair_feats and the returned s_z are this rank's rows."""
     if no_recycles is None:
         no_recycles = cfg.max_recycles
     else:
         if no_recycles < 0:
             raise ValueError(f"num_recycles must be >= 0; got {no_recycles}")
         no_recycles += 1  # the first pass is the standard forward
-    b, l = true_aa.shape
     s_s = torch.zeros_like(seq_feats)
     s_z = torch.zeros_like(pair_feats)
-    bins = torch.zeros((b, l, l), dtype=torch.int64, device=seq_feats.device)
+    bins = torch.zeros(pair_feats.shape[:-1], dtype=torch.int64, device=seq_feats.device)
     grad = torch.is_grad_enabled()
     for pass_ in range(no_recycles):
         last = pass_ + 1 == no_recycles
@@ -136,14 +148,15 @@ def folding_trunk_apply(
             rs = layer_norm(trunk.recycle_s_norm, s_s.detach())
             rz = layer_norm(trunk.recycle_z_norm, s_z.detach())
             rz = rz + embedding_lookup(trunk.recycle_disto.weight, bins).to(rz.dtype)
-            s_s, s_z = trunk_iter(trunk, cfg, seq_feats + rs, pair_feats + rz, residx, mask)
+            s_s, s_z = trunk_iter(trunk, cfg, seq_feats + rs, pair_feats + rz, residx, mask,
+                                  pair)
             structure = structure_module_apply(
                 trunk.structure_module, cfg.structure_module,
                 linear(trunk.trunk2sm_s, s_s), linear(trunk.trunk2sm_z, s_z), true_aa,
-                mask.to(s_s.dtype),
+                mask.to(s_s.dtype), pair=pair,
             )
         if not last:
-            bins = distogram_bins(structure["positions"][-1][:, :, :3].detach())
+            bins = distogram_bins(structure["positions"][-1][:, :, :3].detach(), pair=pair)
     structure["s_s"] = s_s
     structure["s_z"] = s_z
     return structure

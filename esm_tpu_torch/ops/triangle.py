@@ -10,8 +10,13 @@ esm/esmfold/v1/tri_self_attn_block.py:6-13,58-77; AF2 Algorithms 11-14):
   * ending-node attention:    transpose, the same, transpose back
 
 The modules hold the reference's layer names, so checkpoint keys load as
-they are. The O(L³·C) einsums stay ``torch.einsum`` (cuBLAS), as they stayed
-in XLA. Triangle attention has three paths, as in JAX: exact (the
+they are. With ``pair`` (a ``parallel.pair_sharding.PairShard``) z holds
+this rank's rows of the pair tensor and each op computes those rows of its
+update (the sharded fold): the outgoing product gathers b over rows, the
+incoming one moves a to column sharding and gathers b, starting-node
+attention gathers its (B, L, L, H) bias and attends on the local rows, and
+ending-node attention runs the starting-node op on the row shard of zᵀ.
+The O(L³·C) einsums stay ``torch.einsum`` (cuBLAS), as they stayed in XLA. Triangle attention has three paths, as in JAX: exact (the
 (B, I, H, J, J) logits materialized), chunked over rows (memory only), and
 fused (kernel K6, ``use_flash``). ``triangle_multiplicative_update_fused``
 runs kernels K7 and K8 around the einsum.
@@ -81,10 +86,12 @@ def triangle_multiplicative_update(
     *,
     outgoing: bool,
     mask: Optional[torch.Tensor] = None,
+    pair=None,
 ) -> torch.Tensor:
     """z: (B, I, J, C); mask: (B, I, J). Returns the residual update. The
     five C-wide projections of LN(z) run as one (C, 5C) product, as in JAX
-    (:42-52): column for column the same numbers."""
+    (:42-52): column for column the same numbers. ``pair``: z and mask are
+    this rank's rows, and so is the update."""
     if mask is None:
         mask = torch.ones(z.shape[:-1], dtype=z.dtype, device=z.device)
     mask = mask[..., None].to(z.dtype)
@@ -96,6 +103,13 @@ def triangle_multiplicative_update(
     a_g, a_p, b_g, b_p, g_l = p.split(c, dim=-1)
     a = mask * torch.sigmoid(a_g) * a_p
     b = mask * torch.sigmoid(b_g) * b_p
+    if pair is not None:
+        # out[i, j] = sum_k a[i, k] b[j, k]: every row j of b; in[i, j] =
+        # sum_k a[k, i] b[k, j]: a's columns i over every k, and every b
+        from ..parallel.pair_sharding import gather_rows, rows_to_cols
+
+        a = a if outgoing else rows_to_cols(a, pair)
+        b = gather_rows(b, pair)
     x = _einsum(a, b, outgoing)
     x = layer_norm(mod.layer_norm_out, x)
     x = linear(mod.linear_z, x)
@@ -152,6 +166,7 @@ def triangle_attention(
     inf: float = 1e9,
     chunk_size: Optional[int] = None,
     use_flash: bool = False,
+    pair=None,
 ) -> torch.Tensor:
     """z: (B, I, J, C); mask: (B, I, J). Gated multi-head attention over the J
     axis per row (starting) or over I per column (ending). Returns the
@@ -162,15 +177,27 @@ def triangle_attention(
     rows whose keys are all masked, which no real row reads.
     ``chunk_size``: this many rows at a time on the exact path (memory, not
     numerics). ``use_flash``: kernel K6 (on CUDA it launches the kernel or
-    raises)."""
+    raises). ``pair``: z and mask are this rank's rows (B, L/N, L, ·), and so
+    is the update; the triangle bias is gathered whole, and the local rows
+    attend as the whole tensor's would (``chunk_size`` chunks them)."""
     if mask is None:
         mask = torch.ones(z.shape[:-1], dtype=z.dtype, device=z.device)
     if not starting:
-        z = z.transpose(-2, -3)
-        mask = mask.transpose(-1, -2)
+        if pair is None:
+            z = z.transpose(-2, -3)
+            mask = mask.transpose(-1, -2)
+        else:
+            from ..parallel.pair_sharding import transpose_rows
+
+            z = transpose_rows(z, pair)
+            mask = transpose_rows(mask, pair)
 
     zn = layer_norm(mod.layer_norm, z)
-    tri = linear(mod.linear, zn)  # (B, I, J, H)
+    tri = linear(mod.linear, zn)  # (B, I, J, H): bias rows are query positions
+    if pair is not None:
+        from ..parallel.pair_sharding import gather_rows
+
+        tri = gather_rows(tri, pair)  # (B, J, J, H)
     b, i, j, c = zn.shape
     mha = mod.mha
 
@@ -202,5 +229,5 @@ def triangle_attention(
             ], dim=1)
 
     if not starting:
-        o = o.transpose(-2, -3)
+        o = o.transpose(-2, -3) if pair is None else transpose_rows(o, pair)
     return o

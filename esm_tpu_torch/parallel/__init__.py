@@ -2,5 +2,6 @@
 (``mesh``), ring attention for sequence parallelism (``ring_attention``),
 parameter sharding of ESM-2 (``sharding``, its collectives in
 ``tensor_parallel``), the GPipe pipeline (``pipeline``), the memory plans
-(``memory_plan``) and the scaling model (``scaling``). The sharded fold is
-not ported yet (ROADMAP Queue 1, item 13c)."""
+(``memory_plan``), the scaling model (``scaling``), and the collectives of
+the sharded fold, ESMFold's pair tensors row-sharded over the mesh's tp
+dimension (``pair_sharding``, run by ``models.esmfold.apply_sharded``)."""

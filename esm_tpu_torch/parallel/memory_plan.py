@@ -1,5 +1,5 @@
 """Device-memory planning: an ESM-2 on a (data, fsdp, tp) mesh, its training
-step, and an ESMFold fold on one device.
+step, and an ESMFold fold on one device or row-sharded over a mesh.
 
 Port of esm_tpu/parallel/memory_plan.py. The mesh half (:func:`plan`,
 :func:`plan_model`, :func:`plan_train`, :func:`plan_train_lora`) charges a
@@ -7,9 +7,10 @@ rank the parameter bytes that ``parallel.sharding.shard_params`` leaves on
 it, exactly: the specs are the sharding's, and shards are even (the
 sharding refuses the others; esm_tpu's plan takes the ceiling). The model
 is built on the ``meta`` device, so no memory is allocated. The fold half
-(``_held_output_bytes_per_pair``, :func:`plan_fold`,
-:func:`max_fold_length`, :184-232) is for one device: a pair-shard factor
-of 1 (the sharded fold is ROADMAP Queue 1, item 13c).
+(:func:`_pair_shards`, ``_held_output_bytes_per_pair``, :func:`plan_fold`,
+:func:`max_fold_length`, esm_tpu :66-232) divides the pair tensors by the
+shard factor of ``trunk.pair_spec`` on the mesh (``esmfold.apply_sharded``)
+and charges the sharded fold's own terms (``port_terms``).
 
 The training plan's activation term is the eager port's, measured on the
 card (``ACT_UNITS``; esm_tpu's 10 through ``act_units``), as the fold's
@@ -213,6 +214,23 @@ def plan_train_lora(
 PAIR_TEMPS = 24
 
 
+def _pair_shards(pair_spec, mesh_cfg: Optional[MeshConfig]) -> int:
+    """The shard factor the fold's (B, I, J, C) pair tensors get from
+    ``trunk.pair_spec`` on ``mesh_cfg`` (esm_tpu :66): the product of the
+    sizes of the axes it names (None entries, and tuples of axes, as in a
+    PartitionSpec)."""
+    if pair_spec is None or mesh_cfg is None:
+        return 1
+    sizes = dict(zip(AXES, mesh_cfg.shape))
+    shards = 1
+    for axes in pair_spec:
+        if axes is None:
+            continue
+        for ax in (axes if isinstance(axes, tuple) else (axes,)):
+            shards *= sizes.get(ax, 1)
+    return shards
+
+
 # Held bytes per (i, j) pair entry of one NON-frugal ESMFold output dict:
 # s_z (c_z fp32) + distogram/ptm/aligned-confidence logits (3 x bins fp32)
 # + predicted_aligned_error (fp32). The frugal mode keeps only the PAE.
@@ -223,6 +241,7 @@ def _held_output_bytes_per_pair(c_z: int = 128, distogram_bins: int = 64) -> int
 def plan_fold(
     fold_cfg,
     L: int,
+    mesh_cfg: Optional[MeshConfig] = None,
     *,
     batch: int = 1,
     lm_dtype_bytes: int = 2,
@@ -231,9 +250,13 @@ def plan_fold(
     held_outputs: int = 1,
     hbm_bytes: Optional[int] = None,
     device=None,
+    port_terms: bool = True,
 ) -> Dict:
-    """Estimate the device memory of an ESMFold forward at length ``L`` and
-    answer "does this fit?" before a trial out-of-memory.
+    """Estimate a device's memory for an ESMFold forward at length ``L`` and
+    answer "does this fit?" before a trial out-of-memory. ``mesh_cfg``: the
+    mesh of a sharded fold (``esmfold.apply_sharded``), whose pair tensors
+    are divided by the shard factor of ``fold_cfg.trunk.pair_spec`` on it
+    (esm_tpu :88); None or no pair_spec is one device.
 
     fold_cfg: an ESMFoldConfig (uses .esm, .trunk, .distogram_bins).
     lm_dtype_bytes: 2 for a bf16/fp16 LM, 4 fp32, 1 for weight-only int8
@@ -244,6 +267,13 @@ def plan_fold(
     held_outputs: output dicts alive at once (2 when a caller keeps the
         previous result while folding the next).
     hbm_bytes: the device's memory; None = ``device_memory_bytes(device)``.
+    port_terms: charge what the port's sharded fold holds beyond esm_tpu's
+        model when the pair tensors are sharded: every parameter on every
+        rank (esm_tpu divides them by fsdp x tp; the port's fold keeps its
+        weights whole), the whole (B, L, L, c_z) tri-mul operand that
+        ``pair_sharding.gather_rows`` gathers and the whole fp32 triangle
+        bias (B, H, L, L) beside it, and v0's whole attention-map stack (its
+        LM runs replicated). False gives esm_tpu's formula.
 
     Model: trunk working set = s_z_0 + recycle carry (fp32) + PAIR_TEMPS
     compute-dtype pair tensors + recycle bins [+ the O(L^3) unchunked
@@ -258,7 +288,9 @@ def plan_fold(
     esm_cfg, trunk_cfg = fold_cfg.esm, fold_cfg.trunk
     c_z = trunk_cfg.pairwise_state_dim
     tb = trunk_cfg.compute_dtype.itemsize
-    pairs = batch * L * L
+    shards = _pair_shards(trunk_cfg.pair_spec, mesh_cfg)
+    sharded_terms = port_terms and shards > 1
+    pairs = batch * L * L // shards
 
     if params_bytes is None:
         # LM + trunk parameter counts, analytic (init_esmfold's shapes to ~5%:
@@ -280,6 +312,8 @@ def plan_fold(
             + (trunk_cfg.num_blocks * block + sm_params
                + 2 * esm_cfg.embed_dim * c_s) * max(tb, 2)
         )
+    if mesh_cfg is not None and not port_terms:
+        params_bytes = -(-params_bytes // max(mesh_cfg.fsdp * mesh_cfg.tp, 1))
 
     # LM activations: the fp32 (layers+1, C) representation stack, + the
     # transient layer working set
@@ -287,7 +321,8 @@ def plan_fold(
     lm_act = batch * (L + 2) * (esm_cfg.num_layers + 1) * esm_cfg.embed_dim * 4
     lm_act += 10 * batch * L * esm_cfg.embed_dim * act_b
     if fold_cfg.use_esm_attn_map:
-        lm_act += pairs * esm_cfg.num_layers * esm_cfg.attention_heads * 4
+        maps = batch * L * L if sharded_terms else pairs
+        lm_act += maps * esm_cfg.num_layers * esm_cfg.attention_heads * 4
 
     z32 = pairs * c_z * 4
     zc = pairs * c_z * tb
@@ -295,7 +330,10 @@ def plan_fold(
     trunk_work = 2 * z32 + PAIR_TEMPS * zc + pairs * 4
     if trunk_cfg.chunk_size is None and not trunk_cfg.use_flash_tri:
         # unchunked triangle attention materializes (B, I, H, J, J) logits
-        trunk_work += batch * L * trunk_cfg.pair_heads * L * L * 4
+        trunk_work += batch * L * trunk_cfg.pair_heads * L * L // shards * 4
+    if sharded_terms:
+        # the gathered tri-mul operand and fp32 triangle bias, whole on a rank
+        trunk_work += batch * L * L * (c_z * tb + trunk_cfg.pair_heads * 4)
 
     if frugal is None:
         from ..models.esmfold.esmfold import auto_frugal
@@ -320,16 +358,17 @@ def plan_fold(
         "lm_bytes": int(lm_act),
         "pair_bytes": int(trunk_work),
         "output_bytes": int(outputs),
-        "pair_shards": 1,
+        "pair_shards": shards,
         "frugal": bool(frugal),
         "hbm_bytes": int(hbm_bytes),
         "verdict": verdict,
     }
 
 
-def max_fold_length(fold_cfg, *, include_close: bool = False, **kw) -> int:
-    """Largest L whose plan_fold verdict is "fits" (binary search; 0 when not
-    even L=64 fits).
+def max_fold_length(fold_cfg, mesh_cfg: Optional[MeshConfig] = None, *,
+                    include_close: bool = False, **kw) -> int:
+    """Largest L whose plan_fold verdict is "fits" on ``mesh_cfg`` (binary
+    search; 0 when not even L=64 fits).
 
     The default excludes "close": the plan is an estimate, and a cap taken
     from the not-"over" edge admits folds that run out of memory (and,
@@ -341,13 +380,13 @@ def max_fold_length(fold_cfg, *, include_close: bool = False, **kw) -> int:
         kw["hbm_bytes"] = device_memory_bytes(kw.pop("device", None))
     admit = ("fits", "close") if include_close else ("fits",)
     lo, hi = 64, 16384
-    if plan_fold(fold_cfg, lo, **kw)["verdict"] not in admit:
+    if plan_fold(fold_cfg, lo, mesh_cfg, **kw)["verdict"] not in admit:
         return 0
-    while plan_fold(fold_cfg, hi, **kw)["verdict"] in admit and hi < 2**20:
+    while plan_fold(fold_cfg, hi, mesh_cfg, **kw)["verdict"] in admit and hi < 2**20:
         lo, hi = hi, hi * 2
     while hi - lo > 16:
         mid = (lo + hi) // 2
-        if plan_fold(fold_cfg, mid, **kw)["verdict"] in admit:
+        if plan_fold(fold_cfg, mid, mesh_cfg, **kw)["verdict"] in admit:
             lo = mid
         else:
             hi = mid

@@ -525,6 +525,8 @@ class ESMFoldHandle:
         return self.model.device
 
     def infer(self, sequences, **kw):
+        """``esmfold.infer``; with ``pair_spec`` set (``with_options``) pass
+        ``mesh=`` to fold through ``esmfold.apply_sharded``."""
         from .models.esmfold import esmfold as ef
 
         return ef.infer(self.model, self.cfg, sequences, **kw)
@@ -552,12 +554,9 @@ class ESMFoldHandle:
     def with_options(self, *, lm_dtype=None, use_flash=None, **trunk_updates) -> "ESMFoldHandle":
         """A handle on the same weights with execution options changed:
         ``lm_dtype`` and ``use_flash`` (kernel K1) for the LM, the rest
-        trunk options (compute_dtype, use_flash_tri, chunk_size). float16
-        with flash raises: K1 has no float16 path."""
-        if "pair_spec" in trunk_updates:
-            raise NotImplementedError(
-                "pair_spec: the sharded pair tensor of the sharded fold is not ported yet "
-                "(ROADMAP Queue 1, item 13c)")
+        trunk options (compute_dtype, use_flash_tri, chunk_size, and
+        pair_spec, e.g. ("tp",), for the sharded fold: ``infer(...,
+        mesh=mesh)``). float16 with flash raises: K1 has no float16 path."""
         cfg = self.cfg
         lm = {k: v for k, v in (("compute_dtype", lm_dtype), ("use_flash", use_flash))
               if v is not None}

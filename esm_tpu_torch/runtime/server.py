@@ -1379,14 +1379,26 @@ class InferenceServer:
             )
         )
 
-    def _profile(self, seconds: float, trace_dir: str) -> None:
+    def _finished_batches(self) -> int:
+        with self._lock:
+            return sum(self._stats[k] for k in ("batches", "fold_batches", "design_batches"))
+
+    def _profile(self, seconds: float, trace_dir: str) -> int:
         """A torch.profiler capture of ``seconds`` of whatever the server
         runs: the card's kernels, whichever thread launched them, and the
-        CPU operators of every thread; writes ``<trace_dir>/trace.json``."""
+        CPU operators of every thread; writes ``<trace_dir>/trace.json``.
+        The window stays open (up to ``seconds`` more) until a device batch
+        has finished inside it, so the capture of a busy server holds its
+        device work. Returns the batches that finished in the window."""
         from ..utils.profiling import profile_trace
 
         with profile_trace(trace_dir):
+            before = self._finished_batches()
             time.sleep(seconds)
+            deadline = time.monotonic() + seconds
+            while self._finished_batches() == before and time.monotonic() < deadline:
+                time.sleep(0.05)
+            return self._finished_batches() - before
 
     def _make_handler(self):
         server = self
@@ -1500,13 +1512,14 @@ class InferenceServer:
                         self._send(409, {"error": "a profile capture is already running"})
                         return
                     try:
-                        server._profile(seconds, trace_dir)
+                        batches = server._profile(seconds, trace_dir)
                     except Exception as e:  # noqa: BLE001
                         self._send(500, {"error": f"{type(e).__name__}: {e}"})
                         return
                     finally:
                         server._profiling.release()
-                    self._send(200, {"trace_dir": trace_dir, "seconds": seconds})
+                    self._send(200, {"trace_dir": trace_dir, "seconds": seconds,
+                                     "batches": batches})
                     return
                 routes = {
                     "/embed": server._submit,

@@ -27,15 +27,24 @@ def profile_trace(logdir: str, *, record_shapes: bool = False) -> Iterator[torch
     """Capture a torch.profiler trace of the enclosed block and write it to
     ``<logdir>/trace.json`` on exit. Yields the profiler, whose
     ``key_averages()`` summarise the block. The card's kernels and the CPU
-    operators are recorded whichever thread launched them."""
+    operators are recorded whichever thread launched them. On the card the
+    device is synchronised once the capture has started and again before
+    it stops: work queued before the window is not half in it, and every
+    kernel launched in it has ended, its activity record complete, when
+    the profiler flushes them."""
+    cuda = torch.cuda.is_available()
     activities = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
+    if cuda:
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     every_thread = torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
     os.makedirs(logdir, exist_ok=True)
     with torch.profiler.profile(activities=activities, record_shapes=record_shapes,
                                 experimental_config=every_thread) as prof:
+        if cuda:
+            torch.cuda.synchronize()
         yield prof
+        if cuda:
+            torch.cuda.synchronize()
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 
 

@@ -10,6 +10,7 @@ the parent asserts on.
 """
 
 import contextlib
+import importlib
 import io
 import os
 import time
@@ -32,11 +33,12 @@ JOIN_TIMEOUT = 240  # seconds a spawned group may take; a hung collective fails 
 
 def spawn(body, world: int, inputs: dict, tmp_path) -> list:
     """Run ``body(inputs, rank)`` on ``world`` gloo ranks; returns each rank's
-    result, in rank order. Raises when a rank fails or the group outlasts
-    JOIN_TIMEOUT."""
+    result, in rank order. ``body`` is a function of this module or of
+    another JAX-free module of tests/ (tests/_torch_fold_shard_ranks.py).
+    Raises when a rank fails or the group outlasts JOIN_TIMEOUT."""
     torch.save(inputs, tmp_path / "inputs.pt")
-    ctx = mp.start_processes(_main, args=(world, body.__name__, str(tmp_path)), nprocs=world,
-                             join=False, start_method="spawn")
+    ctx = mp.start_processes(_main, args=(world, body.__module__, body.__name__, str(tmp_path)),
+                             nprocs=world, join=False, start_method="spawn")
     deadline = time.monotonic() + JOIN_TIMEOUT
     while not ctx.join(timeout=1):
         if time.monotonic() > deadline:
@@ -46,13 +48,14 @@ def spawn(body, world: int, inputs: dict, tmp_path) -> list:
     return [torch.load(tmp_path / f"out{r}.pt", weights_only=False) for r in range(world)]
 
 
-def _main(rank: int, world: int, body: str, tmp: str) -> None:
+def _main(rank: int, world: int, module: str, body: str, tmp: str) -> None:
     torch.set_num_threads(1)
     store = dist.FileStore(os.path.join(tmp, "store"), world)
     dist.init_process_group("gloo", store=store, rank=rank, world_size=world)
     try:
         inputs = torch.load(os.path.join(tmp, "inputs.pt"), weights_only=False)
-        torch.save(globals()[body](inputs, rank), os.path.join(tmp, f"out{rank}.pt"))
+        fn = getattr(importlib.import_module(module), body)
+        torch.save(fn(inputs, rank), os.path.join(tmp, f"out{rank}.pt"))
     finally:
         dist.destroy_process_group()
 

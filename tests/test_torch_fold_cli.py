@@ -196,10 +196,6 @@ def test_handle_options(cache):
     handle = pretrained.load_esmfold(str(path), device="cpu")
     with pytest.raises(ValueError, match="no float16 path"):
         handle.with_options(lm_dtype=torch.float16, use_flash=True)
-    with pytest.raises(NotImplementedError, match="item 13c"):
-        handle.with_options(pair_spec=("tp",))
-    with pytest.raises(NotImplementedError, match="item 13c"):
-        ef.esmfold.apply_sharded()
     fp16 = handle.with_options(lm_dtype=torch.float16)
     assert fp16.cfg.esm.compute_dtype == torch.float16 and not fp16.cfg.esm.use_flash
     handle.set_chunk_size(4)
@@ -208,6 +204,27 @@ def test_handle_options(cache):
     whole = handle.with_options(chunk_size=None).infer(["MKTVRQERLK"], num_recycles=0)
     np.testing.assert_allclose(chunked["positions"].numpy(), whole["positions"].numpy(),
                                atol=1e-5, rtol=0)
+
+
+def test_handle_accepts_pair_spec(cache):
+    """with_options(pair_spec=...) gives a handle that folds on a mesh: without
+    mesh= its infer names the missing mesh."""
+    _, path, _ = cache
+    handle = pretrained.load_esmfold(str(path), device="cpu")
+    sharded = handle.with_options(pair_spec=("tp",))
+    assert sharded.cfg.trunk.pair_spec == ("tp",) and handle.cfg.trunk.pair_spec is None
+    assert sharded.model is handle.model
+    with pytest.raises(ValueError, match="no mesh was given"):
+        sharded.infer(["MKTVRQERLK"], num_recycles=0)
+
+
+def test_apply_sharded_without_pair_spec_raises(cache):
+    """esm_tpu's refusal (esm_tpu/models/esmfold/esmfold.py:293-298)."""
+    _, path, _ = cache
+    handle = pretrained.load_esmfold(str(path), device="cpu")
+    aa = torch.zeros((1, 8), dtype=torch.int64)
+    with pytest.raises(ValueError, match="apply_sharded needs cfg.trunk.pair_spec set"):
+        ef.esmfold.apply_sharded(handle.model, handle.cfg, aa, mesh=None)
 
 
 def test_fold_cli_needs_a_gpu_or_cpu_only(cache, tmp_path):

@@ -6,8 +6,8 @@
     utilities, the examples, the server, the fold memory plan, the serving
     CLI, the design apps and their examples, the mesh, ring attention, the
     hub entry points and the NaN checks, parameter sharding, its
-    collectives, the pipeline, the scaling model and the sharded example
-    among them), pulls in neither
+    collectives, the pipeline, the scaling model, the sharded example and
+    the sharded fold's collectives among them), pulls in neither
     ``jax``, ``optax`` nor ``esm_tpu`` (checked in a fresh interpreter);
   * no source file of the port, nor chip_smoke.py, imports ``jax``,
     ``optax`` or ``esm_tpu``;
@@ -50,7 +50,8 @@ def test_import_leaves_out_jax_and_esm_tpu():
         "        'esm_tpu_torch.hubconf', 'esm_tpu_torch.utils.debug',\n"
         "        'esm_tpu_torch.parallel.sharding', 'esm_tpu_torch.parallel.pipeline',\n"
         "        'esm_tpu_torch.parallel.scaling', 'esm_tpu_torch.parallel.tensor_parallel',\n"
-        "        'esm_tpu_torch.examples.esm2_infer_sharded'} <= set(sys.modules)\n"
+        "        'esm_tpu_torch.examples.esm2_infer_sharded',\n"
+        "        'esm_tpu_torch.parallel.pair_sharding'} <= set(sys.modules)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'optax', 'esm_tpu'))\n"
         "assert not bad, bad\n"
     )

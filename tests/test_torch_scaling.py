@@ -74,16 +74,16 @@ def test_warn_if_inefficient_warns_and_is_quiet():
     """esm_tpu's cases (tests/test_scaling_model.py:142) at esm_tpu's rates,
     and at the card's: ESM2-15B at B=1 on fsdp=4 x tp=2 is weight-gather
     bound on both; 3B at B=8 on tp=4 is quiet at esm_tpu's rates. ESM2-15B's
-    four-card training step at the card's rates, its fp32 gradients'
-    reduce-scatter charged at 4 bytes, has no headroom at the published rate
-    at B=8 and is quiet at B=16."""
+    four-card training step at the card's rates (the measured NCCL bus
+    bandwidth), its fp32 gradients' reduce-scatter charged at 4 bytes, is
+    link-bound at B=8 and quiet at B=16."""
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         scaling.warn_if_inefficient(2560, tmesh.MeshConfig(1, 1, 4), batch=8, seqlen=1024,
                                     **JAX_RATES)
         scaling.warn_if_inefficient(5120, tmesh.MeshConfig(1, 4, 1), batch=16, seqlen=1024,
                                     mode="train")
-    with pytest.warns(UserWarning, match="no headroom.*weight-gather"):
+    with pytest.warns(UserWarning, match="link-bound.*weight-gather"):
         scaling.warn_if_inefficient(5120, tmesh.MeshConfig(1, 4, 1), batch=8, seqlen=1024,
                                     mode="train")
     for rates in (JAX_RATES, {}):

@@ -649,8 +649,9 @@ def test_mixed_endpoint_soak(server):
 
 
 def test_profile_endpoint(server, tmp_path):
-    """/profile captures a torch.profiler trace of concurrent server work;
-    a second capture while one runs is a 409, a bad window a 400."""
+    """/profile captures a torch.profiler trace of concurrent server work
+    and reports the device batches that finished in its window; a second
+    capture while one runs is a 409, a bad window a 400."""
     srv, _ = server
     trace_dir = str(tmp_path / "trace")
     worker = threading.Thread(
@@ -668,7 +669,7 @@ def test_profile_endpoint(server, tmp_path):
                   path="/profile")
     worker.join(timeout=HTTP_TIMEOUT)
     cap.join(timeout=HTTP_TIMEOUT)
-    assert results["out"] == {"trace_dir": trace_dir, "seconds": 1.0}
+    assert results["out"] == {"trace_dir": trace_dir, "seconds": 1.0, "batches": 1}
     trace = json.loads((tmp_path / "trace" / "trace.json").read_text())
     names = {e.get("name", "") for e in trace["traceEvents"]}
     assert any("linear" in n or "addmm" in n or "matmul" in n for n in names)
