@@ -82,17 +82,33 @@ Phases, each raising on failure (nothing is caught):
                 step at B=8 x 1024, its peak beside plan_train (the act_units
                 that fit both peaks printed); plan_model against the resident
                 bytes; the bf16 GEMM rate at the LM's products (the scaling
-                model's constant); cli.pretrain under torchrun (one process):
-                a stopped and resumed run equal to the straight one bit for
+                model's constant); a save of the AdamW train state of the 3
+                steps (rank 0's host RSS growth beside the largest entry and
+                the whole tree); LoRA rank 16 on a bf16 and an int8 base
+                (stored after the cut), the LoRA recipe at B=8 x 1024: step
+                0's loss and adapter gradients equal the unsharded step's
+                bit for bit with 66 K1-with-lse and 33 + 33 K2 launches, 3
+                steps whose loss falls, the peak beside plan_train_lora;
+                adafactor: 2 steps equal to the unsharded ones bit for bit
+                (parameters and statistics), the peak beside
+                plan_train(factored=True); cli.pretrain under torchrun (one
+                process) with AdamW, --lora 16 and --adafactor: each
+                stopped and resumed run equal to the straight one bit for
                 bit; examples.esm2_infer_sharded at ESM2-650M. With two or
                 more cards (--only shard on 4): the NCCL all-reduce's bus
                 bandwidth, ESM2-15B's bf16 forward at tp=4 against rank 0's
                 one-card and fp32 forwards ([ring]'s rule), ESM2-3B step 0
                 at (fsdp, tp) = (2, 2) and ESM2-650M (32 layers)
-                train_step_pp at pp=4, M=8 against one-card steps, then
-                full-parameter AdamW ESM2-15B steps at fsdp=4 (one row a
-                rank, bf16 first moments; peak beside plan_train), each
-                part's result printed by every rank as it ends;
+                train_step_pp at pp=4, M=8 against one-card steps, ESM2-3B
+                LoRA step 0 (adapter gradients) and one adafactor update
+                (parameter deltas) at (2, 2) against rank 0's one-card ones
+                by PR 14's rule, ESM2-15B LoRA (bf16 base) at tp=4 for 3
+                steps whose loss falls (each rank's peak beside
+                plan_train_lora), the pp=4 ESM2-650M train state saved and
+                reloaded on one card bit for bit, then full-parameter AdamW
+                ESM2-15B steps at fsdp=4 (one row a rank, bf16 first
+                moments; peak beside plan_train), each part's result
+                printed by every rank as it ends;
   6. cli      — esm-extract (esm_tpu_torch.cli.extract.run) on the card over a
                 seeded FASTA with an esm2_t6_8M-shaped checkpoint written in
                 the reference layout, its files checked against a CPU
@@ -149,7 +165,9 @@ Phases, each raising on failure (nothing is caught):
                 max_wait 20 ms): seq/s, p50/p95, mean batch; K1 33 times a
                 device batch and no other kernel; each batch's readback
                 against the next batch's compute (a 48-sequence request of
-                three chunks among them); a lone /embed bit for bit against
+                three chunks among them, each later chunk's readback held
+                behind SERVE_HOLD_CYCLES of device spin so that host delays
+                cannot pass for a waiting readback); a lone /embed bit for bit against
                 a direct call on the batch the server formed, a co-batched
                 one within SERVE_COBATCH_TOL of it; /score against
                 wt_marginal_score on a direct call; /fold of 4 sequences and
@@ -161,8 +179,9 @@ Phases, each raising on failure (nothing is caught):
                 the server's default fold cap equal to the plan's; /design (1
                 and 8 samples at L=250 against IFHandle.sample, the score
                 path); the learned cost units; three 3 s /profile captures
-                under load, each naming K1 (with its device batches, CPU
-                operators and CUDA runtime calls);
+                under load, each naming K1 (with its device batches, the
+                windows the server took, CPU operators and CUDA runtime
+                calls);
  11. cli-serve — python -m esm_tpu_torch.cli.serve as a process (--bf16
                 --flash, a save_esm2 checkpoint in a temporary ESM_TPU_CACHE):
                 its /embed against the in-process handle bit for bit, SIGINT;
@@ -291,6 +310,7 @@ package is not beside this file. Imports nothing of JAX or esm_tpu.
 
 import collections
 import contextlib
+import functools
 import io
 import json
 import os
@@ -1605,7 +1625,7 @@ SHARD_STEPS = 3
 SHARD_M = 4                      # microbatches of the one-card pipeline checks
 SHARD_3B_B = 8                   # rows of the ESM2-3B step (plan_train: fits)
 SHARD_PP_LOSS_TOL = 1e-3         # pipelined vs one-card step-0 loss, relative
-SHARD_TIMEOUT = 900              # seconds the ranks of the several-card part may take
+SHARD_TIMEOUT = 1200             # seconds the ranks of the several-card part may take
 SHARD_15B_FWD = (4, 510)         # [shard] tp=4: ESM2-15B bf16 forward, B x L residues
 SHARD_PP_CARDS_M = 8             # pp=4: microbatches of the ESM2-650M step
 # [shard] fsdp=4: the ESM2-15B steps' learning rate. At TRAIN_LR (1e-6) this
@@ -1613,6 +1633,14 @@ SHARD_PP_CARDS_M = 8             # pp=4: microbatches of the ESM2-650M step
 # a smaller step tells a step too large from a wrong update (which no step
 # size makes fall).
 SHARD_15B_LR = 1e-7
+SHARD_LORA_STEPS = 3             # [shard] LoRA steps on the one-rank group
+SHARD_ADAFACTOR_STEPS = 2        # [shard] adafactor steps, sharded against unsharded
+SHARD_UPDATE_LR = 1e-3           # four cards: the adafactor update compared (no decay): at
+                                 # TRAIN_LR an fp32 weight's rounding is ~3% of its change
+# four cards: the ESM2-15B LoRA rate. At 1e-3 this random init's loss rose
+# 110.82 -> 176.19 -> 1033.63 on every rank (PERF.md §6).
+SHARD_15B_LORA_LR = 1e-5         # [lora]'s LORA_LR
+SHARD_15B_LORA_B = 4             # rows of the ESM2-15B LoRA steps (x 1024 tokens)
 
 
 def shard_model(device, name="esm2_t33_650M_UR50D", seed=30, num_layers=None):
@@ -1658,6 +1686,16 @@ def fitted_act_units(cfg, peak, plan, b, t):
     logits = b * t * cfg.alphabet_size * 4
     rest = peak - plan["params_bytes"] - plan["optimizer_bytes"] - plan["grads_bytes"] - logits
     return rest / (n * d * t * b * 2)
+
+
+def fitted_lora_units(cfg, peak, plan, b, t):
+    """The activation units that make plan_train_lora's activations the
+    measured peak's rest (peak less the base, the adapters' state and the
+    int8 transients, and the logits)."""
+    logits = b * t * cfg.alphabet_size * 4
+    rest = (peak - plan["params_bytes"] - plan["adapter_bytes"] - plan["optimizer_bytes"]
+            - plan["grads_bytes"] - plan["weight_transient_bytes"] - logits)
+    return rest / (cfg.num_layers * cfg.embed_dim * t * b * 2)
 
 
 def shard_gemm_rate(card):
@@ -1809,6 +1847,7 @@ def shard_one_card(card):
         f"{plan['per_device_bytes'] / 1e9:.3f} GB ({plan['verdict']}; with esm_tpu's activation "
         f"terms {esm_tpu_plan['per_device_bytes'] / 1e9:.3f} GB); act_units that fit this "
         f"peak {res['fit_650m']:.2f} (plan: {memory_plan.ACT_UNITS}); launches {res['train_counts']}")
+    res["save"] = shard_save_host(card, state)
     del model, state, tx
     torch.cuda.empty_cache()
 
@@ -1843,6 +1882,211 @@ def shard_one_card(card):
     return res
 
 
+def host_rss_bytes():
+    """This process's resident set, from /proc/self/statm."""
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+def save_host_growth(save):
+    """Run ``save()`` with a thread sampling the resident set every ms:
+    (peak growth over the resident set before it, seconds)."""
+    import threading
+
+    before = host_rss_bytes()
+    peak, stop = [before], threading.Event()
+
+    def sample():
+        while not stop.is_set():
+            peak[0] = max(peak[0], host_rss_bytes())
+            time.sleep(0.001)
+
+    thread = threading.Thread(target=sample, daemon=True)
+    thread.start()
+    t0 = time.perf_counter()
+    try:
+        save()
+    finally:
+        seconds = time.perf_counter() - t0
+        stop.set()
+        thread.join()
+    return max(peak[0], host_rss_bytes()) - before, seconds
+
+
+def shard_save_host(card, state):
+    """A save of ESM2-650M's AdamW train state from the one-rank group: rank
+    0's peak host RSS growth beside the largest entry's bytes and the whole
+    tree's (the writer holds one host copy at a time)."""
+    from esm_tpu_torch.io import checkpoint
+    from esm_tpu_torch.training import tensor_fields
+
+    tensors = [state.model.state_dict()] + list(tensor_fields(state.opt_state).values())
+    sizes = [t.numel() * t.element_size() for d in tensors for t in d.values()]
+    with tempfile.TemporaryDirectory() as tmp:
+        growth, seconds = save_host_growth(lambda: checkpoint.save_train_state(tmp, state))
+    out = {"growth": growth, "largest": max(sizes), "tree": sum(sizes), "save_s": seconds}
+    log(f"[shard] save of ESM2-650M's AdamW train state ({len(sizes)} entries): rank 0's host "
+        f"RSS grew {growth / 1e6:.1f} MB at its peak (sampled every ms); the largest entry "
+        f"{out['largest'] / 1e6:.1f} MB, the whole tree {out['tree'] / 1e9:.3f} GB; "
+        f"{seconds:.1f} s ({card})")
+    return out
+
+
+def _lora_bases(kind, mesh, seed):
+    """ESM2-650M as --lora stores it, twice from one seed: whole, and
+    sharded on ``mesh`` before it is stored (the sharded int8 path)."""
+    from esm_tpu_torch import lora
+    from esm_tpu_torch.parallel.sharding import shard_params
+
+    whole, cfg, alphabet = shard_model("cuda", seed=seed)
+    lora.store_base(whole, int8=kind == "int8")
+    sharded, _, _ = shard_model("cuda", seed=seed)
+    lora.store_base(shard_params(sharded, mesh), int8=kind == "int8")
+    return whole, sharded, cfg, alphabet
+
+
+def shard_train_one_card(card, mesh_cfg):
+    """LoRA (rank 16, bf16 and int8 bases) and adafactor on [shard]'s
+    one-rank group at ESM2-650M's full width and depth, B=8 x 1024, against
+    the unsharded steps bit for bit; the peaks beside plan_train_lora and
+    plan_train(factored=True). Returns the launch counts and numbers."""
+    import torch
+    from esm_tpu_torch import lora, training
+    from esm_tpu_torch.parallel import memory_plan
+    from esm_tpu_torch.parallel.mesh import make_mesh
+    from esm_tpu_torch.parallel.sharding import shard_params
+
+    mesh = make_mesh(mesh_cfg)
+    res = {"lora": {}}
+    for kind in ("bf16", "int8"):
+        whole, sharded, cfg, alphabet = _lora_bases(kind, mesh, seed=50)
+        same_base = all(torch.equal(a, b) for a, b in zip(whole.state_dict().values(),
+                                                          sharded.state_dict().values()))
+        toks = torch.from_numpy(bench_tokens(alphabet, SHARD_TRAIN_B, 1022, seed=51)).cuda()
+        corrupted, target_mask = training._corrupt_batch(
+            cfg, torch.Generator(device="cuda").manual_seed(52), toks)
+        batch = (corrupted, toks, target_mask)
+        adapters = lora.init_lora(torch.Generator(device="cuda").manual_seed(53), whole,
+                                  rank=LORA_RANK)
+        with torch.no_grad():  # nonzero b, so that every factor has a gradient
+            gen = torch.Generator(device="cuda").manual_seed(54)
+            for _, a in adapters.adapters():
+                a.lora_b.normal_(0.0, 0.02, generator=gen)
+        loss_u, g_u = adapter_grads(whole, adapters, cfg, batch)
+        del whole
+        torch.cuda.empty_cache()
+        zero_counts()
+        with training.frozen_and_patched(sharded, adapters, 1.0):
+            metrics = training.sharded_loss_and_grads(sharded, cfg, *batch, adapters=adapters)
+        torch.cuda.synchronize()
+        step_counts = read_counts()
+        g_s = {n: p.grad.detach().clone() for n, p in adapters.named_parameters()}
+        adapters.zero_grad(set_to_none=True)
+        equal = (metrics["loss"].item() == loss_u and g_s.keys() == g_u.keys()
+                 and all(torch.equal(g_s[k], g_u[k]) for k in g_u))
+        del g_s, g_u, adapters
+        # SHARD_LORA_STEPS steps from fresh adapters (b = 0), AdamW at LORA_LR
+        adapters = lora.init_lora(torch.Generator(device="cuda").manual_seed(55), sharded,
+                                  rank=LORA_RANK)
+        tx = training.make_optimizer(LORA_LR, warmup_steps=0, total_steps=1000)
+        state = training.init_state(adapters, tx)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        losses, secs = [], []
+        for _ in range(SHARD_LORA_STEPS):
+            t0 = time.perf_counter()
+            state, m = training.train_step_lora_corrupted(state, sharded, cfg, tx, *batch)
+            losses.append(m["loss"].item())
+            secs.append(time.perf_counter() - t0)
+        steps_counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        plan = memory_plan.plan_train_lora(cfg, mesh_cfg, SHARD_TRAIN_B, 1024, rank=LORA_RANK,
+                                           base_dtype_bytes=1 if kind == "int8" else 2)
+        res["lora"][kind] = dict(equal=equal, same_base=same_base, step_counts=step_counts,
+                                 steps_counts=steps_counts, losses=losses, peak=peak,
+                                 plan=plan["per_device_bytes"])
+        log(f"[shard] LoRA rank {LORA_RANK}, {kind} base stored after the cut (equal to the "
+            f"whole model's stored base: {same_base}), B={SHARD_TRAIN_B} x 1024 on the one-rank "
+            f"group: step 0 loss {loss_u:.6f}, loss and adapter gradients equal to the "
+            f"unsharded step's bit for bit: {equal}; launches {step_counts}; "
+            f"{SHARD_LORA_STEPS} steps (lr {LORA_LR}): losses "
+            + ", ".join(f"{x:.5f}" for x in losses) + "; ms a step "
+            + ", ".join(f"{x * 1e3:.1f}" for x in secs)
+            + f"; peak {peak / 1e9:.3f} GB (max_memory_allocated), plan_train_lora "
+            f"{plan['per_device_bytes'] / 1e9:.3f} GB ({plan['verdict']}; activations "
+            f"{plan['activations_bytes'] / 1e9:.3f} GB of it); activation units that fit this "
+            f"peak {fitted_lora_units(cfg, peak, plan, SHARD_TRAIN_B, 1024):.2f} (plan: "
+            f"{memory_plan.LORA_ACT_UNITS}); launches {steps_counts} ({card})")
+        del sharded, state, adapters, tx, batch
+        torch.cuda.empty_cache()
+
+    # adafactor: SHARD_ADAFACTOR_STEPS steps unsharded, then sharded
+    runs = {}
+    for sharded in (False, True):
+        model, cfg, alphabet = shard_model("cuda", seed=56)
+        if sharded:
+            shard_params(model, mesh)
+        toks = torch.from_numpy(bench_tokens(alphabet, SHARD_TRAIN_B, 1022, seed=57)).cuda()
+        corrupted, target_mask = training._corrupt_batch(
+            cfg, torch.Generator(device="cuda").manual_seed(58), toks)
+        tx = training.make_optimizer(TRAIN_LR, warmup_steps=0, total_steps=1000, factored=True)
+        state = training.init_state(model, tx)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        losses = []
+        for _ in range(SHARD_ADAFACTOR_STEPS):
+            state, m = training.train_step_corrupted(state, cfg, tx, corrupted, toks, target_mask)
+            losses.append(m["loss"].item())
+        counts = read_counts()
+        tensors = {"params": model.state_dict(), **training.tensor_fields(state.opt_state)}
+        runs[sharded] = dict(losses=losses, counts=counts, peak=torch.cuda.max_memory_allocated(),
+                             tensors={k: {n: t.cpu() for n, t in d.items()}
+                                      for k, d in tensors.items()})
+        del model, state, tx, tensors
+        torch.cuda.empty_cache()
+    a, b = runs[False], runs[True]
+    equal = a["losses"] == b["losses"] and all(
+        a["tensors"][k].keys() == b["tensors"][k].keys()
+        and all(torch.equal(a["tensors"][k][n], b["tensors"][k][n]) for n in a["tensors"][k])
+        for k in a["tensors"])
+    plan = memory_plan.plan_train(cfg, mesh_cfg, SHARD_TRAIN_B, 1024, factored=True)
+    res["adafactor"] = dict(equal=equal, counts=b["counts"], losses=b["losses"], peak=b["peak"],
+                            plan=plan["per_device_bytes"])
+    log(f"[shard] adafactor, ESM2-650M B={SHARD_TRAIN_B} x 1024, {SHARD_ADAFACTOR_STEPS} steps "
+        f"(lr {TRAIN_LR}) on the one-rank group: losses " + ", ".join(f"{x:.5f}" for x in b["losses"])
+        + f"; parameters, v_row, v_col and v equal to the unsharded steps' bit for bit: {equal}; "
+        f"peak {b['peak'] / 1e9:.3f} GB (unsharded {a['peak'] / 1e9:.3f}), plan_train(factored) "
+        f"{plan['per_device_bytes'] / 1e9:.3f} GB ({plan['verdict']}); launches {b['counts']} "
+        f"({card})")
+    return res
+
+
+def check_shard_train(res, n):
+    """Raises unless [shard]'s LoRA and adafactor parts hold: bit for bit
+    against the unsharded steps, the launch counts, the LoRA losses falling."""
+    failed = []
+    for kind, r in res["lora"].items():
+        if not (r["equal"] and r["same_base"]):
+            failed.append(f"LoRA {kind}: the sharded step 0 or base is not the unsharded one's")
+        for label, got, want in (("step 0", r["step_counts"], flash_counts(n, lse=2, bwd=1)),
+                                 ("steps", r["steps_counts"],
+                                  flash_counts(n, lse=2 * SHARD_LORA_STEPS, bwd=SHARD_LORA_STEPS))):
+            if got != want:
+                failed.append(f"LoRA {kind} {label} launches {got} != {want}")
+        if not (np.isfinite(r["losses"]).all() and r["losses"][-1] < r["losses"][0]):
+            failed.append(f"LoRA {kind} losses {r['losses']}")
+    r = res["adafactor"]
+    want = flash_counts(n, lse=2 * SHARD_ADAFACTOR_STEPS, bwd=SHARD_ADAFACTOR_STEPS)
+    if r["counts"] != want:
+        failed.append(f"adafactor launches {r['counts']} != {want}")
+    if not (r["equal"] and np.isfinite(r["losses"]).all()):
+        failed.append("the sharded adafactor steps are not the unsharded ones")
+    if failed:
+        raise AssertionError("[shard] " + "; ".join(failed))
+
+
 def check_shard_one_card(res):
     """Raises unless the one-card [shard] run holds: bit-for-bit forward and
     step 0, exact launch counts in every window, a falling loss, the
@@ -1874,15 +2118,18 @@ def check_shard_one_card(res):
 
 
 def shard_entry_points(card):
-    """cli.pretrain under torchrun (one process): 4 steps straight, and 2
-    steps, stopped, then resumed to 4: the saved train states equal bit for
-    bit; examples.esm2_infer_sharded at ESM2-650M on seeded weights."""
+    """cli.pretrain under torchrun (one process), with AdamW, with --lora 16
+    and with --adafactor: 4 steps straight, and 2 steps, stopped, then
+    resumed to 4: the saved train states equal bit for bit;
+    examples.esm2_infer_sharded at ESM2-650M on seeded weights."""
     import torch
+    from esm_tpu_torch.io.checkpoint import read_train_state
 
     here = os.path.dirname(os.path.abspath(__file__))
     torchrun = [sys.executable, "-m", "torch.distributed.run", "--standalone",
                 "--nproc_per_node", "1"]
     rng = np.random.RandomState(36)
+    variants = {"adamw": [], "lora": ["--lora", "16"], "adafactor": ["--adafactor"]}
     with tempfile.TemporaryDirectory() as tmp:
         fasta = os.path.join(tmp, "train.fasta")
         with open(fasta, "w") as f:
@@ -1899,8 +2146,8 @@ def shard_entry_points(card):
         launch = lambda argv: subprocess.Popen(  # noqa: E731
             argv, cwd=here, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         t0 = time.perf_counter()
-        # the straight run, the first half and the example at once (each
-        # launch spends most of its time starting), then the resumed run
+        # every straight run, every first half and the example at once (each
+        # launch spends most of its time starting), then the resumed runs
         outs, codes = {}, {}
 
         def finish(procs):
@@ -1908,33 +2155,37 @@ def shard_entry_points(card):
                 outs[label] = proc.communicate(timeout=300)
                 codes[label] = proc.returncode
 
-        pretrain = lambda label, ck: launch(  # noqa: E731
-            torchrun + base + ["--checkpoint-dir", os.path.join(tmp, ck)] + runs[label])
-        finish({"straight": pretrain("straight", "a"), "first half": pretrain("first half", "b"),
-                "example": launch(example)})
-        finish({"resumed": pretrain("resumed", "b")})
+        def pretrain(variant, label, ck):
+            return launch(torchrun + base + variants[variant] + runs[label]
+                          + ["--checkpoint-dir", os.path.join(tmp, f"{variant}-{ck}")])
+
+        first = {(v, label): pretrain(v, label, ck) for v in variants
+                 for label, ck in (("straight", "a"), ("first half", "b"))}
+        finish({**first, "example": launch(example)})
+        finish({(v, "resumed"): pretrain(v, "resumed", "b") for v in variants})
         seconds = time.perf_counter() - t0
         for label, (stdout, stderr) in outs.items():
             if codes[label]:
                 raise AssertionError(f"[shard] torchrun {label} failed ({card}):\n"
                                      f"{stdout[-3000:]}\n{stderr[-3000:]}")
-            if label in runs:
+            if label != "example":
                 for line in stdout.splitlines():
-                    if line.startswith(("mesh", "memory plan", "step", "resumed", "device")):
-                        log(f"[shard] pretrain ({label}): {line}")
-        a, b = (torch.load(os.path.join(tmp, x + "-state", "train_state.pt"), weights_only=True)
-                for x in ("a", "b"))
-        flat = lambda d: {k: v for k, v in d["params"].items()} | {  # noqa: E731
-            f"{m}.{k}": v for m, t in d["opt_state"].items() if isinstance(t, dict)
-            for k, v in t.items()}
-        fa, fb = flat(a), flat(b)
-        equal = (a["step"] == b["step"] == 4 and fa.keys() == fb.keys()
-                 and all(torch.equal(fa[k], fb[k]) for k in fa))
-        log(f"[shard] torchrun cli.pretrain and the example: 4 launches in {seconds:.1f} s (three "
-            f"at once); the resumed run's train state equals the straight run's bit for bit: "
-            f"{equal}")
-        if not equal:
-            raise AssertionError("[shard] the torchrun resume is not bit for bit")
+                    if line.startswith(("mesh", "memory plan", "step", "resumed", "device", "LoRA")):
+                        log(f"[shard] pretrain ({label[0]}, {label[1]}): {line}")
+        equal = {}
+        for v in variants:
+            a, b = (read_train_state(os.path.join(tmp, f"{v}-{x}-state")) for x in ("a", "b"))
+            flat = lambda d: dict(d["params"]) | {  # noqa: E731
+                f"{m}.{k}": t for m, ts in d["opt_state"].items() if isinstance(ts, dict)
+                for k, t in ts.items()}
+            fa, fb = flat(a), flat(b)
+            equal[v] = (a["step"] == b["step"] == 4 and fa.keys() == fb.keys()
+                        and all(torch.equal(fa[k], fb[k]) for k in fa))
+        log(f"[shard] torchrun cli.pretrain and the example: {2 * len(variants) + 1} launches at "
+            f"once, then {len(variants)}, in {seconds:.1f} s; each resumed run's train state "
+            f"equals its straight run's bit for bit: {equal}")
+        if not all(equal.values()):
+            raise AssertionError(f"[shard] a torchrun resume is not bit for bit: {equal}")
         stdout, stderr = outs["example"]
         norms = [float(x) for x in re.findall(r"mean embedding norm: ([0-9.naif]+)", stdout)]
         for line in stdout.splitlines():
@@ -1955,9 +2206,12 @@ def shard_rank(rank, world, port, out_dir):
     dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=world,
                             rank=rank, timeout=datetime.timedelta(seconds=SHARD_TIMEOUT))
     res = {"seconds": {}}
+    pp_checkpoint = functools.partial(shard_cards_pp_checkpoint, out_dir=out_dir)
+    functools.update_wrapper(pp_checkpoint, shard_cards_pp_checkpoint)
     # the 15B AdamW step last: it has run out of memory on four cards
     for part in (shard_cards_allreduce, shard_cards_15b_forward, shard_cards_3b, shard_cards_pp,
-                 shard_cards_15b_step):
+                 shard_cards_3b_lora, shard_cards_3b_adafactor, shard_cards_15b_lora,
+                 pp_checkpoint, shard_cards_15b_step):
         t0 = time.perf_counter()
         try:
             res[part.__name__] = part(rank, world)
@@ -2093,9 +2347,13 @@ def shard_cards_15b_step(rank, world):
         state, m = training.train_step_corrupted(state, cfg, tx, batch[0], toks, batch[1])
         losses.append(m["loss"].item())
         secs.append(time.perf_counter() - t0)
+    no_fsdp = memory_plan.plan_train(cfg, mesh_cfg, b, 1024, mu_dtype_bytes=2,
+                                          port_terms=False)
     return {"batch": b, "losses": losses, "step_s": secs,
             "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
-            "plan_gb": plan["per_device_bytes"] / 1e9, "verdict": plan["verdict"]}
+            "plan_gb": plan["per_device_bytes"] / 1e9, "verdict": plan["verdict"],
+            "fsdp_gb": plan["fsdp_bytes"] / 1e9,
+            "plan_without_fsdp_gb": no_fsdp["per_device_bytes"] / 1e9}
 
 
 def _compare_to_one_card(model, metrics, loss1, g1):
@@ -2164,6 +2422,180 @@ def shard_cards_pp(rank, world):
     return out
 
 
+def _lora_adapters(base, seed, nonzero_b=True):
+    """Seeded rank-LORA_RANK adapters over ``base`` (the same on every card:
+    a CUDA generator's draws do not depend on the card); b seeded noise, so
+    that every factor has a gradient."""
+    import torch
+    from esm_tpu_torch import lora
+
+    adapters = lora.init_lora(torch.Generator(device="cuda").manual_seed(seed), base,
+                              rank=LORA_RANK)
+    if nonzero_b:
+        with torch.no_grad():
+            gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+            for _, a in adapters.adapters():
+                a.lora_b.normal_(0.0, 0.02, generator=gen)
+    return adapters
+
+
+def shard_cards_3b_lora(rank, world):
+    """(fsdp, tp) = (2, world / 2): ESM2-3B LoRA (rank 16, bf16 base, the
+    LoRA recipe) step 0 against rank 0's one-card LoRA step."""
+    import torch
+    from esm_tpu_torch import lora, training
+    from esm_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    from esm_tpu_torch.parallel.sharding import shard_params
+
+    model, cfg, alphabet = shard_model("cuda", "esm2_t36_3B_UR50D", 60)
+    lora.store_base(model)
+    toks = torch.from_numpy(bench_tokens(alphabet, 4, 1022, seed=61)).cuda()
+    batch = training._corrupt_batch(cfg, torch.Generator(device="cuda").manual_seed(62), toks)
+    batch = (batch[0], toks, batch[1])
+    adapters = _lora_adapters(model, 63)
+    loss1, g1 = adapter_grads(model, adapters, cfg, batch) if rank == 0 else (None, None)
+    shard_params(model, make_mesh(MeshConfig(1, 2, world // 2)))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with training.frozen_and_patched(model, adapters, 1.0):
+        metrics = training.sharded_loss_and_grads(model, cfg, *batch, adapters=adapters)
+    out = {"step0_s": time.perf_counter() - t0}
+    if rank == 0:
+        grads = {n: p.grad for n, p in adapters.named_parameters()}
+        cos, name, ratio = grad_agreement(grads, g1)
+        out.update(loss=metrics["loss"].item(), one_card_loss=loss1, cos=cos, cos_name=name,
+                   ratio=ratio)
+    return out
+
+
+def shard_cards_3b_adafactor(rank, world):
+    """(fsdp, tp) = (2, world / 2): one ESM2-3B adafactor update (no weight
+    decay, lr SHARD_UPDATE_LR) on the shards against the one-card update on
+    the same gradients (every rank computes the one-card step, each then
+    cuts its shards of its gradients), by the parameter deltas. Fed each
+    side's own gradients, the first update divides them by their row and
+    column RMS, which amplifies the bf16 sums' differences in small rows:
+    the deltas' cosine read 0.9919 where the gradients' read 0.9998."""
+    import torch
+    from esm_tpu_torch import training
+    from esm_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    from esm_tpu_torch.parallel.sharding import shard_params, whole_state
+
+    tx = training.make_optimizer(SHARD_UPDATE_LR, weight_decay=0.0, warmup_steps=0,
+                                 total_steps=1000, factored=True)
+    model, cfg, alphabet = shard_model("cuda", "esm2_t36_3B_UR50D", 64)
+    toks = torch.from_numpy(bench_tokens(alphabet, 4, 1022, seed=65)).cuda()
+    c, m = training._corrupt_batch(cfg, torch.Generator(device="cuda").manual_seed(66), toks)
+    state = training.init_state(model, tx)
+    loss, _ = training.mlm_loss(model, cfg, c, toks, m)
+    loss.backward()
+    grads = training._grads(dict(model.named_parameters()))  # zeros where none
+    one = None
+    if rank == 0:
+        before = {n: p.detach().clone() for n, p in model.named_parameters()}
+        tx.update(model, state.opt_state)
+        one = {n: p.detach() - before[n] for n, p in model.named_parameters()}
+        del before
+    model.zero_grad(set_to_none=True)
+    del model, state, loss
+    torch.cuda.empty_cache()
+    model, _, _ = shard_model("cuda", "esm2_t36_3B_UR50D", 64)
+    shard_params(model, make_mesh(MeshConfig(1, 2, world // 2)))
+    shard = model.__dict__["_sharding"]
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    state = training.init_state(model, tx)
+    for n, p in model.named_parameters():
+        p.grad = shard.cut(n, grads[n])
+    del grads
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tx.update(model, state.opt_state)
+    torch.cuda.synchronize()
+    out = {"update_s": time.perf_counter() - t0}
+    deltas = whole_state(model, {n: p.detach() - before[n] for n, p in model.named_parameters()})
+    if rank == 0:  # the contact head takes no gradient from the loss: its delta is 0
+        cos, name, ratio = grad_agreement(deltas, one,
+                                          names=lambda n_: not n_.startswith("contact_head"))
+        out.update(cos=cos, cos_name=name, ratio=ratio)
+    return out
+
+
+def shard_cards_15b_lora(rank, world):
+    """tp=world: ESM2-15B LoRA (rank 16) on a bf16 base, built layer by layer
+    and cut to bf16 shards, SHARD_LORA_STEPS steps at SHARD_15B_LORA_B x 1024;
+    this rank's peak beside plan_train_lora."""
+    import torch
+    from esm_tpu_torch import training
+    from esm_tpu_torch.parallel import memory_plan
+    from esm_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    from esm_tpu_torch.pretrained import _esm2_alphabet
+
+    mesh_cfg = MeshConfig(1, 1, world)
+    model, cfg = _seeded_sharded("esm2_t48_15B_UR50D", 67, make_mesh(mesh_cfg),
+                                 dtype=torch.bfloat16)
+    b = SHARD_15B_LORA_B
+    toks = torch.from_numpy(bench_tokens(_esm2_alphabet(), b, 1022, seed=68)).cuda()
+    c, m = training._corrupt_batch(cfg, torch.Generator(device="cuda").manual_seed(69), toks)
+    adapters = _lora_adapters(model, 70, nonzero_b=False)
+    tx = training.make_optimizer(SHARD_15B_LORA_LR, warmup_steps=0, total_steps=1000)
+    state = training.init_state(adapters, tx)
+    plan = memory_plan.plan_train_lora(cfg, mesh_cfg, b, 1024, rank=LORA_RANK)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs = [], []
+    for _ in range(SHARD_LORA_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = training.train_step_lora_corrupted(state, model, cfg, tx, c, toks, m)
+        losses.append(metrics["loss"].item())
+        secs.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    return {"batch": b, "losses": losses, "step_s": secs, "peak_gb": peak / 1e9,
+            "plan_gb": plan["per_device_bytes"] / 1e9, "verdict": plan["verdict"],
+            "units": fitted_lora_units(cfg, peak, plan, b, 1024)}
+
+
+def shard_cards_pp_checkpoint(rank, world, out_dir):
+    """pp=world: ESM2-650M (its depth cut to a multiple of the stages) after
+    one train_step_pp (AdamW), its train state saved (each stage's layers
+    gathered over pp), then on rank 0 reloaded on one card: equal to the
+    gathered tensors bit for bit; rank 0's host RSS growth during the save."""
+    import torch
+    import torch.distributed as dist
+    from esm_tpu_torch import training
+    from esm_tpu_torch.io import checkpoint
+    from esm_tpu_torch.models import esm2
+    from esm_tpu_torch.parallel.pipeline import make_pp_mesh
+    from esm_tpu_torch.parallel.sharding import shard_params, whole_state
+
+    n = 33 - 33 % world
+    model, cfg, alphabet = shard_model("cuda", seed=71, num_layers=n)
+    shard_params(model, make_pp_mesh(world))
+    toks = torch.from_numpy(bench_tokens(alphabet, 8, 1022, seed=72)).cuda()
+    tx = training.make_optimizer(TRAIN_LR, warmup_steps=0, total_steps=1000)
+    state = training.init_state(model, tx)
+    state, _ = training.train_step_pp(state, cfg, tx, torch.Generator(device="cuda").manual_seed(73),
+                                      toks, num_microbatches=SHARD_PP_CARDS_M)
+    path = os.path.join(out_dir, "pp_state")
+    growth, seconds = save_host_growth(lambda: checkpoint.save_train_state(path, state))
+    gathered = {"params": whole_state(model)}
+    gathered.update({k: whole_state(model, d) for k, d in training.tensor_fields(
+        state.opt_state).items()})
+    out = {"layers": n, "save_s": seconds, "host_growth": growth}
+    if rank == 0:
+        one = esm2.ESM2(cfg, device="cuda")
+        fresh = checkpoint.load_train_state(path, training.init_state(one, tx))
+        got = {"params": one.state_dict(), **training.tensor_fields(fresh.opt_state)}
+        out["equal"] = (fresh.step == 1 and fresh.opt_state.count == 1 and all(
+            got[k].keys() == gathered[k].keys()
+            and all(torch.equal(got[k][x], gathered[k][x]) for x in gathered[k])
+            for k in gathered))
+        sizes = [t.numel() * t.element_size() for d in gathered.values() for t in d.values()]
+        out.update(largest=max(sizes), tree=sum(sizes))
+    dist.barrier()
+    return out
+
+
 def shard_several_cards(n_cards):
     """One NCCL rank per card (the largest power of two not above the count)."""
     import torch.multiprocessing as mp
@@ -2201,7 +2633,8 @@ def shard_several_cards(n_cards):
             f"moments) steps at B={step['batch']} x 1024: losses " + ", ".join(f"{x:.5f}" for x in step["losses"])
             + "; s a step " + ", ".join(f"{s:.2f}" for s in step["step_s"])
             + f"; peak {step['peak_gb']:.2f} GB, plan_train {step['plan_gb']:.2f} GB "
-            f"({step['verdict']})")
+            f"({step['verdict']}; {step['fsdp_gb']:.2f} GB of it the fsdp gather's transients, "
+            f"{step['plan_without_fsdp_gb']:.2f} GB without that term)")
         if not (np.isfinite(step["losses"]).all() and step["losses"][-1] < step["losses"][0]):
             failed.append(f"rank {rank}: 15B losses {step['losses']}")
         if rank == 0:
@@ -2212,15 +2645,44 @@ def shard_several_cards(n_cards):
             for key, label in (("shard_cards_3b", "ESM2-3B (fsdp, tp) = (2, "
                                 f"{world // 2}) step 0"),
                                ("shard_cards_pp", f"ESM2-650M pp={world} M={SHARD_PP_CARDS_M} "
-                                "step 0")):
+                                "step 0"),
+                               ("shard_cards_3b_lora", f"ESM2-3B LoRA rank {LORA_RANK} (fsdp, "
+                                f"tp) = (2, {world // 2}) step 0 (adapter gradients)")):
                 r = res[key]
                 log(f"[shard] {world} cards: {label}: loss {r['loss']:.6f} vs one card "
-                    f"{r['one_card_loss']:.6f}; gradients lowest cosine {r['cos']:.6f} "
-                    f"({r['cos_name']}), norm ratio {r['ratio']:.6f}; {r['step0_s']:.2f} s")
+                    f"{r['one_card_loss']:.6f}; lowest cosine {r['cos']:.6f} "
+                    f"({r['cos_name']}), norm ratio {r['ratio']:.6f}; "
+                    f"{r['step0_s']:.2f} s")
                 if not (abs(r["loss"] - r["one_card_loss"]) <= SHARD_PP_LOSS_TOL
                         * abs(r["one_card_loss"]) and r["cos"] > 0.999
                         and abs(r["ratio"] - 1) <= 0.01):
                     failed.append(f"{label} off the one-card step")
+        if rank == 0:
+            r = res["shard_cards_3b_adafactor"]
+            log(f"[shard] {world} cards: ESM2-3B adafactor (fsdp, tp) = (2, {world // 2}) update "
+                f"on the one-card gradients (parameter deltas against the one-card update): "
+                f"lowest cosine {r['cos']:.6f} ({r['cos_name']}), norm ratio {r['ratio']:.6f}; "
+                f"{r['update_s'] * 1e3:.1f} ms")
+            if not (r["cos"] > 0.999 and abs(r["ratio"] - 1) <= 0.01):
+                failed.append("the ESM2-3B adafactor update is off the one-card update")
+        lo = res["shard_cards_15b_lora"]
+        log(f"[shard] {world} cards, rank {rank}: ESM2-15B LoRA rank {LORA_RANK} on a bf16 base, "
+            f"tp={world}, B={lo['batch']} x 1024, lr {SHARD_15B_LORA_LR}: losses "
+            + ", ".join(f"{x:.5f}" for x in lo["losses"]) + "; s a step "
+            + ", ".join(f"{x:.2f}" for x in lo["step_s"])
+            + f"; peak {lo['peak_gb']:.2f} GB, plan_train_lora {lo['plan_gb']:.2f} GB "
+            f"({lo['verdict']}; activation units that fit {lo['units']:.2f})")
+        if not (np.isfinite(lo["losses"]).all() and lo["losses"][-1] < lo["losses"][0]):
+            failed.append(f"rank {rank}: 15B LoRA losses {lo['losses']}")
+        ck = res["shard_cards_pp_checkpoint"]
+        log(f"[shard] {world} cards, rank {rank}: ESM2-650M ({ck['layers']} layers) pp={world} "
+            f"train state saved in {ck['save_s']:.1f} s, host RSS growth "
+            f"{ck['host_growth'] / 1e6:.1f} MB"
+            + (f" (largest entry {ck['largest'] / 1e6:.1f} MB, whole tree {ck['tree'] / 1e9:.3f} "
+               f"GB); reloaded on one card equal to the gathered tensors bit for bit: "
+               f"{ck['equal']}" if rank == 0 else ""))
+        if rank == 0 and not ck["equal"]:
+            failed.append("the pp train state reloaded on one card is not the gathered one")
         pp = res["shard_cards_pp"]
         want = flash_counts(pp["layers"] // world, lse=2 * SHARD_PP_CARDS_M, bwd=SHARD_PP_CARDS_M)
         if pp["counts"] != want:
@@ -2233,10 +2695,14 @@ def shard_several_cards(n_cards):
 def shard_counts(res):
     """K1's, K1-with-the-lse's and K2's launches on [shard]'s one-card main
     path, summed over its windows (forward, step 0, the steps, the pipeline's
-    forward and step, the 3B step)."""
-    windows = ("forward_counts", "step_counts", "train_counts", "pp_forward_counts",
-               "pp_step_counts", "3b_counts")
-    total = {k: sum(res[w][k] for w in windows) for k in res["forward_counts"]}
+    forward and step, the 3B step, the LoRA steps on both bases, the
+    adafactor steps)."""
+    windows = [res[w] for w in ("forward_counts", "step_counts", "train_counts",
+                                "pp_forward_counts", "pp_step_counts", "3b_counts")]
+    train = res["train"]
+    windows += [r[w] for r in train["lora"].values() for w in ("step_counts", "steps_counts")]
+    windows.append(train["adafactor"]["counts"])
+    total = {k: sum(w[k] for w in windows) for k in res["forward_counts"]}
     log(f"[shard] launches on the one-card main path: {total}")
     return total
 
@@ -2263,6 +2729,7 @@ def phase_shard(card):
     cards, tp/fsdp/pp over one rank per card."""
     import torch
     import torch.distributed as dist
+    from esm_tpu_torch.parallel.mesh import MeshConfig
 
     t_phase = time.perf_counter()
     torch.cuda.set_device(0)
@@ -2270,10 +2737,15 @@ def phase_shard(card):
                             rank=0)
     try:
         res = shard_one_card(card)
+        res["train"] = shard_train_one_card(card, MeshConfig(1, 1, 1))
     finally:
         dist.destroy_process_group()
     torch.cuda.empty_cache()
     check_shard_one_card(res)
+    check_shard_train(res["train"], res["n_layers"])
+    if not res["save"]["growth"] < res["save"]["tree"] / 2:
+        raise AssertionError(f"[shard] the save's host RSS grew {res['save']['growth']} bytes "
+                             f"for a tree of {res['save']['tree']}")
     res["gemm"] = shard_gemm_rate(card)
     shard_entry_points(card)
     n_cards = torch.cuda.device_count()
@@ -3266,6 +3738,7 @@ def phase_cli_fold():
 # [serve]: the embed load of esm_tpu's scripts_dev/bench_serve_tpu.py
 SERVE_LENGTHS = (250, 380, 500, 1000, 1022)
 SERVE_REQUESTS, SERVE_CLIENTS = 64, 8
+SERVE_HOLD_CYCLES = 1_000_000_000  # device spin before a pipelined chunk's readback (~0.5 s)
 # A co-batched answer (B=16, T of its longest member) against the same
 # sequence's lone answer (B=1): the two differ only in the GEMMs' shapes, so
 # in how bf16 rounds. Each field within 1e-3 of the lone answer's largest
@@ -3371,18 +3844,46 @@ def phase_serve(card, fold):
         records, lock = [], threading.Lock()
         real_dispatch = srv._dispatch_embed_chunk
 
+        real_readback, held = sv._readback, threading.local()
+        hold = [False]  # set for the 48-sequence request below
+
+        def readback(tensors):
+            if getattr(held, "on", False):
+                # SERVE_HOLD_CYCLES of device spin between this batch's
+                # compute and its readback: the batch stays unfinished on
+                # the card past any host delay before the previous batch's
+                # readback is read, while a readback that waited on work
+                # queued after it (a stream or device sync) ends after the
+                # spin and fails. A spin ahead of the compute would not do:
+                # the host blocks once the card's queue of pending launches
+                # is full, so the dispatch itself would wait it out.
+                torch.cuda._sleep(SERVE_HOLD_CYCLES)
+            return real_readback(tensors)
+
+        sv._readback = readback
+
         def dispatch(pairs, layers, include):
+            with lock:
+                follows = bool(records) and records[-1] is not None
+            held.on = hold[0] and follows
+            t_d = time.perf_counter()
             before = read_counts()
-            fin = real_dispatch(pairs, layers, include)
+            try:
+                fin = real_dispatch(pairs, layers, include)
+            finally:
+                held.on = False
             rec = {"n": len(pairs), "launches": count_delta(before, read_counts()),
-                   "ready": fin.ready, "next": None, "overlap": None}
+                   "ready": fin.ready, "next": None, "overlap": None,
+                   "dispatch_ms": 1e3 * (time.perf_counter() - t_d), "finalize_ms": None}
             with lock:
                 if records and records[-1] is not None:
                     records[-1]["next"] = rec
                 records.append(rec)
 
             def finalize():
+                t_f = time.perf_counter()
                 items = fin()
+                rec["finalize_ms"] = 1e3 * (time.perf_counter() - t_f)
                 with lock:
                     nxt = rec["next"]
                 # None: no later batch was queued; True: its compute was still
@@ -3438,6 +3939,7 @@ def phase_serve(card, fold):
         # the previous chunk's readback (the case the overlap is built for)
         with lock:
             records.append(None)  # no "next" across the two runs
+        hold[0] = True
         long_seqs = [random_protein(1022, seed=800 + i) for i in range(48)]
         http_post(srv.url, {"sequences": long_seqs, "include": ["mean", "logits"],
                             "format": "npz"})
@@ -3456,12 +3958,16 @@ def phase_serve(card, fold):
             f"batch's compute ended: " + " ".join(
                 f"b{i}:{r['n']}:{'-' if r['overlap'] is None else 'yes' if r['overlap'] else 'NO'}"
                 for i, r in enumerate(records))
-            + f" ({sum(overlapped)} of {len(overlapped)} batches with a later batch in flight)")
+            + f" ({sum(overlapped)} of {len(overlapped)} batches with a later batch in flight;"
+            f" the 48-sequence request's later chunks held behind {SERVE_HOLD_CYCLES:,} "
+            f"cycles of device spin before their readback; host ms dispatch/finalize "
+            + " ".join(f"b{i}:{r['dispatch_ms']:.1f}/{r['finalize_ms']:.1f}"
+                       for i, r in enumerate(records) if r["overlap"] is not None) + ")")
         if bad:
             raise AssertionError(f"device batches launched {bad}, expected {want} each")
         if not overlapped or not all(overlapped):
             raise AssertionError(f"a readback waited for the next batch: {overlapped}")
-        srv._dispatch_embed_chunk = real_dispatch
+        srv._dispatch_embed_chunk, sv._readback = real_dispatch, real_readback
 
         # ---- agreement: a lone request against a direct call on the batch
         # the server formed (B=1, T padded to 128), bit for bit
@@ -3681,7 +4187,8 @@ def phase_serve(card, fold):
                 http_json(srv.url, {"sequences": [seqs[i % len(seqs)]]}, "/embed")
                 i += 1
 
-        # several captures: one earlier capture held no kernel at all
+        # several captures: captures have held no kernel at all, which the
+        # server now takes again (its "attempts")
         loaders = [threading.Thread(target=load) for _ in range(4)]
         [t.start() for t in loaders]
         time.sleep(0.5)
@@ -3697,7 +4204,8 @@ def phase_serve(card, fold):
                 kernels = [e for e in events if e.get("cat") == "kernel"]
                 k1 = [e for e in kernels if "flash_fwd_bf16" in e.get("name", "")]
                 log(f"[serve] /profile {capture + 1} of {SERVE_PROFILES}: {prof['batches']} "
-                    f"device batches in {sec:.2f} s under /embed load: {len(events)} trace "
+                    f"device batches in {sec:.2f} s ({prof['attempts']} of "
+                    f"{srv.PROFILE_ATTEMPTS} windows) under /embed load: {len(events)} trace "
                     f"events ({cats.get('cpu_op', 0)} CPU operators, "
                     f"{cats.get('cuda_runtime', 0)} CUDA runtime calls), {len(kernels)} kernels, "
                     f"{len(k1)} of K1 ({k1[0]['name'][:60] if k1 else '-'})")

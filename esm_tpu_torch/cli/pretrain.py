@@ -18,13 +18,15 @@ holds the whole model: it is drawn a layer at a time and each layer cut as
 it comes (--init-from reads the checkpoint on the host). Every rank reads
 the same batch and keeps its rows (the batch is padded to a multiple of
 data x fsdp x accum-steps with copies of its first row), prints the memory
-plan of a rank and the mesh-scaling warnings, and checkpoints gather the
-whole model (rank 0 writes; --resume re-shards onto any mesh). Rank 0 logs.
+plan of a rank (``plan_train_lora`` for --lora, ``plan_train(factored=True)``
+for --adafactor) and the mesh-scaling warnings, and checkpoints gather the
+whole model (rank 0 writes; --resume re-shards onto any mesh). With --lora
+the frozen base is sharded and the adapters are whole on every rank
+(their checkpoints are written by rank 0). Rank 0 logs.
 
-    torchrun --nproc_per_node 4 -m esm_tpu_torch.cli.pretrain --fasta seqs.fasta
+    torchrun --nproc_per_node 4 -m esm_tpu_torch.cli.pretrain --fasta seqs.fasta [--lora 16]
 
-A one-process run without a launcher is the one-device run. --lora and
---adafactor do not run on a mesh (ROADMAP Queue 1, item 13d).
+A one-process run without a launcher is the one-device run.
 
 --lora RANK fine-tunes rank-RANK LoRA adapters (esm_tpu_torch.lora) on a
 frozen base: bf16 compute, the flash path and remat "dots" ("full" with
@@ -43,6 +45,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import math
 import os
 import time
 
@@ -185,9 +188,6 @@ def run(args):
     if "WORLD_SIZE" in os.environ or dist.is_initialized():
         from ..parallel.mesh import init_multihost, make_mesh
 
-        if args.lora or args.adafactor:
-            raise SystemExit("--lora and --adafactor do not run on a mesh yet "
-                             "(ROADMAP Queue 1, item 13d)")
         device_type = "cpu" if args.cpu else None
         rank = init_multihost(device_type=device_type)
         mesh_cfg = _mesh_config(args, dist.get_world_size())
@@ -221,12 +221,17 @@ def run(args):
     say(f"{len(dataset)} sequences, {len(batches)} batches/epoch")
     dp = 1  # the batch's row shards: data x fsdp on a mesh
     if mesh is not None:
-        model, dp = _shard_on_mesh(args, cfg, model, mesh, mesh_cfg, device, say)
+        from ..parallel.sharding import shard_params
+
+        model = shard_params(model, mesh).to(device)
+        dp = mesh_cfg.data * mesh_cfg.fsdp
 
     base = lora_scale = None
     if args.lora:
         cfg, lora_scale = _lora_base(args, cfg, model)
         base = model
+    if mesh is not None:
+        _print_plan(args, cfg, mesh_cfg, device, say)
 
     warmup = min(args.warmup_steps, max(1, args.steps // 5))
     tx = training.make_optimizer(
@@ -238,10 +243,12 @@ def run(args):
     if args.lora:
         adapters = lora.init_lora(torch.Generator(device=device).manual_seed(args.seed + 3),
                                   base, rank=args.lora)
-        n_base = sum(p.numel() for p in base.parameters())
+        shard = sharding_of(base)  # on a mesh, the whole base's parameters
+        n_base = sum(math.prod(shard.whole_shape(n, p.shape)) if shard else p.numel()
+                     for n, p in base.named_parameters())
         say(f"LoRA rank {args.lora}: {lora.num_params(adapters) / 1e6:.2f}M trainable "
-              f"adapters on a frozen {n_base / 1e6:.0f}M base"
-              + (" (int8)" if args.lora_int8_base else " (bf16)"))
+            f"adapters on a frozen {n_base / 1e6:.0f}M base"
+            + (" (int8)" if args.lora_int8_base else " (bf16)"))
         state = training.init_state(adapters, tx)
     else:
         state = training.init_state(model, tx)
@@ -274,10 +281,10 @@ def run(args):
                                           toks.to(device))
                 keep = torch.arange(toks.shape[0], device=device) < real  # not the copies
                 if mesh is not None:
-                    keep = batch_rows(keep, sharding_of(state.model))
+                    keep = batch_rows(keep, sharding_of(eval_model))
                 nll_cnt = torch.stack([sums["nll_sum"][keep].sum(), sums["count"][keep].sum()])
                 if mesh is not None:
-                    dp_sum(nll_cnt, sharding_of(state.model))
+                    dp_sum(nll_cnt, sharding_of(eval_model))
                 nll += float(nll_cnt[0])
                 cnt += float(nll_cnt[1])
         say(f"step {step:5d}  eval masked-ppl {np.exp(nll / max(cnt, 1)):8.3f}")
@@ -338,11 +345,11 @@ def run(args):
             # an int8 base is not merged (lora.merge refuses): ship the adapters,
             # which inference attaches to the frozen base with lora.patch
             save_params(args.checkpoint_dir, state.model)
-            print(f"saved LoRA adapters to {args.checkpoint_dir} "
-                  "(int8 base stays unmerged; apply with lora.patch)")
+            say(f"saved LoRA adapters to {args.checkpoint_dir} "
+                "(int8 base stays unmerged; apply with lora.patch)")
         else:
             save_params(args.checkpoint_dir, lora.merge(base, state.model, scale=lora_scale))
-            print(f"saved MERGED params to {args.checkpoint_dir}")
+            say(f"saved MERGED params to {args.checkpoint_dir}")
     return state
 
 
@@ -355,30 +362,32 @@ def pad_rows(toks: torch.Tensor, multiple: int) -> torch.Tensor:
     return toks
 
 
-def _shard_on_mesh(args, cfg, model_or_parts, mesh, mesh_cfg, device, say):
-    """Shard a model, or a layer-at-a-time builder, over ``mesh`` and move
-    the shards to ``device``; print the mesh, a rank's memory plan and the
-    scaling model's warnings. Returns (the sharded model, the batch's row
-    shards)."""
-    from ..parallel.memory_plan import plan_train
+def _print_plan(args, cfg, mesh_cfg, device, say):
+    """Print the mesh, a rank's memory plan (esm_tpu's examples/pretrain_mlm.py
+    :197-227: ``plan_train_lora`` for --lora, else ``plan_train``, factored
+    for --adafactor) and the scaling model's warnings."""
+    from ..parallel.memory_plan import plan_train, plan_train_lora
     from ..parallel.scaling import warn_if_inefficient
-    from ..parallel.sharding import shard_params
 
-    model = shard_params(model_or_parts, mesh).to(device)
-    dp = mesh_cfg.data * mesh_cfg.fsdp
     say(f"mesh: data={mesh_cfg.data} fsdp={mesh_cfg.fsdp} tp={mesh_cfg.tp}")
-    est_b = max(dp * args.accum_steps, args.toks_per_batch // (args.truncation_seq_length + 2))
-    mp = plan_train(cfg, mesh_cfg, est_b, args.truncation_seq_length + 2,
-                    accum_steps=args.accum_steps, mu_dtype_bytes=2 if args.bf16_moments else 4,
-                    device=device)
-    say(f"memory plan (est. B={est_b}): {mp['per_device_bytes'] / 1e9:.1f} GB/rank of "
+    seqlen = args.truncation_seq_length + 2
+    est_b = max(mesh_cfg.data * mesh_cfg.fsdp * args.accum_steps, args.toks_per_batch // seqlen)
+    if args.lora:
+        mp = plan_train_lora(cfg, mesh_cfg, est_b, seqlen, rank=args.lora,
+                             base_dtype_bytes=1 if args.lora_int8_base else 2,
+                             remat_policy=cfg.remat_policy, device=device)
+        hint, what = "--lora-full-remat / --lora-int8-base", "LoRA, "
+    else:
+        mp = plan_train(cfg, mesh_cfg, est_b, seqlen, accum_steps=args.accum_steps,
+                        mu_dtype_bytes=2 if args.bf16_moments else 4, factored=args.adafactor,
+                        device=device)
+        hint = "--accum-steps / --bf16-moments / more devices"
+        what = "adafactor, " if args.adafactor else ""
+    say(f"memory plan ({what}est. B={est_b}): {mp['per_device_bytes'] / 1e9:.1f} GB/rank of "
         f"{mp['hbm_bytes'] / 1e9:.1f} -> {mp['verdict']}"
-        + ("  (hint: --accum-steps / --bf16-moments / more devices)"
-           if mp["verdict"] != "fits" else ""))
+        + (f"  (hint: {hint})" if mp["verdict"] != "fits" else ""))
     if say is print:  # the layout's warnings, once
-        warn_if_inefficient(cfg, mesh_cfg, batch=est_b, seqlen=args.truncation_seq_length + 2,
-                            mode="train")
-    return model, dp
+        warn_if_inefficient(cfg, mesh_cfg, batch=est_b, seqlen=seqlen, mode="train")
 
 
 def main():

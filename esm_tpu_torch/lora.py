@@ -23,6 +23,14 @@ drawn as one (num_layers, d_in, r) tensor), so the bits differ and the
 tests carry JAX's adapters across with ``io.from_jax.lora_from_jax``.
 Targets are matched against esm_tpu's paths (``io.from_jax.jax_leaf``), so a
 name set or a predicate selects the same linears in both packages.
+
+Over a base sharded by ``parallel.sharding.shard_params`` the adapters stay
+whole on every rank (esm_tpu's examples/pretrain_mlm.py:250-260 replicates
+them on the mesh): they are drawn, checked and merged against the whole
+weights' shapes, each layer's product uses this rank's part of them
+(``parallel.tensor_parallel.gather_linear``), :func:`merge` adds each
+rank's cut of the whole delta to its shard, and :func:`store_base` quantizes
+each shard with the whole rows' scales. A pipeline-sharded base is refused.
 """
 
 from __future__ import annotations
@@ -87,6 +95,23 @@ def fold_targets(path: Tuple) -> bool:
     return path[0] != "esm"
 
 
+def _sharding(model: nn.Module):
+    """The model's Sharding, or None; a pipeline-sharded model is refused."""
+    from .parallel.sharding import _LORA_PP, sharding_of
+
+    shard = sharding_of(model)
+    if shard is not None and shard.stages > 1:
+        raise NotImplementedError(_LORA_PP)
+    return shard
+
+
+def _whole_shape(shard, name: str, weight: torch.Tensor) -> Tuple[int, ...]:
+    """The whole (out, in) shape of the linear ``name``'s weight (a sharded
+    model holds a shard of it)."""
+    return tuple(weight.shape) if shard is None else shard.whole_shape(f"{name}.weight",
+                                                                      weight.shape)
+
+
 def _wants(targets: Targets, path: Tuple) -> bool:
     if callable(targets):
         return bool(targets(path))
@@ -109,6 +134,7 @@ def init_lora(
     the model's device."""
     if rank < 1:
         raise ValueError(f"rank must be >= 1, got {rank}")
+    shard = _sharding(model)
     groups = {}
     for name, module in model.named_modules():
         if isinstance(module, nn.Linear):
@@ -123,7 +149,7 @@ def init_lora(
     factors = {}
     for path in sorted(groups):  # esm_tpu's traversal: sorted keys, list order
         members = sorted(groups[path], key=lambda m: m[0] or 0)
-        d_out, d_in = members[0][2].weight.shape
+        d_out, d_in = _whole_shape(shard, members[0][1], members[0][2].weight)
         device = members[0][2].weight.device
         stacked = members[0][0] is not None
         lead = (len(members),) if stacked else ()
@@ -138,6 +164,7 @@ def init_lora(
 
 def _resolve(model: nn.Module, lora: LoRA) -> List[Tuple[nn.Linear, Adapter]]:
     """The (linear, adapter) pairs, checked before anything is attached."""
+    shard = _sharding(model)
     pairs = []
     for path, adapter in lora.adapters():
         try:
@@ -146,7 +173,7 @@ def _resolve(model: nn.Module, lora: LoRA) -> List[Tuple[nn.Linear, Adapter]]:
             raise KeyError(f"adapter path {path!r} not in the model") from None
         if not isinstance(layer, nn.Linear):
             raise ValueError(f"adapter {path!r} does not align with a linear")
-        d_out, d_in = layer.weight.shape
+        d_out, d_in = _whole_shape(shard, path, layer.weight)
         a, b = adapter.lora_a, adapter.lora_b
         if a.dim() != 2 or a.shape[0] != d_in or b.shape != (a.shape[1], d_out):
             raise ValueError(
@@ -192,15 +219,23 @@ def merge(model: nn.Module, lora: LoRA, *, scale: float = 1.0) -> nn.Module:
     ``weight += scale * (a @ b)ᵀ``, accumulated in fp32 and cast back to the
     weight's dtype; it runs at the base model's cost. ``model`` is left as it
     is. A weight-only int8 weight is refused (merging would requantize the
-    frozen base): run such a base patched."""
+    frozen base): run such a base patched. A sharded base gives a model
+    sharded alike (the same ``Sharding``): each rank adds its cut of the
+    whole delta to its shard, so its whole state is the unsharded merge's."""
+    from .parallel.sharding import sharding_of
+
     pairs = _resolve(model, lora)
     if any(layer.weight.dtype == torch.int8 for layer, _ in pairs):
         raise ValueError(_INT8_MERGE)
-    merged = unpatch(copy.deepcopy(model))
+    shard = sharding_of(model)
+    # the copy shares the Sharding: its process groups are not copied
+    merged = unpatch(copy.deepcopy(model, {} if shard is None else {id(shard): shard}))
     for path, adapter in lora.adapters():
         w = merged.get_submodule(path).weight
-        delta = torch.matmul(adapter.lora_a.float(), adapter.lora_b.float())
-        w.copy_((w.float() + scale * delta.t()).to(w.dtype))
+        delta = torch.matmul(adapter.lora_a.float(), adapter.lora_b.float()).t()
+        if shard is not None:
+            delta = shard.cut(f"{path}.weight", delta)
+        w.copy_((w.float() + scale * delta).to(w.dtype))
     return merged
 
 
@@ -209,8 +244,9 @@ def store_base(model: nn.Module, *, int8: bool = False) -> nn.Module:
     """The frozen base of esm_tpu's LoRA recipe (examples/pretrain_mlm.py
     --lora), in place: every fp32 parameter cast to bf16, or with ``int8``
     the linears' weights quantized to weight-only int8 from the fp32 values
-    (``quantization.quantize_params``; the other parameters stay fp32).
-    Returns ``model``."""
+    (``quantization.quantize_params``; the other parameters stay fp32; on a
+    sharded model each shard with the whole rows' scales). Returns
+    ``model``."""
     if int8:
         from .quantization import quantize_params
 

@@ -14,8 +14,11 @@ and charges the sharded fold's own terms (``port_terms``).
 
 The training plan's activation term is the eager port's, measured on the
 card (``ACT_UNITS``; esm_tpu's 10 through ``act_units``), as the fold's
-working set is (``PAIR_TEMPS``); the LoRA plan keeps esm_tpu's terms (not
-measured on the card). ``hbm_bytes=None`` means the memory
+working set is (``PAIR_TEMPS``); the LoRA plan's with ``port_terms``
+(``LORA_ACT_UNITS``; esm_tpu's 15 without). Both charge, with
+``port_terms``, what an fsdp step of the port holds beyond its state
+(:func:`fsdp_transient_bytes`); ``port_terms=False`` gives esm_tpu's
+formula. ``hbm_bytes=None`` means the memory
 of the device the caller names (``device``; the GPU when none is named):
 the card's ``total_memory``, or the host's physical memory for the CPU.
 The server derives its fold-length cap from ``max_fold_length``.
@@ -50,6 +53,28 @@ def device_memory_bytes(device=None) -> int:
 # 51.437 GB) on the card (chip_smoke.py [shard]; NVIDIA H100 80GB HBM3,
 # 700.00 W); 8 covers both (+0.9% and +12% over their peaks).
 ACT_UNITS = 8
+# The same for a LoRA step (remat "dots", flash): each adapted product adds
+# its term's saved outputs, (x a) and (x a) b, the latter as wide as the
+# product's own; esm_tpu charges 15. The port's rank-16 steps fit 19.97 (bf16
+# base) and 19.7 (int8) at ESM2-650M, B=8 x 1024 (peaks 15.321 and 14.650
+# GB; chip_smoke.py [shard], NVIDIA H100 80GB HBM3, 700.00 W).
+LORA_ACT_UNITS = 20
+
+
+def fsdp_transient_bytes(cfg, mesh_cfg: MeshConfig, gathered_bytes: float,
+                         grad_bytes: float = 0.0) -> int:
+    """What a rank's fsdp step holds beyond its state and activations (the
+    port's ZeRO-3 gather, ``parallel.tensor_parallel.gather_param``): one
+    layer's linear weights gathered whole over fsdp (their tp shard, 12 D^2 /
+    tp elements) at ``gathered_bytes`` an element, twice (the forward's, or
+    the remat recompute's, and the backward's), and that layer's whole
+    gradient before the reduce-scatter at ``grad_bytes`` an element (in the
+    compute dtype, then the parameter's). 0 without an fsdp axis (the
+    gather is the identity)."""
+    if mesh_cfg.fsdp == 1:
+        return 0
+    layer = 12 * cfg.embed_dim * cfg.embed_dim // mesh_cfg.tp
+    return int(layer * (2 * gathered_bytes + grad_bytes))
 
 
 def _verdict(total: float, hbm_bytes: int) -> str:
@@ -112,6 +137,7 @@ def plan_train(
     hbm_bytes: Optional[int] = None,
     device=None,
     act_units: float = ACT_UNITS,
+    port_terms: bool = True,
 ) -> Dict:
     """Estimate a rank's memory for one MLM training step (AdamW, remat and
     flash attention: the configuration ``training.train_step`` targets;
@@ -121,7 +147,11 @@ def plan_train(
     buffer) + the activations: per layer ``act_units`` x D x T x B bf16
     values of saved products, and the fp32 logits. B
     and T are a rank's (the batch over data x fsdp, T over ``seq_shards``).
-    Use the verdict ("fits" / "close" / "over"), not the raw number."""
+    ``port_terms`` adds the fsdp gather's transients
+    (:func:`fsdp_transient_bytes`: weights in the compute dtype, the
+    gradient in it and in fp32) as ``fsdp_bytes``; False is esm_tpu's
+    formula. Use the verdict ("fits" / "close" / "over"), not the raw
+    number."""
     if hbm_bytes is None:
         hbm_bytes = device_memory_bytes(device)
     per_dev_params = plan_model(cfg, mesh_cfg)["per_device_bytes"]
@@ -139,15 +169,18 @@ def plan_train(
     acts = cfg.num_layers * (act_units * d * t_local * b_local * 2)
     logits = b_local * t_local * getattr(cfg, "alphabet_size", 33) * 4
     total = per_dev_params + opt + grads + accum_buf + acts + logits
-    return {
-        "per_device_bytes": int(total),
+    out = {
         "params_bytes": int(per_dev_params),
         "optimizer_bytes": int(opt),
         "grads_bytes": int(grads + accum_buf),
         "activations_bytes": int(acts + logits),
         "hbm_bytes": hbm_bytes,
-        "verdict": _verdict(total, hbm_bytes),
     }
+    if port_terms:
+        cdt = cfg.compute_dtype.itemsize
+        out["fsdp_bytes"] = fsdp_transient_bytes(cfg, mesh_cfg, cdt, cdt + 4)
+        total += out["fsdp_bytes"]
+    return {"per_device_bytes": int(total), **out, "verdict": _verdict(total, hbm_bytes)}
 
 
 def plan_train_lora(
@@ -162,13 +195,18 @@ def plan_train_lora(
     seq_shards: int = 1,
     hbm_bytes: Optional[int] = None,
     device=None,
+    port_terms: bool = True,
 ) -> Dict:
     """Estimate a rank's memory for one LoRA step (``training.train_step_lora``;
     esm_tpu :297): the frozen base in its storage dtype (2 = bf16, 1 = int8,
     4 = fp32) + fp32 adapters with AdamW moments and gradients + the
     activations: 15 x D x T x B x 2 bytes a layer under "dots", the layer
     inputs and one layer's recompute under "full"; an int8 base adds
-    12 x D^2 x 2 x 4 bytes of backward weight transients.
+    12 x D^2 x 2 x 4 bytes of backward weight transients. ``port_terms``
+    charges the eager port's activations (``LORA_ACT_UNITS`` for esm_tpu's
+    15) and adds the fsdp gather's transients (the frozen base's weights as
+    gathered: int8, or the compute dtype; no weight gradient) as
+    ``fsdp_bytes``; False is esm_tpu's formula.
     Use the verdict, not the raw number."""
     if hbm_bytes is None:
         hbm_bytes = device_memory_bytes(device)
@@ -182,7 +220,7 @@ def plan_train_lora(
     dp = mesh_cfg.data * mesh_cfg.fsdp
     b_local = -(-batch // dp)
     t_local = -(-seqlen // max(seq_shards, 1))
-    layer_body = 15 * d * t_local * b_local * 2
+    layer_body = (LORA_ACT_UNITS if port_terms else 15) * d * t_local * b_local * 2
     if remat_policy == "full":
         acts = cfg.num_layers * (b_local * t_local * d * 2) + layer_body
     else:
@@ -190,8 +228,7 @@ def plan_train_lora(
     weight_transients = 12 * d * d * 2 * 4 if base_dtype_bytes == 1 else 0
     logits = b_local * t_local * getattr(cfg, "alphabet_size", 33) * 4
     total = base + adapters + opt + grads + acts + weight_transients + logits
-    return {
-        "per_device_bytes": int(total),
+    out = {
         "params_bytes": int(base),
         "adapter_bytes": int(adapters),
         "optimizer_bytes": int(opt),
@@ -199,8 +236,12 @@ def plan_train_lora(
         "activations_bytes": int(acts + logits),
         "weight_transient_bytes": int(weight_transients),
         "hbm_bytes": hbm_bytes,
-        "verdict": _verdict(total, hbm_bytes),
     }
+    if port_terms:
+        gathered = 1 if base_dtype_bytes == 1 else cfg.compute_dtype.itemsize
+        out["fsdp_bytes"] = fsdp_transient_bytes(cfg, mesh_cfg, gathered)
+        total += out["fsdp_bytes"]
+    return {"per_device_bytes": int(total), **out, "verdict": _verdict(total, hbm_bytes)}
 
 
 # Compute-dtype pair tensors the trunk holds at its peak, beside s_z_0 and

@@ -31,11 +31,20 @@ only.
 Shards must be even: a dimension that the mesh axes do not divide is
 refused, so every ``all_gather_into_tensor`` and ``reduce_scatter_tensor``
 sees equal pieces and the plan's bytes are exact.
+
+LoRA over a sharded base (esm_tpu's examples/pretrain_mlm.py:240-262): the
+adapters stay whole on every rank, the base is never gathered whole. A
+layer's stand-in (:meth:`Sharding.gather_layer`) carries the factors: a
+column-parallel product adds ``(x @ a) @ b[:, this tp rank's outputs]``, a
+row-parallel one ``(x_local @ a[this tp rank's inputs]) @ b`` to its
+partial sum before the tp all-reduce. Each rank's adapter gradient is then
+its part of the whole batch's; :meth:`Sharding.sync_adapter_grads` sums
+them. LoRA on a pipeline-sharded model is refused.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Iterator, Mapping, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -172,10 +181,18 @@ class Sharding:
 
     # -- the pieces ---------------------------------------------------------
 
-    def cut(self, name: str, full: torch.Tensor) -> torch.Tensor:
-        """This rank's shard of the whole tensor ``full`` of entry ``name``."""
+    def whole_shape(self, name: str, shape, spec: Optional[Spec] = None) -> Tuple[int, ...]:
+        """The whole shape of entry ``name`` (or of a tensor laid out by
+        ``spec``) from a shard's ``shape``."""
+        spec = self.specs[name] if spec is None else spec
+        return tuple(n * (self.sizes[a] if a is not None else 1)
+                     for n, a in zip(shape, tuple(spec) + (None,) * (len(shape) - len(spec))))
+
+    def cut(self, name: str, full: torch.Tensor, spec: Optional[Spec] = None) -> torch.Tensor:
+        """This rank's shard of the whole tensor ``full`` of entry ``name``
+        (laid out by ``spec`` when given, e.g. an optimizer statistic)."""
         out = full
-        for dim, axis in enumerate(self.specs[name]):
+        for dim, axis in enumerate(self.specs[name] if spec is None else spec):
             if axis is None or self.sizes[axis] == 1:
                 continue
             n = self.sizes[axis]
@@ -186,14 +203,15 @@ class Sharding:
             out = out.chunk(n, dim=dim)[self.coords[axis]]
         return out.contiguous()
 
-    def whole(self, name: str, local: torch.Tensor) -> torch.Tensor:
-        """The whole tensor of entry ``name`` from every rank's shard, a new
-        tensor (every rank of the mesh calls it; not differentiable)."""
+    def whole(self, name: str, local: torch.Tensor, spec: Optional[Spec] = None) -> torch.Tensor:
+        """The whole tensor of entry ``name`` (laid out by ``spec`` when
+        given) from every rank's shard, a new tensor (every rank of the mesh
+        calls it; not differentiable)."""
         out = local
-        for dim, axis in enumerate(self.specs[name]):
+        for dim, axis in enumerate(self.specs[name] if spec is None else spec):
             if axis is not None:
                 out = tpar.all_gather(out, dim, self.group[axis])
-        return local.clone() if out is local else out
+        return local.clone() if out is local else out.contiguous()
 
     # -- the layers ---------------------------------------------------------
 
@@ -206,7 +224,13 @@ class Sharding:
 
         g = self.fsdp
         attn = layer.self_attn
-        gather = lambda lin, dim: tpar.gather_linear(lin, dim, g, dtype=dtype)  # noqa: E731
+
+        def gather(lin, dim):
+            # LoRA factors: a column-parallel product (dim 1) keeps this tp
+            # rank's outputs of b, a row-parallel one (dim 0) its inputs of a
+            return tpar.gather_linear(lin, dim, g, dtype=dtype, lora_tp=self.tp,
+                                      lora_dim=1 if dim == 1 else 0)
+
         return SimpleNamespace(
             self_attn=SimpleNamespace(
                 q_proj=gather(attn.q_proj, 1),
@@ -229,23 +253,29 @@ class Sharding:
         too (each stage's share of their gradient: the embedding's input on
         the first, the head on the last). A parameter without a gradient
         takes zeros, so every rank issues the same collectives."""
-        works = []
-        for name, p in model.named_parameters():
-            if not p.requires_grad:
-                continue
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
+        def groups(name):
             axes = self.axes_of(name)
-            groups = [self.group[AXIS_DATA] if AXIS_FSDP in axes else self.group["dp"]]
+            out = [self.group[AXIS_DATA] if AXIS_FSDP in axes else self.group["dp"]]
             if self.stages > 1 and AXIS_PP not in axes:
-                groups.append(self.group[AXIS_PP])
-            groups = [g for g in groups if g is not None]
-            for group in groups[:-1]:  # the last sum reads the earlier ones
-                dist.all_reduce(p.grad, group=group)
-            if groups:
-                works.append(dist.all_reduce(p.grad, group=groups[-1], async_op=True))
-        for work in works:
-            work.wait()
+                out.append(self.group[AXIS_PP])
+            return out
+
+        _sum_grads((p, groups(name)) for name, p in model.named_parameters() if p.requires_grad)
+
+    def sync_adapter_grads(self, adapters: nn.Module) -> None:
+        """Make every adapter's ``.grad`` (adapters whole on every rank, over
+        this sharded base) the whole batch's gradient on every rank: summed
+        over the (data, fsdp) rows, and over tp where the adapted product is
+        split over tp (each tp rank holds its block's or its partial sum's
+        part; a product every tp rank runs alike counts once). An adapter
+        without a gradient takes zeros, so every rank issues the same
+        collectives."""
+        if self.stages > 1:
+            raise NotImplementedError(_LORA_PP)
+        for path, adapter in adapters.adapters():
+            split = any(part in COLUMN_PARALLEL + ROW_PARALLEL for part in path.split("."))
+            groups = [self.group["dp"], self.tp if split else None]
+            _sum_grads((p, groups) for p in (adapter.lora_a, adapter.lora_b))
 
     def norm_sq(self, tensors: Dict[str, torch.Tensor]) -> torch.Tensor:
         """sum over the whole model of sum(t * t), each shard once: the
@@ -255,6 +285,26 @@ class Sharding:
         if dist.get_world_size() > 1:
             dist.all_reduce(total)
         return total
+
+
+_LORA_PP = "LoRA on a pipeline-sharded model (ROADMAP Queue 1, item 13d)"
+
+
+def _sum_grads(items) -> None:
+    """All-reduce each parameter's ``.grad`` (zeros where it has none, so
+    every rank issues the same collectives) over each of its groups (None:
+    an axis of size 1), the last sum of each asynchronously."""
+    works = []
+    for p, groups in items:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+        groups = [g for g in groups if g is not None]
+        for group in groups[:-1]:  # the last sum reads the earlier ones
+            dist.all_reduce(p.grad, group=group)
+        if groups:
+            works.append(dist.all_reduce(p.grad, group=groups[-1], async_op=True))
+    for work in works:
+        work.wait()
 
 
 def stage_layers(num_layers: int, stages: int, stage: int) -> range:
@@ -365,49 +415,109 @@ def dp_sum(t: torch.Tensor, sharding: Sharding) -> torch.Tensor:
     return t
 
 
-def iter_whole_state(model: nn.Module, tensors: Optional[Dict[str, torch.Tensor]] = None):
+def _key(name: str) -> str:
+    """The sharding's entry of a state-dict name (the tied LM-head projection
+    is the embedding)."""
+    return "embed_tokens.weight" if name == "lm_head.weight" else name
+
+
+def whole_names(sharding: Sharding, names) -> Iterator[Tuple[str, str, int]]:
+    """(whole name, this rank's name of the same entry, the pipeline stage
+    that holds it) for each entry of the whole model, in the model's order,
+    from the names of this rank's tensors (``names``, keyed like its state
+    dict or parameters): with a ``pp`` axis, this stage's layers stand for
+    every stage's (each holds L/S layers of one structure)."""
+    names = list(names)
+    per = len(sharding.layer_ids)
+    first = sharding.layer_ids.start
+    stage = sharding.coords.get(AXIS_PP, 0)
+    layers_done = False
+    for name in names:
+        i = _layer_of(name)
+        if i is None or sharding.stages == 1:
+            yield name, name, stage
+            continue
+        if layers_done:
+            continue
+        layers_done = True
+        suffixes = [n.split(".", 2)[2] for n in names if _layer_of(n) == first]
+        for layer in range(per * sharding.stages):
+            for suffix in suffixes:
+                yield (f"layers.{layer}.{suffix}", f"layers.{first + layer % per}.{suffix}",
+                       layer // per)
+
+
+def iter_whole_state(model: nn.Module, tensors: Optional[Dict[str, torch.Tensor]] = None,
+                     specs: Optional[Dict[str, Spec]] = None):
     """(name, whole tensor) of each entry of a sharded model's state dict (or
-    of ``tensors``, keyed like its parameters, e.g. optimizer moments), one
-    entry at a time, gathered over the mesh onto the shards' device: a
-    caller that lets each go before taking the next holds one whole entry
-    at a time. Every rank iterates it alike. With a ``pp`` axis, the stages
-    are not gathered: a rank gets its own stage's layers."""
+    of ``tensors``, keyed like its parameters, e.g. optimizer moments, laid
+    out by ``specs`` where given), one entry at a time, gathered over the
+    mesh onto the shards' device: a caller that lets each go before taking
+    the next holds one whole entry at a time. Every rank iterates it alike.
+    With a ``pp`` axis, each stage's layers are gathered within the stage
+    and broadcast over pp, so every rank gets the whole model's entries."""
     sharding = sharding_of(model)
     source = model.state_dict() if tensors is None else tensors
-    for name, t in source.items():
-        key = "embed_tokens.weight" if name == "lm_head.weight" else name
-        yield name, (sharding.whole(key, t.detach()) if key in sharding.specs
-                     else t.detach().clone())
+    specs = specs or {}
+    stage = sharding.coords.get(AXIS_PP, 0)
+    for name, local_name, owner in whole_names(sharding, source):
+        t = source[local_name].detach()
+        key, spec = _key(local_name), specs.get(local_name)
+        sharded = spec is not None or key in sharding.specs
+        if owner == stage:
+            out = sharding.whole(key, t, spec) if sharded else t.clone()
+        else:  # another stage's layer: its shape is this stage's counterpart's
+            shape = sharding.whole_shape(key, t.shape, spec) if sharded else t.shape
+            out = t.new_empty(shape)
+        if sharding.stages > 1 and _layer_of(name) is not None:  # one stage's: to every stage
+            group = sharding.group[AXIS_PP]
+            dist.broadcast(out, src=dist.get_global_rank(group, owner), group=group)
+        yield name, out
+        del out  # before the next entry is gathered
 
 
 def whole_state(model: nn.Module, tensors: Optional[Dict[str, torch.Tensor]] = None,
-                ) -> Dict[str, torch.Tensor]:
+                specs: Optional[Dict[str, Spec]] = None) -> Dict[str, torch.Tensor]:
     """:func:`iter_whole_state` as one dict: every whole entry at once, on
     every rank (for a small model; a checkpoint gathers one at a time)."""
-    return dict(iter_whole_state(model, tensors))
+    return dict(iter_whole_state(model, tensors, specs))
+
+
+def _check_names(sharding: Sharding, own, given) -> None:
+    want = [name for name, _, _ in whole_names(sharding, own)]
+    if set(want) != set(given):
+        missing, extra = set(want) - set(given), set(given) - set(want)
+        raise KeyError(f"state dict mismatch: missing {sorted(missing)}, unexpected "
+                       f"{sorted(extra)}")
 
 
 @torch.no_grad()
-def load_whole_state(model: nn.Module, state: Dict[str, torch.Tensor]) -> nn.Module:
+def load_whole_state(model: nn.Module, state: Mapping[str, torch.Tensor]) -> nn.Module:
     """Copy a whole state dict (as saved from any mesh, or unsharded) into a
-    sharded model: each rank takes its shard. Strict: the names must match."""
+    sharded model: each rank takes its shard (with a ``pp`` axis, of its
+    stage's layers). ``state`` may be any mapping whose entries are read as
+    they are needed. Strict: the names must match."""
     sharding = sharding_of(model)
     own = model.state_dict()
-    if own.keys() != state.keys():
-        missing, extra = own.keys() - state.keys(), state.keys() - own.keys()
-        raise KeyError(f"state dict mismatch: missing {sorted(missing)}, unexpected "
-                       f"{sorted(extra)}")
+    _check_names(sharding, own, state.keys())
     for name, dst in own.items():
-        key = "embed_tokens.weight" if name == "lm_head.weight" else name
+        key = _key(name)
         src = state[name]
         dst.copy_(sharding.cut(key, src) if key in sharding.specs else src)
     return model
 
 
-def cut_like(model: nn.Module, tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-    """This rank's shards of whole tensors keyed like the model's parameters."""
+def cut_like(model: nn.Module, tensors: Mapping[str, torch.Tensor], own: Mapping[str, object],
+             specs: Optional[Dict[str, Spec]] = None) -> Iterator[Tuple[str, torch.Tensor]]:
+    """(name, this rank's shard) for each name of ``own`` (this rank's
+    tensors keyed like the model's parameters), cut from the whole tensors
+    ``tensors`` (laid out by ``specs`` where given), one at a time. Strict:
+    ``tensors`` names the whole model's entries."""
     sharding = sharding_of(model)
-    return {n: sharding.cut(n, t) for n, t in tensors.items()}
+    _check_names(sharding, own, tensors.keys())
+    specs = specs or {}
+    for name in own:
+        yield name, sharding.cut(name, tensors[name], specs.get(name))
 
 
 def resident_bytes(model: nn.Module) -> int:

@@ -27,6 +27,11 @@ backward that makes the sharded step's gradients those of the whole batch:
 A ``group`` of None is a mesh dimension of size 1: every function is then
 the identity, so a mesh of one rank computes exactly what the unsharded
 model computes. Gathers concatenate along ``dim``.
+
+LoRA factors attached to a sharded linear (esm_tpu_torch/lora.py) are
+whole on every rank; :func:`gather_linear` hands the product this tp
+rank's part of them (``lora_tp``), so the adapter term is split as the
+product is and its gradient on each rank is that rank's part.
 """
 
 from __future__ import annotations
@@ -151,25 +156,33 @@ def reduce_from_tp(x: torch.Tensor, group) -> torch.Tensor:
 
 def row_parallel_linear(layer, x: torch.Tensor, group) -> torch.Tensor:
     """``linear(layer, x)`` for a row-parallel layer whose weight holds this
-    tp rank's input columns: the partial products are all-reduced, then the
-    (replicated) bias is added once. With no tp group, ``linear`` itself."""
+    tp rank's input columns: the partial products (with a LoRA term over
+    this rank's rows of ``a``, which ``gather_linear`` cut) are all-reduced,
+    then the (replicated) bias is added once. With no tp group, ``linear``
+    itself."""
     if _size(group) == 1:
         return linear(layer, x)
     bare = SimpleNamespace(weight=layer.weight, bias=None)
     if layer.weight.dtype == torch.int8:
         bare.scale = layer.scale
+    if getattr(layer, "lora", None) is not None:
+        bare.lora = layer.lora
     y = reduce_from_tp(linear(bare, x), group)
     return y if layer.bias is None else y + layer.bias.to(y.dtype)
 
 
 def gather_linear(layer, dim: int, group, tp_group: Optional[object] = None,
-                  tp_dim: Optional[int] = None, dtype: Optional[torch.dtype] = None):
-    """A stand-in for ``layer`` (weight, bias, int8 scale) whose weight is
-    gathered over ``group`` along ``dim`` (ZeRO-3; moved as ``dtype``, the
-    compute dtype the product casts it to) and, with ``tp_group``, over tp
-    along ``tp_dim`` for a replicated product (its bias too)."""
-    if layer.__dict__.get("lora") is not None:
-        raise NotImplementedError("LoRA adapters on a sharded model (ROADMAP Queue 1, item 13d)")
+                  tp_dim: Optional[int] = None, dtype: Optional[torch.dtype] = None,
+                  lora_tp: Optional[object] = None, lora_dim: int = 1):
+    """A stand-in for ``layer`` (weight, bias, int8 scale, LoRA factors) whose
+    weight is gathered over ``group`` along ``dim`` (ZeRO-3; moved as
+    ``dtype``, the compute dtype the product casts it to) and, with
+    ``tp_group``, over tp along ``tp_dim`` for a replicated product (its bias
+    too; the LoRA term is then the whole one on every tp rank). With
+    ``lora_tp``, the tp group of a split product, the factors are cut to
+    this rank's part: ``lora_dim`` 1, a column-parallel product, keeps its
+    output columns of ``b``; 0, a row-parallel one, its input rows of ``a``
+    (differentiable cuts: the other blocks get zero gradients)."""
     w = gather_param(layer.weight, dim, group, dtype)
     b = layer.bias
     if tp_group is not None:
@@ -179,4 +192,12 @@ def gather_linear(layer, dim: int, group, tp_group: Optional[object] = None,
     out = SimpleNamespace(weight=w, bias=b)
     if layer.weight.dtype == torch.int8:
         out.scale = layer.scale
+    lora = layer.__dict__.get("lora")
+    if lora is not None:
+        a, b_lora, scale = lora
+        if lora_dim == 1:
+            b_lora = own_block(b_lora, 1, lora_tp)
+        else:
+            a = own_block(a, 0, lora_tp)
+        out.lora = (a, b_lora, scale)
     return out

@@ -17,13 +17,21 @@ What differs from the JAX package: it returns a new parameter tree; here
 as esm_tpu does, over the whole leaf: the layers that esm_tpu stacks into
 one (num_layers, in, out) kernel (``io.from_jax.jax_leaf``) are selected
 together.
+
+A model sharded by ``parallel.sharding.shard_params`` is quantized shard by
+shard: a row's absmax is taken over the whole row (a max over the mesh axis
+that splits the input dimension), the leaf sizes are the whole leaves', and
+each rank keeps its shard of the whole scale vector, so the int8 values and
+scales are those of the whole tree.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 # Raw (out, in) parameters that esm_tpu keeps as linear kernels, and the
@@ -31,21 +39,26 @@ from torch import nn
 RAW_KERNELS = {"embed_out": "embed_out_scale"}
 
 
-def quantize_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def quantize_weight(w: torch.Tensor, group=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(out, in) float weight -> (int8 values, fp32 scales (out,)):
     scale[o] = max|W[o, :]| / 127 (1 for an all-zero row), computed in fp32
-    (a bf16 amax / 127 that rounds down would clip the row's largest weights)."""
+    (a bf16 amax / 127 that rounds down would clip the row's largest weights).
+    ``group``: the process group over which the rows' input columns are
+    split (the max is then the whole row's)."""
     w = w.detach()
     amax = w.abs().amax(dim=1).float()
+    if group is not None:
+        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
     scale = torch.where(amax == 0, torch.ones_like(amax), amax / 127.0)
     q = torch.clamp(torch.round(w.float() / scale[:, None]), -127, 127).to(torch.int8)
     return q, scale
 
 
-def quantize_linear(layer: nn.Linear) -> nn.Linear:
+def quantize_linear(layer: nn.Linear, group=None) -> nn.Linear:
     """In place: an int8 ``weight`` (requires_grad False) and an fp32
-    ``scale`` buffer (out,); the bias is kept."""
-    q, scale = quantize_weight(layer.weight)
+    ``scale`` buffer (out,); the bias is kept. ``group``: as for
+    :func:`quantize_weight`."""
+    q, scale = quantize_weight(layer.weight, group)
     layer.weight = nn.Parameter(q, requires_grad=False)
     layer.register_buffer("scale", scale)
     return layer
@@ -77,24 +90,55 @@ def quantize_params(
     lose accuracy); ``predicate(name, module)`` overrides the selection.
     Returns ``model``."""
     from .io.from_jax import jax_leaf
+    from .parallel.sharding import sharding_of
 
+    shard = sharding_of(model)
     found = _candidates(model)
     leaf_size: Dict[tuple, int] = {}
     for name, (module, attr) in found.items():
         path = jax_leaf(name)[0]
-        leaf_size[path] = leaf_size.get(path, 0) + getattr(module, attr).numel()
+        leaf_size[path] = leaf_size.get(path, 0) + _whole_numel(shard, name, module, attr)
     for name, (module, attr) in found.items():
         keep = (predicate(name, module) if predicate is not None
                 else leaf_size[jax_leaf(name)[0]] >= min_size)
         if not keep:
             continue
-        if attr == "weight":
+        if shard is not None:
+            _quantize_shard(shard, name, module)
+        elif attr == "weight":
             quantize_linear(module)
         else:
             q, scale = quantize_weight(getattr(module, attr))
             setattr(module, attr, nn.Parameter(q, requires_grad=False))
             module.register_buffer(RAW_KERNELS[attr], scale)
     return model
+
+
+def _whole_numel(shard, name: str, module: nn.Module, attr: str) -> int:
+    """Elements of the candidate ``name``'s whole weight (with a ``pp`` axis,
+    times the stages: every stage holds its share of a stacked leaf)."""
+    from .parallel.sharding import _layer_of
+
+    w = getattr(module, attr)
+    if shard is None:
+        return w.numel()
+    return (math.prod(shard.whole_shape(f"{name}.weight", w.shape))
+            * (shard.stages if _layer_of(name) is not None else 1))
+
+
+def _quantize_shard(shard, name: str, module: nn.Linear) -> None:
+    """Quantize this rank's shard of the linear ``name`` with the whole rows'
+    scales, and keep its shard of the whole scale vector (its spec joins the
+    sharding's)."""
+    from .parallel.sharding import spec_for
+    from .parallel.tensor_parallel import all_gather
+
+    out_axis, in_axis = shard.specs[f"{name}.weight"]
+    quantize_linear(module, shard.group[in_axis] if in_axis is not None else None)
+    key = f"{name}.scale"
+    shard.specs[key] = spec_for(key, 1)
+    rows = module.scale if out_axis is None else all_gather(module.scale, 0, shard.group[out_axis])
+    module.register_buffer("scale", shard.cut(key, rows))
 
 
 @torch.no_grad()

@@ -59,7 +59,10 @@ scripts/extract.py:104-131), the same JSON and NPZ formats as esm_tpu's:
   POST /profile {"seconds": 3, "dir": "/tmp/esm_serve_trace"}
                 -> captures a torch.profiler trace (<dir>/trace.json, CPU and
                    CUDA activity of the whole process) of whatever the server
-                   runs during the window; 409 if a capture is already running
+                   runs during the window -> {"trace_dir", "seconds",
+                   "batches", "attempts"} (a window whose trace lost its
+                   kernel records is taken again, up to PROFILE_ATTEMPTS);
+                   409 if a capture is already running
 
 Folds share the batcher thread but batch separately, capped at
 ``max_fold_batch_seqs``: pair tensors are O(L^2..L^3).
@@ -1383,22 +1386,33 @@ class InferenceServer:
         with self._lock:
             return sum(self._stats[k] for k in ("batches", "fold_batches", "design_batches"))
 
-    def _profile(self, seconds: float, trace_dir: str) -> int:
+    PROFILE_ATTEMPTS = 3  # /profile windows before a trace without kernels is returned
+
+    def _profile(self, seconds: float, trace_dir: str) -> Tuple[int, int]:
         """A torch.profiler capture of ``seconds`` of whatever the server
         runs: the card's kernels, whichever thread launched them, and the
         CPU operators of every thread; writes ``<trace_dir>/trace.json``.
         The window stays open (up to ``seconds`` more) until a device batch
         has finished inside it, so the capture of a busy server holds its
-        device work. Returns the batches that finished in the window."""
-        from ..utils.profiling import profile_trace
+        device work. A window whose trace holds kernel launches but no
+        kernel record is taken again, up to ``PROFILE_ATTEMPTS`` windows.
+        Returns (the batches that finished in the last window, the windows
+        taken)."""
+        from ..utils import profiling
 
-        with profile_trace(trace_dir):
-            before = self._finished_batches()
-            time.sleep(seconds)
-            deadline = time.monotonic() + seconds
-            while self._finished_batches() == before and time.monotonic() < deadline:
-                time.sleep(0.05)
-            return self._finished_batches() - before
+        for attempt in range(1, self.PROFILE_ATTEMPTS + 1):
+            with profiling.profile_trace(trace_dir):
+                before = self._finished_batches()
+                time.sleep(seconds)
+                deadline = time.monotonic() + seconds
+                while self._finished_batches() == before and time.monotonic() < deadline:
+                    time.sleep(0.05)
+                batches = self._finished_batches() - before
+            if not profiling.trace_lost_kernels(trace_dir):
+                break
+            logger.warning("profile window %d of %d: kernel launches but no kernel record "
+                           "in the trace", attempt, self.PROFILE_ATTEMPTS)
+        return batches, attempt
 
     def _make_handler(self):
         server = self
@@ -1512,14 +1526,14 @@ class InferenceServer:
                         self._send(409, {"error": "a profile capture is already running"})
                         return
                     try:
-                        batches = server._profile(seconds, trace_dir)
+                        batches, attempts = server._profile(seconds, trace_dir)
                     except Exception as e:  # noqa: BLE001
                         self._send(500, {"error": f"{type(e).__name__}: {e}"})
                         return
                     finally:
                         server._profiling.release()
                     self._send(200, {"trace_dir": trace_dir, "seconds": seconds,
-                                     "batches": batches})
+                                     "batches": batches, "attempts": attempts})
                     return
                 routes = {
                     "/embed": server._submit,

@@ -41,9 +41,12 @@ What differs from the JAX package, and why:
     rank passes the whole batch and keeps its rows; the NLL sums and counts
     are summed over (data, fsdp), the gradients reduce-scattered over fsdp
     by the layers' gathers and all-reduced over data, and the optimizers run
-    on the shards (the global-norm clip sums every shard once). Adafactor's
-    row and column statistics are not those of a shard: it refuses a
-    sharded model. :func:`train_step_pp` is the pipelined step.
+    on the shards (the global-norm clip sums every shard once; adafactor's
+    row and column means and block RMS values are summed over the axes a
+    tensor or a leaf is split over, so they are the whole matrix's).
+    :func:`train_step_pp` is the pipelined step. A LoRA step over a sharded
+    base keeps the adapters whole on every rank and sums their gradients
+    over the mesh (``Sharding.sync_adapter_grads``).
 """
 
 from __future__ import annotations
@@ -66,7 +69,7 @@ from .models import esm2
 from .ops.common import layer_norm
 from .ops.heads import roberta_lm_head
 from .parallel.mesh import local_shard
-from .parallel.sharding import batch_rows, dp_sum, sharding_of
+from .parallel.sharding import _layer_of, batch_rows, dp_sum, sharding_of
 
 
 @dataclass
@@ -82,6 +85,16 @@ class AdafactorState:
     v_row: Dict[str, torch.Tensor]  # factored parameters: per-row statistics
     v_col: Dict[str, torch.Tensor]  # factored parameters: per-column statistics
     v: Dict[str, torch.Tensor]      # the other parameters: second moments
+    # on a sharded model, the mesh layout of v_row's and v_col's tensors: the
+    # parameter's (in esm_tpu's (in, out) view) less the reduced dimension
+    specs: Dict[str, Dict[str, tuple]] = dataclasses.field(default_factory=dict)
+
+
+def tensor_fields(opt_state) -> Dict[str, Dict[str, torch.Tensor]]:
+    """An optimizer state's tensor dicts by field: AdamW's ``mu``/``nu``,
+    adafactor's ``v_row``/``v_col``/``v``."""
+    return {f.name: getattr(opt_state, f.name) for f in fields(opt_state)
+            if f.name != "specs" and isinstance(getattr(opt_state, f.name), dict)}
 
 
 @dataclass
@@ -92,9 +105,8 @@ class TrainState:
 
     def opt_state_bytes(self) -> int:
         """Bytes of the optimizer's tensors (moments or factored statistics)."""
-        dicts = [getattr(self.opt_state, f.name) for f in fields(self.opt_state)]
         return sum(t.numel() * t.element_size()
-                   for d in dicts if isinstance(d, dict) for t in d.values())
+                   for d in tensor_fields(self.opt_state).values() for t in d.values())
 
 
 def decay_mask(model: nn.Module) -> Dict[str, bool]:
@@ -225,7 +237,17 @@ class Adafactor:
     parameter scale are taken over one parameter's tensors in all the
     layers that esm_tpu stacks (``io.from_jax.jax_leaf``). The factored
     statistics are per layer, over a linear's (in, out) view, as esm_tpu's
-    (num_layers, in, out) leaves give them."""
+    (num_layers, in, out) leaves give them.
+
+    On a model sharded by ``parallel.sharding.shard_params`` (esm_tpu jits
+    optax over the sharded tree) the result is the whole tree's: the
+    factored dimensions are chosen from the whole leaf's shape; a mean over
+    a sharded dimension is a sum all-reduced over its mesh axis; a block's
+    sums of squares count each shard once (a replicated tensor's copies on
+    one rank only) and are summed over the mesh, pipeline stages included;
+    each rank keeps the statistics of its shard (``AdafactorState.specs``
+    lays them out for a checkpoint). On one rank every reduction is the
+    unsharded one."""
 
     decay_rate, eps, min_dim_size_to_factor = 0.8, 1e-30, 128
     clipping_threshold, min_scale = 1.0, 1e-3
@@ -268,43 +290,87 @@ class Adafactor:
         return d1, d0
 
     def _plan(self, model: nn.Module):
-        """name -> (leaf path, transposed, factored dims), and each leaf's
-        layer count."""
+        """name -> (leaf path, transposed, factored dims, the view's mesh spec
+        or None): the whole leaf's shape on a sharded model."""
         layout = self._layout(model)
+        shard = sharding_of(model)
         counts: Dict[tuple, int] = {}
         for path, _, _ in layout.values():
             counts[path] = counts.get(path, 0) + 1
         params = dict(model.named_parameters())
         plan = {}
         for name, (path, stacked, transposed) in layout.items():
-            shape = tuple(params[name].shape[::-1] if transposed else params[name].shape)
-            leaf_shape = ((counts[path],) + shape) if stacked else shape
-            plan[name] = (path, transposed, self._factored_dims(leaf_shape, stacked))
+            shape, spec = tuple(params[name].shape), None
+            if shard is not None:
+                spec = tuple(shard.specs[name]) + (None,) * (len(shape) - len(shard.specs[name]))
+                shape = shard.whole_shape(name, shape)
+            if transposed:
+                shape, spec = shape[::-1], (spec[::-1] if spec is not None else None)
+            layers = counts[path] * (shard.stages if shard is not None and stacked else 1)
+            leaf_shape = ((layers,) + shape) if stacked else shape
+            plan[name] = (path, transposed, self._factored_dims(leaf_shape, stacked), spec)
         return plan
 
     def init(self, model: nn.Module) -> AdafactorState:
-        if sharding_of(model) is not None:
-            raise NotImplementedError(
-                "adafactor on a sharded model: its row and column statistics would be a "
-                "shard's, not the whole matrix's (ROADMAP Queue 1, item 13d)")
         plan = self._plan(model)
         v_row, v_col, v = {}, {}, {}
+        specs = {"v_row": {}, "v_col": {}, "v": {}}
         for name, p in model.named_parameters():
-            _, transposed, dims = plan[name]
+            _, transposed, dims, spec = plan[name]
             view = p.t() if transposed else p
             if dims is None:
                 v[name] = torch.zeros_like(view)
+                specs["v"][name] = spec
             else:
                 d1, d0 = dims
                 v_row[name] = torch.zeros_like(view.select(d0, 0))
                 v_col[name] = torch.zeros_like(view.select(d1, 0))
-        return AdafactorState(0, v_row, v_col, v)
+                if spec is not None:
+                    specs["v_row"][name] = spec[:d0] + spec[d0 + 1:]
+                    specs["v_col"][name] = spec[:d1] + spec[d1 + 1:]
+        sharded = sharding_of(model) is not None
+        return AdafactorState(0, v_row, v_col, v, specs if sharded else {})
+
+    @staticmethod
+    def _mean(shard, spec, x: torch.Tensor, dim: int, keepdim: bool = False) -> torch.Tensor:
+        """``x.mean(dim)`` over the whole tensor: a sum all-reduced over the
+        mesh axis that splits ``dim`` (``spec``: ``x``'s layout)."""
+        axis = spec[dim] if spec is not None else None
+        if axis is None or shard.group[axis] is None:
+            return x.mean(dim=dim, keepdim=keepdim)
+        total = x.sum(dim=dim, keepdim=keepdim)
+        dist.all_reduce(total, group=shard.group[axis])
+        return total / (x.shape[dim] * shard.sizes[axis])
+
+    @staticmethod
+    def _block_sums(shard, leaves, updates, params):
+        """Per leaf (sum of u², sum of p², whole element count): with a
+        sharding, each shard counted once and the sums taken over the mesh."""
+        out = {}
+        for path, names in leaves.items():
+            zero = torch.zeros_like(updates[names[0]].sum())
+            once = [shard is None or shard.counts_once(k) for k in names]
+            u_sq = sum(torch.sum(updates[k] * updates[k]) if c else zero for k, c in zip(names, once))
+            p_sq = sum(torch.sum(params[k] * params[k]) if c else zero for k, c in zip(names, once))
+            n = sum(params[k].numel() for k in names)
+            if shard is not None:
+                n = sum(math.prod(shard.whole_shape(k, params[k].shape))
+                        * (shard.stages if _layer_of(k) is not None else 1) for k in names)
+            out[path] = [u_sq, p_sq, n]
+        if shard is not None and dist.get_world_size() > 1:
+            order = sorted(out)
+            sums = torch.stack([torch.stack([out[p][0], out[p][1]]) for p in order])
+            dist.all_reduce(sums)
+            for i, path in enumerate(order):
+                out[path][:2] = sums[i, 0], sums[i, 1]
+        return out
 
     @torch.no_grad()
     def update(self, model: nn.Module, state: AdafactorState) -> None:
         """One step: the parameters and ``state`` change in place."""
         params = dict(model.named_parameters())
-        grads = _clip_by_global_norm(_grads(params), self.grad_clip_norm)
+        shard = sharding_of(model)
+        grads = _clip_by_global_norm(_grads(params), self.grad_clip_norm, shard)
         plan = self._plan(model)
         # optax's decay rate, in fp32: 1 - (count + 1) ** -0.8
         t = np.float32(state.count + 1)
@@ -314,7 +380,7 @@ class Adafactor:
         # scale_by_factored_rms, per tensor (in esm_tpu's (in, out) view)
         updates = {}
         for name, p in params.items():
-            _, transposed, dims = plan[name]
+            _, transposed, dims, spec = plan[name]
             g = grads[name].t() if transposed else grads[name]
             g_sq = g * g + self.eps
             if dims is None:
@@ -323,11 +389,14 @@ class Adafactor:
                 u = g * v ** -0.5
             else:
                 d1, d0 = dims
-                v_row = rate * state.v_row[name] + keep * g_sq.mean(dim=d0)
-                v_col = rate * state.v_col[name] + keep * g_sq.mean(dim=d1)
+                mean = functools.partial(self._mean, shard, spec)
+                v_row = rate * state.v_row[name] + keep * mean(g_sq, d0)
+                v_col = rate * state.v_col[name] + keep * mean(g_sq, d1)
                 state.v_row[name], state.v_col[name] = v_row, v_col
                 reduced_d1 = d1 - 1 if d1 > d0 else d1
-                row_factor = (v_row / v_row.mean(dim=reduced_d1, keepdim=True)) ** -0.5
+                row_spec = spec[:d0] + spec[d0 + 1:] if spec is not None else None
+                row_mean = self._mean(shard, row_spec, v_row, reduced_d1, keepdim=True)
+                row_factor = (v_row / row_mean) ** -0.5
                 col_factor = v_col ** -0.5
                 u = g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
             updates[name] = u.t() if transposed else u
@@ -338,13 +407,12 @@ class Adafactor:
             leaves.setdefault(plan[name][0], []).append(name)
         lr = self.learning_rate(state.count)
         decay = decay_mask(model) if self.weight_decay_rate else {}
-        for names in leaves.values():
-            n = sum(params[k].numel() for k in names)
-            u_rms = torch.sqrt(sum(torch.sum(updates[k] * updates[k]) for k in names) / n)
+        for path, (u_sq, p_sq, n) in self._block_sums(shard, leaves, updates, params).items():
+            u_rms = torch.sqrt(u_sq / n)
             clip = torch.clamp(u_rms / self.clipping_threshold, min=1.0)
-            p_rms = torch.sqrt(sum(torch.sum(params[k] * params[k]) for k in names) / n)
+            p_rms = torch.sqrt(p_sq / n)
             p_scale = torch.where(p_rms <= self.min_scale, self.min_scale, p_rms)
-            for k in names:
+            for k in leaves[path]:
                 u = (lr * (updates[k] / clip)) * p_scale
                 if decay.get(k, False):
                     u = u + self.weight_decay_rate * params[k]
@@ -600,20 +668,27 @@ def train_step_accum(state: TrainState, cfg: esm2.ESM2Config, tx,
 
 def sharded_loss_and_grads(model: nn.Module, cfg, corrupted: torch.Tensor,
                            targets: torch.Tensor, target_mask: torch.Tensor, *,
-                           accum_steps: int = 1, apply_fn=None) -> dict:
+                           accum_steps: int = 1, apply_fn=None,
+                           adapters: Optional[_lora.LoRA] = None) -> dict:
     """The masked-LM loss of a full (B, T) batch that every rank of a sharded
     model's mesh holds: each rank keeps its rows (``batch_rows``; the tp
     ranks the same ones), the NLL sums and counts are summed over (data,
     fsdp) before the division, and each parameter's ``.grad`` is left
     holding its shard of the whole batch's gradient (``Sharding.sync_grads``).
     With ``accum_steps`` > 1 a rank's rows run as that many microbatches
-    whose NLL-sum gradients add up and are divided once. Returns the
-    metrics."""
+    whose NLL-sum gradients add up and are divided once. With ``adapters``
+    (a LoRA module attached to the frozen ``model``) the adapters take the
+    gradients, the whole batch's on every rank
+    (``Sharding.sync_adapter_grads``). Returns the metrics."""
     shard = sharding_of(model)
     rows = [batch_rows(x, shard) for x in (corrupted, targets, target_mask)]
-    sums = _mlm_backward(model, _mlm_pieces(model, cfg, rows, accum_steps, apply_fn),
+    sums = _mlm_backward(model if adapters is None else adapters,
+                         _mlm_pieces(model, cfg, rows, accum_steps, apply_fn),
                          functools.partial(dp_sum, sharding=shard))
-    shard.sync_grads(model)
+    if adapters is None:
+        shard.sync_grads(model)
+    else:
+        shard.sync_adapter_grads(adapters)
     return _metrics(sums)
 
 
@@ -753,6 +828,13 @@ def train_step_lora_corrupted(
     apply_fn=None,
 ) -> Tuple[TrainState, dict]:
     """:func:`train_step_lora` on a given corruption."""
+    if sharding_of(base) is not None:
+        def loss_and_grads():
+            with frozen_and_patched(base, state.model, scale):
+                return sharded_loss_and_grads(base, cfg, corrupted, targets, target_mask,
+                                              apply_fn=apply_fn, adapters=state.model)
+
+        return _grads_step(state, tx, loss_and_grads)
     return _step(state, tx,
                  lambda: mlm_loss(base, cfg, corrupted, targets, target_mask, apply_fn),
                  frozen_and_patched(base, state.model, scale))
@@ -774,7 +856,11 @@ def train_step_lora(
     weight-only int8). Only the adapters get gradients, and the optimizer
     state covers only them; ``scale`` is the LoRA alpha / rank. ``apply_fn``
     swaps the family, e.g. ``msa_transformer.apply`` with an
-    MSATransformerConfig and (B, R, C) tokens."""
+    MSATransformerConfig and (B, R, C) tokens. Over a ``base`` sharded by
+    ``parallel.sharding.shard_params`` every rank passes the full batch and
+    keeps its rows, as :func:`train_step` does; the adapters stay whole on
+    every rank and get the whole batch's gradient, so every rank makes the
+    same update."""
     corrupted, target_mask = _corrupt_batch(cfg, generator, tokens)
     return train_step_lora_corrupted(state, base, cfg, tx, corrupted, tokens, target_mask,
                                      scale=scale, apply_fn=apply_fn)

@@ -3,6 +3,7 @@
 Port of esm_tpu/utils/profiling.py. ``profile_trace`` captures a
 ``torch.profiler`` trace of the enclosed block (CPU and, on the card, CUDA
 activity) and writes it as a Chrome trace, viewable in Perfetto.
+``trace_lost_kernels`` tells a trace whose kernel records were lost.
 ``timed`` and ``timed_amortized`` time with CUDA events, which record on
 the stream, so no host round trip enters the time; where no card is
 present they use the host clock.
@@ -16,6 +17,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+import re
 import time
 from typing import Callable, Iterator, List
 
@@ -46,6 +48,17 @@ def profile_trace(logdir: str, *, record_shapes: bool = False) -> Iterator[torch
         if cuda:
             torch.cuda.synchronize()
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+
+
+def trace_lost_kernels(logdir: str) -> bool:
+    """Whether ``<logdir>/trace.json`` records kernel launches but no
+    kernel: CUPTI delivered the host side of the window and none of its
+    device activity. A capture under load on the card has come back so
+    (chip_smoke.py [serve]); a trace of host work only has no launch."""
+    with open(os.path.join(logdir, "trace.json")) as f:
+        text = f.read()
+    return (re.search(r'"name":\s*"cu(da)?LaunchKernel', text) is not None
+            and re.search(r'"cat":\s*"kernel"', text) is None)
 
 
 def _device_seconds(fn: Callable, iters: int) -> float:

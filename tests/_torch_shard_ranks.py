@@ -65,6 +65,8 @@ def _mesh(shape):
 
 
 def _model(inp, sharded_on=None, **options):
+    """The ESM-2 of ``inp["size"]`` with ``inp["state_dict"]`` (weight-only
+    int8 with ``inp["int8"]``), sharded on the mesh ``sharded_on``."""
     cfg = esm2.ESM2Config.from_alphabet(Alphabet.from_architecture("ESM-1b"), **inp["size"],
                                         **options)
     model = esm2.ESM2(cfg, device="cpu")
@@ -223,8 +225,8 @@ def _gathered_bytes():
     def let_go(n):
         live["now"] -= n
 
-    def whole(self, name, local):
-        out = real(self, name, local)
+    def whole(self, name, local, spec=None):
+        out = real(self, name, local, spec)
         n = out.numel() * out.element_size()
         live["now"] += n
         live["peak"] = max(live["peak"], live["now"])
@@ -241,21 +243,22 @@ def _gathered_bytes():
 def checkpoint_body(inp: dict, rank: int) -> dict:
     """Save a sharded model's parameters and its train state after one step
     on ``inp["mesh"]`` (and return them gathered, with the most bytes of
-    gathered whole entries the saves held at once); load the unsharded save
-    of the parent onto the mesh and return it gathered whole."""
+    gathered whole entries, and of host copies, the saves held at once);
+    load the unsharded save of the parent onto the mesh and return it
+    gathered whole."""
     mesh = _mesh(inp["mesh"])
     model, cfg = _model(inp, mesh)
     tx = training.make_optimizer(1e-3, warmup_steps=0, total_steps=10)
     state = training.init_state(model, tx)
     state, _ = training.train_step_corrupted(
         state, cfg, tx, inp["corrupted"], inp["tokens"], inp["target_mask"])
-    with _gathered_bytes() as live:
+    with _gathered_bytes() as live, _host_bytes() as host:
         checkpoint.save_params(inp["dir"] + "/params", model)
         checkpoint.save_train_state(inp["dir"] + "/state", state)
     mine = {"params": sharding.whole_state(model),
             "mu": sharding.whole_state(model, state.opt_state.mu),
             "nu": sharding.whole_state(model, state.opt_state.nu),
-            "save_peak_bytes": live["peak"]}
+            "save_peak_bytes": live["peak"], "host_peak_bytes": host["peak"]}
     # the reverse: a whole (one-device) save onto this mesh
     other, _ = _model(inp, mesh)
     checkpoint.load_params(inp["dir"] + "/one_device", other)
@@ -269,33 +272,40 @@ def checkpoint_body(inp: dict, rank: int) -> dict:
 def pretrain_body(inp: dict, rank: int) -> dict:
     """cli.pretrain on the ranks, as a torchrun launch runs it, for each argv
     of ``inp["runs"]``: rank 0's log, each step's loss (recorded around
-    training.train_step), the final parameters gathered whole; the message
-    of each refused argv of ``inp["refused"]``."""
+    training.train_step and train_step_lora), the final parameters gathered
+    whole (a LoRA run's adapters, whole on every rank); the message of each
+    refused argv of ``inp["refused"]``."""
     from esm_tpu_torch.cli import pretrain
 
     def whole_init(*args, **kwargs):
         raise AssertionError("the mesh run built the whole model (esm2.init)")
 
     out = {"runs": [], "refused": []}
-    real, real_init = training.train_step, esm2.init
+    steps = ("train_step", "train_step_lora")
+    real, real_init = {name: getattr(training, name) for name in steps}, esm2.init
     esm2.init = whole_init
     for argv in inp["runs"]:
         losses = []
 
-        def step(*a, **k):
-            state, metrics = real(*a, **k)
-            losses.append(metrics["loss"].item())
-            return state, metrics
+        def recording(fn):
+            def step(*a, **k):
+                state, metrics = fn(*a, **k)
+                losses.append(metrics["loss"].item())
+                return state, metrics
+            return step
 
-        training.train_step = step
+        for name in steps:
+            setattr(training, name, recording(real[name]))
         buf = io.StringIO()
         try:
             with contextlib.redirect_stdout(buf):
                 state = pretrain.run(pretrain.create_parser().parse_args(argv))
         finally:
-            training.train_step = real
-        out["runs"].append({"log": buf.getvalue(), "losses": losses,
-                            "params": sharding.whole_state(state.model)})
+            for name in steps:
+                setattr(training, name, real[name])
+        params = (sharding.whole_state(state.model) if sharding.sharding_of(state.model)
+                  else state.model.state_dict())
+        out["runs"].append({"log": buf.getvalue(), "losses": losses, "params": params})
     esm2.init = real_init
     for argv in inp.get("refused", ()):
         try:
@@ -314,3 +324,179 @@ def example_body(inp: dict, rank: int) -> dict:
     with contextlib.redirect_stdout(buf):
         esm2_infer_sharded.main(inp["argv"])
     return {"log": buf.getvalue()}
+
+
+# ------------------------------------------------- training on a sharded model
+
+
+def _lora_model(inp, mesh, variant):
+    """The 64-wide base on ``mesh`` as a LoRA recipe stores it: "bf16" and
+    "flash" (with remat, the plain K1 and K2) cast every fp32 parameter to
+    bf16 after the cut, "int8" quantizes the shards (the whole rows' scales);
+    fp32 compute, so that esm_tpu's exact path is the reference; token
+    dropout off (``inp["lora_size"]``)."""
+    from esm_tpu_torch import lora
+
+    options = dict(use_flash=True, remat=True) if variant == "flash" else {}
+    model, cfg = _model(dict(inp, size=inp["lora_size"]), mesh, **options)
+    if variant == "int8":
+        quantize_params(model, min_size=1)
+    else:
+        lora.store_base(model)
+    return model, cfg
+
+
+def _adapters(inp):
+    from esm_tpu_torch import lora
+
+    return lora.LoRA({path: (ab[0].clone(), ab[1].clone()) for path, ab in inp["adapters"].items()})
+
+
+def _lora_step(inp, mesh, variant) -> dict:
+    """Step 0 of the sharded LoRA step with esm_tpu's corruption: the loss,
+    the adapter gradients, the adapters after the optimizer's update on
+    esm_tpu's gradients; then one whole train_step_lora; for int8 the base
+    gathered whole."""
+    model, cfg = _lora_model(inp, mesh, variant)
+    adapters = _adapters(inp)
+    batch = (inp["corrupted"], inp["tokens"], inp["target_mask"])
+    tx = training.make_optimizer(1e-3, warmup_steps=0, total_steps=10, grad_clip_norm=inp["clip"])
+    state = training.init_state(adapters, tx)
+    with training.frozen_and_patched(model, adapters, inp["scale"]):
+        metrics = training.sharded_loss_and_grads(model, cfg, *batch, adapters=adapters)
+    out = {"loss": metrics["loss"].item(),
+           "grads": {n: p.grad.clone() for n, p in adapters.named_parameters()}}
+    for n, p in adapters.named_parameters():
+        p.grad = inp["lora_grads"][variant == "int8"][n].clone()
+    tx.update(adapters, state.opt_state)
+    adapters.zero_grad(set_to_none=True)
+    out["updated"] = {n: p.detach().clone() for n, p in adapters.named_parameters()}
+    state, metrics = training.train_step_lora_corrupted(state, model, cfg, tx, *batch,
+                                                        scale=inp["scale"])
+    out["loss1"] = metrics["loss"].item()
+    if variant == "int8":
+        out["base"] = sharding.whole_state(model)
+    return out
+
+
+def _adafactor_steps(inp, mesh) -> tuple:
+    """Three adafactor steps (weight decay, a binding clip) on the 128-wide
+    model on ``mesh``, fed esm_tpu's gradients (each rank its shards)."""
+    model, cfg = _model(dict(inp, size=inp["size128"], state_dict=inp["state_dict128"]), mesh)
+    tx = training.make_optimizer(1e-2, weight_decay=0.01, warmup_steps=1, total_steps=10,
+                                 grad_clip_norm=1.0, factored=True)
+    state = training.init_state(model, tx)
+    shard = sharding.sharding_of(model)
+    for grads in inp["adafactor_grads"]:
+        for name, p in model.named_parameters():
+            p.grad = shard.cut(name, grads[name]).clone()
+        tx.update(model, state.opt_state)
+    model.zero_grad(set_to_none=True)
+    state.step = 3
+    return state, tx
+
+
+def _whole_train_state(state) -> dict:
+    opt = state.opt_state
+    out = {"params": sharding.whole_state(state.model), "count": opt.count, "step": state.step}
+    for key, tensors in training.tensor_fields(opt).items():
+        out[key] = sharding.whole_state(state.model, tensors, opt.specs.get(key))
+    return out
+
+
+@contextlib.contextmanager
+def _host_bytes():
+    """Counts the bytes of the host copies a checkpoint save holds at once
+    (``checkpoint._to_host``, until the writer lets each go); yields
+    {"peak": the most, "copies": how many}."""
+    live = {"now": 0, "peak": 0, "copies": 0}
+    real = checkpoint._to_host
+
+    def let_go(n):
+        live["now"] -= n
+
+    def to_host(t):
+        out = real(t)
+        n = out.numel() * out.element_size()
+        live["now"] += n
+        live["copies"] += 1
+        live["peak"] = max(live["peak"], live["now"])
+        weakref.finalize(out, let_go, n)
+        return out
+
+    checkpoint._to_host = to_host
+    try:
+        yield live
+    finally:
+        checkpoint._to_host = real
+
+
+def shard_train_body(inp: dict, rank: int) -> dict:
+    """Training on a sharded model, on each case of ``inp``: the LoRA step
+    (``lora_meshes`` x ``lora_variants``), three adafactor steps
+    (``adafactor_meshes``; ``adafactor_pp``, a (pp, data, fsdp, tp) mesh),
+    with ``inp["dir"]``: the adafactor states saved and loaded across
+    meshes, a replicated LoRA state saved, an earlier single-file save
+    loaded, a sharded merge, the LoRA-on-pp refusal; with ``inp["cli"]``
+    cli.pretrain's runs (:func:`pretrain_body`)."""
+    from esm_tpu_torch import lora
+
+    out = {}
+    for shape in inp.get("lora_meshes", ()):
+        mesh = _mesh(shape)
+        for variant in inp["lora_variants"]:
+            out[f"lora/{shape}/{variant}"] = _lora_step(inp, mesh, variant)
+    states = {}
+    for shape in inp.get("adafactor_meshes", ()):
+        states[shape] = _adafactor_steps(inp, _mesh(shape))
+    if "adafactor_pp" in inp:
+        shape = inp["adafactor_pp"]
+        states[shape] = _adafactor_steps(inp, pipeline.make_pp_mesh(*shape, device_type="cpu"))
+    for shape, (state, _) in states.items():
+        out[f"adafactor/{shape}"] = _whole_train_state(state)
+    if "dir" not in inp:
+        return out
+
+    # the adafactor states saved, then each loaded onto the other's mesh
+    root = inp["dir"]
+    for i, (shape, (state, _)) in enumerate(states.items()):
+        with _gathered_bytes() as device, _host_bytes() as host:
+            checkpoint.save_train_state(f"{root}/adafactor{i}", state)
+        out[f"save/{shape}"] = {"device_peak": device["peak"], "host_peak": host["peak"],
+                                "host_copies": host["copies"]}
+    shapes = list(states)
+    for i, shape in enumerate(shapes):
+        other = shapes[(i + 1) % len(shapes)]
+        template = states[other][0]
+        fresh = training.init_state(template.model, states[other][1])
+        checkpoint.load_train_state(f"{root}/adafactor{i}", fresh)
+        out[f"load/{shape}->{other}"] = _whole_train_state(fresh)
+    # an earlier version's single-file AdamW state onto (1, 2, 2)
+    model, _ = _model(inp, _mesh((1, 2, 2)))
+    tx = training.make_optimizer(1e-3, warmup_steps=0, total_steps=10)
+    fresh = checkpoint.load_train_state(inp["old_layout"], training.init_state(model, tx))
+    out["old_layout"] = {"params": sharding.whole_state(model), "count": fresh.opt_state.count,
+                         "step": fresh.step, "mu": sharding.whole_state(model, fresh.opt_state.mu)}
+    # a replicated tree: the adapters' AdamW state over a sharded base
+    model, _ = _lora_model(inp, _mesh((1, 2, 2)), "bf16")
+    adapters = _adapters(inp)
+    state = training.init_state(adapters, tx)
+    with _host_bytes() as host:
+        checkpoint.save_train_state(f"{root}/lora", state)
+    out["lora_save_copies"] = host["copies"]
+    # a sharded merge against the unsharded merge of the same base
+    model, _ = _model(inp, _mesh((1, 2, 2)))
+    merged = lora.merge(model, adapters, scale=0.5)
+    out["merged"] = sharding.whole_state(merged)
+    out["merged_is_sharded"] = sharding.sharding_of(merged) is sharding.sharding_of(model)
+    if rank == 0:
+        whole, _ = _model(inp)
+        out["unsharded_merge"] = lora.merge(whole, adapters, scale=0.5).state_dict()
+    # LoRA on a pipeline-sharded base
+    model, _ = _model(inp, pipeline.make_pp_mesh(2, tp=2, device_type="cpu"))
+    out["pp_refusals"] = [
+        _errors(lambda: lora.init_lora(torch.Generator(), model, rank=4)),
+        _errors(lambda: lora.patch(model, adapters))]
+    if "cli" in inp:
+        out["cli"] = pretrain_body(inp["cli"], rank)
+    return out

@@ -11,6 +11,7 @@ parameter and buffer bytes (int8 scales are buffers), a cap that chunking
 raises, an explicit cap honoured.
 """
 
+import dataclasses
 import os
 
 import jax.numpy as jnp
@@ -263,7 +264,7 @@ def test_mesh_plans_match_jax(jax_plan_model_once, name, shape):
     jmesh_cfg, tmesh_cfg = _mesh_cfgs(shape)
     acts = inspect.signature(jplan.plan_train).parameters  # esm_tpu's constants live inline
     assert "act_units" not in acts
-    esm_tpu_train = dict(act_units=10)
+    esm_tpu_train = dict(act_units=10, port_terms=False)
     assert tplan.plan_model(tcfg, tmesh_cfg) == jplan.plan_model(jcfg, jmesh_cfg)
     assert tplan.plan_model(tcfg, tmesh_cfg, dtype=torch.bfloat16) == jplan.plan_model(
         jcfg, jmesh_cfg, dtype=jnp.bfloat16)
@@ -274,7 +275,8 @@ def test_mesh_plans_match_jax(jax_plan_model_once, name, shape):
             jcfg, jmesh_cfg, batch, seqlen, hbm_bytes=HBM, **kw)
     for kw in (dict(rank=16), dict(rank=8, base_dtype_bytes=1), dict(rank=4, remat_policy="full"),
                dict(rank=16, base_dtype_bytes=4, seq_shards=2)):
-        assert tplan.plan_train_lora(tcfg, tmesh_cfg, 8, 1024, hbm_bytes=HBM, **kw) == \
+        assert tplan.plan_train_lora(tcfg, tmesh_cfg, 8, 1024, hbm_bytes=HBM, port_terms=False,
+                                     **kw) == \
             jplan.plan_train_lora(jcfg, jmesh_cfg, 8, 1024, hbm_bytes=HBM, **kw)
 
 
@@ -313,3 +315,33 @@ def test_port_activation_terms():
         assert got[k] == want[k], k
     assert tplan.plan_train(tcfg, tm, 8, 1024, device="cpu")["hbm_bytes"] == \
         tplan.device_memory_bytes("cpu")
+
+
+@pytest.mark.parametrize("shape", [(1, 1, 1), (1, 4, 1), (1, 4, 2), (2, 2, 2)])
+def test_port_terms_on_an_fsdp_mesh(shape):
+    """The port's terms beside esm_tpu's formula: an fsdp mesh charges one
+    layer's linear weights (their tp shard) gathered twice in the compute
+    dtype and its whole gradient (compute dtype, then fp32), a LoRA step
+    the frozen base's gathers (int8 or the compute dtype) and
+    LORA_ACT_UNITS of activations for esm_tpu's 15; nothing else moves."""
+    _, tcfg = _lm_cfgs("esm2_t48_15B_UR50D")
+    tcfg = dataclasses.replace(tcfg, compute_dtype=torch.bfloat16)
+    _, tm = _mesh_cfgs(shape)
+    layer = 12 * 5120 * 5120 // tm.tp
+    fsdp = tm.fsdp > 1
+    port = tplan.plan_train(tcfg, tm, 8, 1024, hbm_bytes=HBM, mu_dtype_bytes=2)
+    plain = tplan.plan_train(tcfg, tm, 8, 1024, hbm_bytes=HBM, mu_dtype_bytes=2,
+                             port_terms=False)
+    assert port["fsdp_bytes"] == (layer * (2 * 2 + 2 + 4) if fsdp else 0)
+    assert port["per_device_bytes"] - plain["per_device_bytes"] == port["fsdp_bytes"]
+    assert "fsdp_bytes" not in plain
+    b_local = -(-8 // (tm.data * tm.fsdp))
+    acts = 48 * (tplan.LORA_ACT_UNITS - 15) * 5120 * 1024 * b_local * 2
+    for base_bytes, gathered in ((2, 2), (1, 1)):
+        port = tplan.plan_train_lora(tcfg, tm, 8, 1024, rank=16, base_dtype_bytes=base_bytes,
+                                     hbm_bytes=HBM)
+        plain = tplan.plan_train_lora(tcfg, tm, 8, 1024, rank=16, base_dtype_bytes=base_bytes,
+                                      hbm_bytes=HBM, port_terms=False)
+        assert port["fsdp_bytes"] == (layer * 2 * gathered if fsdp else 0)
+        assert port["activations_bytes"] - plain["activations_bytes"] == acts
+        assert port["per_device_bytes"] - plain["per_device_bytes"] == port["fsdp_bytes"] + acts

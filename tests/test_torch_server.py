@@ -669,12 +669,46 @@ def test_profile_endpoint(server, tmp_path):
                   path="/profile")
     worker.join(timeout=HTTP_TIMEOUT)
     cap.join(timeout=HTTP_TIMEOUT)
-    assert results["out"] == {"trace_dir": trace_dir, "seconds": 1.0, "batches": 1}
+    assert results["out"] == {"trace_dir": trace_dir, "seconds": 1.0, "batches": 1,
+                              "attempts": 1}
     trace = json.loads((tmp_path / "trace" / "trace.json").read_text())
     names = {e.get("name", "") for e in trace["traceEvents"]}
     assert any("linear" in n or "addmm" in n or "matmul" in n for n in names)
     for bad in ({"seconds": 0}, {"seconds": None}, {"seconds": 500}):
         _expect_error(srv, bad, 400, path="/profile")
+
+
+@pytest.mark.parametrize("lost", [1, 2, 3])
+def test_profile_retakes_a_window_without_kernels(server, tmp_path, monkeypatch, lost):
+    """A window whose trace lost its kernel records is taken again, up to
+    PROFILE_ATTEMPTS windows; the response counts the windows taken."""
+    from esm_tpu_torch.utils import profiling
+
+    srv, _ = server
+    verdicts = [True] * lost + [False] * 3
+    monkeypatch.setattr(profiling, "trace_lost_kernels", lambda logdir: verdicts.pop(0))
+    out = _post(srv, {"seconds": 0.1, "dir": str(tmp_path / "trace")}, path="/profile")
+    assert out["attempts"] == min(lost + 1, srv.PROFILE_ATTEMPTS)
+    assert len(verdicts) == 3 + lost - out["attempts"]
+    assert (tmp_path / "trace" / "trace.json").exists()
+
+
+def test_trace_lost_kernels(tmp_path):
+    """Launches without a kernel record are a lost trace; launches with
+    kernels, and host work alone, are not."""
+    from esm_tpu_torch.utils.profiling import trace_lost_kernels
+
+    launch = {"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel"}
+    cu_launch = {"ph": "X", "cat": "cuda_runtime", "name": "cuLaunchKernelEx"}
+    kernel = {"ph": "X", "cat": "kernel", "name": "flash_fwd_bf16<64>"}
+    op = {"ph": "X", "cat": "cpu_op", "name": "aten::linear"}
+    cases = [([op, launch], True), ([op, cu_launch], True), ([op, launch, kernel], False),
+             ([op], False)]
+    for i, (events, lost) in enumerate(cases):
+        d = tmp_path / str(i)
+        d.mkdir()
+        (d / "trace.json").write_text(json.dumps({"traceEvents": events}, indent=1))
+        assert trace_lost_kernels(str(d)) is lost, events
 
 
 # ---------------------------------------------------------------- cost model
