@@ -5,6 +5,9 @@
     python3 chip_smoke.py --only ring,fold-shard,shard   # device, build, fasta, then any of
                                                          # these, in this order (e.g. on 4
                                                          # cards)
+    python3 chip_smoke.py --only pp-profile              # ESM2-650M's steps on one card and
+                                                         # through the pipeline at pp=1,
+                                                         # profiled (never in the full run)
 
 Phases, each raising on failure (nothing is caught):
   1. device   — the card's name and power limit;
@@ -2087,6 +2090,284 @@ def check_shard_train(res, n):
         raise AssertionError("[shard] " + "; ".join(failed))
 
 
+SHARD_MSA = (400, 256)           # [msa]'s MSA: R rows x C residues (257 tokens a row)
+SHARD_MSA_TRAIN = (128, 256)     # [train-msa]'s
+SHARD_MSA_LR = 1e-5              # [train-msa]'s rate
+SHARD_FAMILY_STEPS = 3           # the MSA steps on the one-rank group, four cards' steps
+
+
+def family_model(name, seed, **options):
+    """A seeded ESM-1-family model or MSA Transformer at its released size on
+    the card (fp32 weights, bf16 compute, ``options``): (model, cfg,
+    alphabet, apply)."""
+    import torch
+    from esm_tpu_torch import pretrained
+
+    handle, alphabet = pretrained.random_model_and_alphabet(
+        name, seed=seed, device="cuda", compute_dtype=torch.bfloat16, **options)
+    return handle.model, handle.cfg, alphabet, pretrained._APPLY[handle.kind]
+
+
+def family_adapter_grads(base, adapters, cfg, batch, apply):
+    """Loss and adapter gradients of one LoRA loss over a family's frozen base."""
+    from esm_tpu_torch import training
+
+    adapters.zero_grad(set_to_none=True)
+    with training.frozen_and_patched(base, adapters, 1.0):
+        loss, _ = training.mlm_loss(base, cfg, *batch, apply_fn=apply)
+        loss.backward()
+    grads = {n: p.grad.detach().clone() for n, p in adapters.named_parameters()}
+    adapters.zero_grad(set_to_none=True)
+    return loss.item(), grads
+
+
+def shard_families_one_card(card, mesh_cfg):
+    """The ESM-1 family and the MSA Transformer on [shard]'s one-rank group at
+    their released sizes (seeded, bf16 compute): ESM-1b at B=32 x 1024 and
+    ESM-1 t34 (bias_kv, S = T + 1) through K1, MSA-1b on [msa]'s 400 x 257
+    MSA, each sharded forward against the unsharded one bit for bit; MSA-1b's
+    step 0 at [train-msa]'s 128 x 257 against the unsharded step bit for bit,
+    then train_step_msa steps; a rank-16 LoRA step over a sharded ESM-1b base
+    (bf16, int8; flash, no remat: esm_tpu's ESM-1 has none) against the
+    unsharded step bit for bit;
+    ESM2-650M's LoRA step through the pipeline at pp=1, M=SHARD_M, against
+    one card's step. Returns the launch counts of its windows and numbers."""
+    import dataclasses
+
+    import torch
+    from esm_tpu_torch import lora, training
+    from esm_tpu_torch.parallel import memory_plan
+    from esm_tpu_torch.parallel.mesh import make_mesh
+    from esm_tpu_torch.parallel.pipeline import make_pp_mesh
+    from esm_tpu_torch.parallel.sharding import batch_rows, resident_bytes, shard_params
+
+    mesh = make_mesh(mesh_cfg)
+    res = {"forward": {}, "lora": {}}
+    for path, name, seed in (("esm1b", "esm1b_t33_650M_UR50S", 80),
+                             ("esm1", "esm1_t34_670M_UR50S", 82)):
+        model, cfg, alphabet, apply = family_model(name, seed, use_flash=True)
+        tokens = torch.from_numpy(bench_tokens(alphabet, SHARD_B, 1022, seed=seed + 1)).cuda()
+        with torch.no_grad():
+            whole = apply(model, cfg, tokens)["logits"]
+            one_s = timed_s(lambda: apply(model, cfg, tokens))
+        shard_params(model, mesh)
+        with torch.no_grad():
+            zero_counts()
+            with k1_shapes() as shapes:
+                logits = apply(model, cfg, batch_rows(tokens, mesh))["logits"]
+                torch.cuda.synchronize()
+            counts = read_counts()
+            sharded_s = timed_s(lambda: apply(model, cfg, tokens))
+        t = tokens.shape[1]
+        r = dict(counts=counts, shapes=sorted(set(shapes)), equal=bool(torch.equal(logits, whole)),
+                 n=cfg.num_layers, want_shapes=[(t, t + int(path == "esm1"), False)],
+                 sharded_s=sharded_s, one_s=one_s)
+        res["forward"][path] = r
+        log(f"[shard] {name} sharded on the one-rank group, bf16 flash, B={SHARD_B} x {t}: logits "
+            f"equal to the unsharded forward's bit for bit: {r['equal']}; {sharded_s * 1e3:.1f} ms "
+            f"(unsharded {one_s * 1e3:.1f} ms); K1 at (T, S, rotary) {r['shapes']}; launches "
+            f"{counts} ({card})")
+        del model, whole, logits
+        torch.cuda.empty_cache()
+
+    # MSA-1b: [msa]'s forward, then [train-msa]'s step 0
+    model, cfg, alphabet, apply = family_model("esm_msa1b_t12_100M_UR50S", 84)
+    rows, length = SHARD_MSA
+    tokens = alphabet.get_batch_converter()([seeded_msa(rows, length, seed=85)])[2].cuda()
+    with torch.no_grad():
+        whole = apply(model, cfg, tokens)["logits"]
+        one_s = timed_s(lambda: apply(model, cfg, tokens), iters=2)
+        shard_params(model, mesh)
+        zero_counts()
+        logits = apply(model, cfg, batch_rows(tokens, mesh))["logits"]
+        torch.cuda.synchronize()
+        counts = read_counts()
+        sharded_s = timed_s(lambda: apply(model, cfg, tokens), iters=2)
+    res["msa"] = dict(equal=bool(torch.equal(logits, whole)), counts=counts)
+    log(f"[shard] MSA-1b sharded on the one-rank group, bf16, B=1 x R={rows} x C={length + 1} "
+        f"(chunked): logits equal to the unsharded forward's bit for bit: {res['msa']['equal']}; "
+        f"{sharded_s * 1e3:.1f} ms (unsharded {one_s * 1e3:.1f} ms); launches {counts} (no "
+        f"kernel: esm_tpu has none for axial attention)")
+    del model, whole, logits
+    rows, length = SHARD_MSA_TRAIN
+    tokens = msa_tokens(alphabet, rows, length, seed=86).cuda()
+    corrupted, target_mask = training._corrupt_batch(
+        cfg, torch.Generator(device="cuda").manual_seed(87), tokens)
+    batch = (corrupted, tokens, target_mask)
+    model, cfg, _, apply = family_model("esm_msa1b_t12_100M_UR50S", 88)
+    model.zero_grad(set_to_none=True)
+    loss0, _ = training.mlm_loss(model, cfg, *batch, apply_fn=apply)
+    loss0.backward()
+    g0 = {n: p.grad.detach().clone() for n, p in model.named_parameters() if p.grad is not None}
+    loss0 = loss0.item()
+    model.zero_grad(set_to_none=True)
+    shard_params(model, mesh)
+    metrics = training.sharded_loss_and_grads(model, cfg, *batch, apply_fn=apply)
+    g1 = {n: p.grad.detach().clone() for n, p in model.named_parameters() if n in g0}
+    equal = metrics["loss"].item() == loss0 and all(torch.equal(g1[k], g0[k]) for k in g0)
+    model.zero_grad(set_to_none=True)
+    del g0, g1
+    tx = training.make_optimizer(SHARD_MSA_LR, warmup_steps=0, total_steps=1000)
+    state = training.init_state(model, tx)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs = [], []
+    for _ in range(SHARD_FAMILY_STEPS):  # one corruption, redrawn from its seed each step
+        t0 = time.perf_counter()
+        state, m = training.train_step_msa(state, cfg, tx,
+                                           torch.Generator(device="cuda").manual_seed(87), tokens)
+        losses.append(m["loss"].item())
+        secs.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    held = resident_bytes(model)
+    planned = memory_plan.plan(type(model)(cfg, device="meta"), mesh_cfg)["per_device_bytes"]
+    res["msa_step"] = dict(equal=equal, losses=losses, peak=peak)
+    log(f"[shard] MSA-1b step 0 on the one-rank group (bf16 compute, B=1 x R={rows} x "
+        f"C={length + 1}): loss {loss0:.6f}, loss and gradients equal to the unsharded step's bit "
+        f"for bit: {equal}; {SHARD_FAMILY_STEPS} train_step_msa steps (lr {SHARD_MSA_LR}, one "
+        f"corruption): losses " + ", ".join(f"{x:.5f}" for x in losses) + "; ms a step "
+        + ", ".join(f"{x * 1e3:.1f}" for x in secs) + f"; peak {peak / 1e9:.3f} GB "
+        f"(max_memory_allocated; parameters {held / 1e9:.3f} GB, plan {planned / 1e9:.3f} GB; "
+        f"AdamW moments and gradients 3x the parameters) ({card})")
+    del model, state, tx, batch
+    torch.cuda.empty_cache()
+
+    # LoRA over a sharded ESM-1b base, flash (no remat: esm_tpu's ESM-1 has none)
+    for kind in ("bf16", "int8"):
+        whole, cfg, alphabet, apply = family_model("esm1b_t33_650M_UR50S", 89, use_flash=True)
+        lora.store_base(whole, int8=kind == "int8")
+        sharded, _, _, _ = family_model("esm1b_t33_650M_UR50S", 89, use_flash=True)
+        lora.store_base(shard_params(sharded, mesh), int8=kind == "int8")
+        same_base = all(torch.equal(a, b) for a, b in zip(whole.state_dict().values(),
+                                                          sharded.state_dict().values()))
+        toks = torch.from_numpy(bench_tokens(alphabet, SHARD_TRAIN_B, 1022, seed=90)).cuda()
+        corrupted, target_mask = training._corrupt_batch(
+            cfg, torch.Generator(device="cuda").manual_seed(91), toks)
+        batch = (corrupted, toks, target_mask)
+        adapters = _lora_adapters(whole, 92)
+        loss_u, g_u = family_adapter_grads(whole, adapters, cfg, batch, apply)
+        del whole
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        with training.frozen_and_patched(sharded, adapters, 1.0):
+            metrics = training.sharded_loss_and_grads(sharded, cfg, *batch, apply_fn=apply,
+                                                      adapters=adapters)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        g_s = {n: p.grad.detach().clone() for n, p in adapters.named_parameters()}
+        equal = (metrics["loss"].item() == loss_u and g_s.keys() == g_u.keys()
+                 and all(torch.equal(g_s[k], g_u[k]) for k in g_u))
+        # plan_train_lora models an ESM-2 of these widths (ESM-1b adds its
+        # 1026 learned positions)
+        plan = memory_plan.plan_train_lora(cfg, mesh_cfg, SHARD_TRAIN_B, 1024, rank=LORA_RANK,
+                                           base_dtype_bytes=1 if kind == "int8" else 2)
+        res["lora"][kind] = dict(equal=equal, same_base=same_base, counts=counts)
+        log(f"[shard] ESM-1b LoRA rank {LORA_RANK}, {kind} base stored after the cut (equal to "
+            f"the whole model's: {same_base}), B={SHARD_TRAIN_B} x 1024, flash: step 0 "
+            f"loss {loss_u:.6f}, loss and adapter gradients equal to the unsharded step's bit for "
+            f"bit: {equal}; {step_s * 1e3:.1f} ms (host clock, first call); peak {peak / 1e9:.3f} "
+            f"GB, plan_train_lora {plan['per_device_bytes'] / 1e9:.3f} GB ({plan['verdict']}); "
+            f"launches {counts} ({card})")
+        del sharded, adapters, g_s, g_u, batch
+        torch.cuda.empty_cache()
+
+    # LoRA over ESM2-650M through the GPipe schedule at pp=1
+    model, cfg, alphabet = shard_model("cuda", seed=93)
+    lora.store_base(model)
+    toks = torch.from_numpy(bench_tokens(alphabet, SHARD_TRAIN_B, 1022, seed=94)).cuda()
+    corrupted, target_mask = training._corrupt_batch(
+        cfg, torch.Generator(device="cuda").manual_seed(95), toks)
+    batch = (corrupted, toks, target_mask)
+    adapters = _lora_adapters(model, 96)
+    loss1, g1 = adapter_grads(model, adapters, cfg, batch)
+    shard_params(model, make_pp_mesh(1))
+    adapters = lora.on_stage(adapters, model)
+    zero_counts()
+    t0 = time.perf_counter()
+    with training.frozen_and_patched(model, adapters, 1.0):
+        metrics = training.pp_loss_and_grads(model, cfg, *batch, num_microbatches=SHARD_M,
+                                             adapters=adapters)
+    torch.cuda.synchronize()
+    pp_s = time.perf_counter() - t0
+    counts = read_counts()
+    grads = {n: p.grad.detach().clone() for n, p in adapters.named_parameters()}
+    adapters.zero_grad(set_to_none=True)
+    cos, worst, ratio = grad_agreement(grads, g1)
+    tx = training.make_optimizer(LORA_LR, warmup_steps=0, total_steps=1000)
+    state = training.init_state(adapters, tx)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    losses, secs = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        state, m = training.train_step_lora_corrupted(state, model, cfg, tx, *batch,
+                                                      num_microbatches=SHARD_M)
+        losses.append(m["loss"].item())
+        secs.append(time.perf_counter() - t0)
+    steps_counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    plan = memory_plan.plan_train_lora(cfg, mesh_cfg, SHARD_TRAIN_B, 1024, rank=LORA_RANK)
+    res["pp_lora"] = dict(loss=metrics["loss"].item(), one_card_loss=loss1, cos=cos, ratio=ratio,
+                          counts=counts, steps_counts=steps_counts, losses=losses,
+                          n=cfg.num_layers)
+    log(f"[shard] ESM2-650M LoRA rank {LORA_RANK} (bf16 base) through the pipeline, pp=1, "
+        f"M={SHARD_M}, B={SHARD_TRAIN_B} x 1024: step 0 loss {res['pp_lora']['loss']:.6f} vs one "
+        f"card {loss1:.6f}; adapter gradients lowest cosine {cos:.6f} ({worst}), norm ratio "
+        f"{ratio:.6f}; {pp_s * 1e3:.1f} ms (host clock, first call); launches {counts}; 2 "
+        f"train_step_lora steps (num_microbatches={SHARD_M}): losses "
+        + ", ".join(f"{x:.5f}" for x in losses) + "; ms a step "
+        + ", ".join(f"{x * 1e3:.1f}" for x in secs) + f"; peak {peak / 1e9:.3f} GB, "
+        f"plan_train_lora {plan['per_device_bytes'] / 1e9:.3f} GB ({plan['verdict']}); launches "
+        f"{steps_counts} ({card})")
+    del model, adapters, state, tx, g1, grads, batch
+    torch.cuda.empty_cache()
+    return res
+
+
+def check_shard_families(res):
+    """Raises unless the families' one-rank parts hold: the forwards and step
+    0s bit for bit, K1 once a layer at the family's (T, S), the LoRA step's
+    K1-with-lse and K2 launches, the pipelined LoRA step within [shard]'s
+    rule for pipelined steps (loss within SHARD_PP_LOSS_TOL, cosine above
+    0.999, norm ratio within 1% of the one-card step's)."""
+    failed = []
+    for path, r in res["forward"].items():
+        if not r["equal"]:
+            failed.append(f"{path}: the sharded forward is not the unsharded one")
+        if r["counts"] != flash_counts(r["n"], fwd=1) or r["shapes"] != r["want_shapes"]:
+            failed.append(f"{path}: K1 launches {r['counts']} at {r['shapes']}")
+    if not res["msa"]["equal"] or any(res["msa"]["counts"].values()):
+        failed.append(f"MSA-1b: sharded forward equal {res['msa']['equal']}, launches "
+                      f"{res['msa']['counts']}")
+    step = res["msa_step"]
+    if not (step["equal"] and np.isfinite(step["losses"]).all()
+            and step["losses"][-1] < step["losses"][0]):
+        failed.append(f"MSA-1b step: equal {step['equal']}, losses {step['losses']}")
+    n = res["forward"]["esm1b"]["n"]
+    for kind, r in res["lora"].items():
+        if not (r["equal"] and r["same_base"]):
+            failed.append(f"ESM-1b LoRA {kind}: the sharded step 0 or base is not the unsharded's")
+        if r["counts"] != flash_counts(n, lse=1, bwd=1):
+            failed.append(f"ESM-1b LoRA {kind} launches {r['counts']}")
+    r = res["pp_lora"]
+    if not (abs(r["loss"] - r["one_card_loss"]) <= SHARD_PP_LOSS_TOL * abs(r["one_card_loss"])
+            and r["cos"] > 0.999 and abs(r["ratio"] - 1) <= 0.01):
+        failed.append("the pipelined LoRA step 0 is off the one-card step's")
+    for label, got, m in (("step 0", r["counts"], SHARD_M), ("steps", r["steps_counts"],
+                                                            2 * SHARD_M)):
+        if got != flash_counts(r["n"], lse=2 * m, bwd=m):
+            failed.append(f"pipelined LoRA {label} launches {got}")
+    if not (np.isfinite(r["losses"]).all()):
+        failed.append(f"pipelined LoRA losses {r['losses']}")
+    if failed:
+        raise AssertionError("[shard] " + "; ".join(failed))
+
+
 def check_shard_one_card(res):
     """Raises unless the one-card [shard] run holds: bit-for-bit forward and
     step 0, exact launch counts in every window, a falling loss, the
@@ -2208,10 +2489,13 @@ def shard_rank(rank, world, port, out_dir):
     res = {"seconds": {}}
     pp_checkpoint = functools.partial(shard_cards_pp_checkpoint, out_dir=out_dir)
     functools.update_wrapper(pp_checkpoint, shard_cards_pp_checkpoint)
+    pp_lora = functools.partial(shard_cards_pp_lora, out_dir=out_dir)
+    functools.update_wrapper(pp_lora, shard_cards_pp_lora)
     # the 15B AdamW step last: it has run out of memory on four cards
     for part in (shard_cards_allreduce, shard_cards_15b_forward, shard_cards_3b, shard_cards_pp,
                  shard_cards_3b_lora, shard_cards_3b_adafactor, shard_cards_15b_lora,
-                 pp_checkpoint, shard_cards_15b_step):
+                 pp_checkpoint, shard_cards_families_forward, shard_cards_msa_step,
+                 shard_cards_esm1b_lora, pp_lora, shard_cards_15b_step):
         t0 = time.perf_counter()
         try:
             res[part.__name__] = part(rank, world)
@@ -2596,6 +2880,239 @@ def shard_cards_pp_checkpoint(rank, world, out_dir):
     return out
 
 
+SHARD_CARDS_FAMILY_B = 8         # four cards: rows of the ESM-1 family's tp forwards
+
+
+def shard_cards_families_forward(rank, world):
+    """tp=world: ESM-1b and ESM-1 t34 bf16 flash forwards at B x 1024 and
+    MSA-1b's on [msa]'s MSA, seeded, each rank keeping its shard; rank 0
+    also runs the one-card bf16 and an fp32 forward of the same weights, and
+    the logits are held by [shard]'s rule for bf16 forwards (the 15B tp
+    forward's)."""
+    import dataclasses
+
+    import torch
+    from esm_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    from esm_tpu_torch.parallel.sharding import batch_rows, shard_params
+
+    mesh = make_mesh(MeshConfig(1, 1, world))
+    agree = lambda a, b: (a.argmax(-1) == b.argmax(-1)).float().mean().item()  # noqa: E731
+    out = {}
+    for path, name, seed in (("esm1b", "esm1b_t33_650M_UR50S", 100),
+                             ("esm1", "esm1_t34_670M_UR50S", 102),
+                             ("msa", "esm_msa1b_t12_100M_UR50S", 104)):
+        msa = path == "msa"
+        model, cfg, alphabet, apply = family_model(name, seed, **({} if msa else
+                                                                  {"use_flash": True}))
+        if msa:
+            tokens = alphabet.get_batch_converter()([seeded_msa(*SHARD_MSA, seed=seed + 1)])[2]
+        else:
+            tokens = torch.from_numpy(bench_tokens(alphabet, SHARD_CARDS_FAMILY_B, 1022,
+                                                   seed=seed + 1))
+        tokens = tokens.cuda()
+        r = {}
+        with torch.no_grad():
+            if rank == 0:
+                want = apply(model, cfg, tokens)["logits"]
+                r["one_card_s"] = timed_s(lambda: apply(model, cfg, tokens), iters=2)
+                f32_cfg = dataclasses.replace(cfg, compute_dtype=torch.float32,
+                                              **({} if msa else {"use_flash": False}))
+                f32 = apply(model, f32_cfg, tokens)["logits"]
+            shard_params(model, mesh)
+            zero_counts()
+            logits = apply(model, cfg, batch_rows(tokens, mesh))["logits"]
+            torch.cuda.synchronize()
+            r["counts"] = read_counts()
+            r["s"] = timed_s(lambda: apply(model, cfg, tokens), iters=2)
+        r["n"] = cfg.num_layers
+        if rank == 0:
+            r.update(scale=want.abs().max().item(), err=(logits - want).abs().max().item(),
+                     agree=agree(logits, want), finite=bool(torch.isfinite(logits).all()),
+                     f32_err=(logits.float() - f32).abs().max().item(),
+                     f32_agree=agree(logits, f32),
+                     one_card_f32_err=(want.float() - f32).abs().max().item(),
+                     one_card_f32_agree=agree(want, f32))
+            del want, f32
+        out[path] = r
+        del model, logits
+        torch.cuda.empty_cache()
+    return out
+
+
+def shard_cards_msa_step(rank, world):
+    """(fsdp, tp) = (2, world / 2): MSA-1b's train_step_msa on two MSAs of
+    64 x 257 (one a (data, fsdp) row), SHARD_FAMILY_STEPS steps at
+    SHARD_MSA_LR on one corruption; this rank's peak."""
+    import torch
+    from esm_tpu_torch import training
+    from esm_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    from esm_tpu_torch.parallel.sharding import shard_params
+
+    model, cfg, alphabet, _ = family_model("esm_msa1b_t12_100M_UR50S", 106)
+    shard_params(model, make_mesh(MeshConfig(1, 2, world // 2)))
+    tokens = torch.cat([msa_tokens(alphabet, 64, 256, seed=107),
+                        msa_tokens(alphabet, 64, 256, seed=108)]).cuda()
+    tx = training.make_optimizer(SHARD_MSA_LR, warmup_steps=0, total_steps=1000)
+    state = training.init_state(model, tx)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs = [], []
+    for _ in range(SHARD_FAMILY_STEPS):
+        t0 = time.perf_counter()
+        state, m = training.train_step_msa(state, cfg, tx,
+                                           torch.Generator(device="cuda").manual_seed(109), tokens)
+        losses.append(m["loss"].item())
+        secs.append(time.perf_counter() - t0)
+    return {"losses": losses, "step_s": secs, "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def shard_cards_esm1b_lora(rank, world):
+    """tp=world: ESM-1b LoRA (rank 16, bf16 base stored after the cut, flash),
+    SHARD_FAMILY_STEPS steps at LORA_LR on B=4 x 1024."""
+    import torch
+    from esm_tpu_torch import lora, training
+    from esm_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    from esm_tpu_torch.parallel.sharding import shard_params
+
+    model, cfg, alphabet, apply = family_model("esm1b_t33_650M_UR50S", 110, use_flash=True)
+    lora.store_base(shard_params(model, make_mesh(MeshConfig(1, 1, world))))
+    toks = torch.from_numpy(bench_tokens(alphabet, 4, 1022, seed=111)).cuda()
+    c, m = training._corrupt_batch(cfg, torch.Generator(device="cuda").manual_seed(112), toks)
+    adapters = _lora_adapters(model, 113, nonzero_b=False)
+    tx = training.make_optimizer(LORA_LR, warmup_steps=0, total_steps=1000)
+    state = training.init_state(adapters, tx)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    losses, secs = [], []
+    for _ in range(SHARD_FAMILY_STEPS):
+        t0 = time.perf_counter()
+        state, metrics = training.train_step_lora_corrupted(state, model, cfg, tx, c, toks, m,
+                                                            apply_fn=apply)
+        losses.append(metrics["loss"].item())
+        secs.append(time.perf_counter() - t0)
+    return {"losses": losses, "step_s": secs, "counts": read_counts(), "n": cfg.num_layers,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def shard_cards_pp_lora(rank, world, out_dir):
+    """pp=world: LoRA (rank 16, bf16 base) over ESM2-650M, its depth cut to a
+    multiple of the stages, through the GPipe schedule at
+    M=SHARD_PP_CARDS_M: step 0 against rank 0's one-card LoRA step (the
+    stages' adapter gradients gathered over pp), SHARD_FAMILY_STEPS steps at
+    LORA_LR, the adapters' train state saved and, on rank 0, reloaded on one
+    card: equal to the gathered tensors bit for bit."""
+    import torch
+    import torch.distributed as dist
+    from esm_tpu_torch import lora, training
+    from esm_tpu_torch.io import checkpoint
+    from esm_tpu_torch.parallel.pipeline import make_pp_mesh
+    from esm_tpu_torch.parallel.sharding import shard_params, whole_state
+
+    n = 33 - 33 % world
+    model, cfg, alphabet = shard_model("cuda", seed=114, num_layers=n)
+    lora.store_base(model)
+    toks = torch.from_numpy(bench_tokens(alphabet, 8, 1022, seed=115)).cuda()
+    c, m = training._corrupt_batch(cfg, torch.Generator(device="cuda").manual_seed(116), toks)
+    batch = (c, toks, m)
+    adapters = _lora_adapters(model, 117)
+    loss1, g1 = adapter_grads(model, adapters, cfg, batch) if rank == 0 else (None, None)
+    shard_params(model, make_pp_mesh(world))
+    stage = lora.on_stage(adapters, model)
+    del adapters
+    torch.cuda.empty_cache()
+    zero_counts()
+    t0 = time.perf_counter()
+    with training.frozen_and_patched(model, stage, 1.0):
+        metrics = training.pp_loss_and_grads(model, cfg, *batch,
+                                             num_microbatches=SHARD_PP_CARDS_M, adapters=stage)
+    torch.cuda.synchronize()
+    out = {"step0_s": time.perf_counter() - t0, "counts": read_counts(), "layers": n}
+    grads = whole_state(stage, {k: p.grad for k, p in stage.named_parameters()})
+    stage.zero_grad(set_to_none=True)
+    if rank == 0:
+        cos, name, ratio = grad_agreement(grads, g1)
+        out.update(loss=metrics["loss"].item(), one_card_loss=loss1, cos=cos, cos_name=name,
+                   ratio=ratio)
+    del grads, g1
+    tx = training.make_optimizer(LORA_LR, warmup_steps=0, total_steps=1000)
+    state = training.init_state(stage, tx)
+    losses = []
+    for _ in range(SHARD_FAMILY_STEPS):
+        state, metrics = training.train_step_lora_corrupted(
+            state, model, cfg, tx, *batch, num_microbatches=SHARD_PP_CARDS_M)
+        losses.append(metrics["loss"].item())
+    out["losses"] = losses
+    path = os.path.join(out_dir, "pp_lora_state")
+    checkpoint.save_train_state(path, state)
+    gathered = {"params": whole_state(stage), "mu": whole_state(stage, state.opt_state.mu),
+                "nu": whole_state(stage, state.opt_state.nu)}
+    if rank == 0:
+        paths = dict.fromkeys(k.rpartition(".")[0] for k in gathered["params"])
+        one = lora.LoRA({p: (torch.empty_like(gathered["params"][f"{p}.lora_a"]),
+                             torch.empty_like(gathered["params"][f"{p}.lora_b"])) for p in paths})
+        fresh = checkpoint.load_train_state(path, training.init_state(one, tx))
+        got = {"params": one.state_dict(), "mu": fresh.opt_state.mu, "nu": fresh.opt_state.nu}
+        out["equal"] = (fresh.step == SHARD_FAMILY_STEPS and all(
+            got[k].keys() == gathered[k].keys()
+            and all(torch.equal(got[k][x], gathered[k][x]) for x in gathered[k])
+            for k in gathered))
+    dist.barrier()
+    return out
+
+
+def check_shard_cards_families(world, res, rank):
+    """Logs and checks a rank's four-card family parts; returns the failures."""
+    failed = []
+    for path, r in res["shard_cards_families_forward"].items():
+        log(f"[shard] {world} cards, rank {rank}: {path} tp={world} bf16 forward: "
+            f"{r['s'] * 1e3:.1f} ms; launches {r['counts']}"
+            + (f" (one card {r['one_card_s'] * 1e3:.1f} ms; logits max abs err {r['err']:.4f} of "
+               f"max |logit| {r['scale']:.2f}, argmax agreement {r['agree']:.5f}; vs an fp32 "
+               f"forward: tp {r['f32_err']:.4f} / agreement {r['f32_agree']:.5f}, one card "
+               f"{r['one_card_f32_err']:.4f} / {r['one_card_f32_agree']:.5f})" if rank == 0
+               else ""))
+        want = flash_counts(r["n"], fwd=0 if path == "msa" else 1)
+        if r["counts"] != want:
+            failed.append(f"rank {rank}: {path} tp launches {r['counts']} != {want}")
+        if rank == 0 and not (r["finite"] and r["err"] <= 0.05 * r["scale"]
+                              and r["f32_err"] <= 1.5 * r["one_card_f32_err"]
+                              and r["f32_agree"] >= r["one_card_f32_agree"] - 0.02):
+            failed.append(f"{path} tp forward off the one-card and fp32 forwards")
+    for key, label in (("shard_cards_msa_step", f"MSA-1b train_step_msa (fsdp, tp) = (2, "
+                        f"{world // 2})"), ("shard_cards_esm1b_lora",
+                                            f"ESM-1b LoRA rank {LORA_RANK} tp={world}")):
+        r = res[key]
+        log(f"[shard] {world} cards, rank {rank}: {label}: losses "
+            + ", ".join(f"{x:.5f}" for x in r["losses"]) + "; s a step "
+            + ", ".join(f"{x:.2f}" for x in r["step_s"]) + f"; peak {r['peak_gb']:.2f} GB"
+            + (f"; launches {r['counts']}" if "counts" in r else ""))
+        if not (np.isfinite(r["losses"]).all() and r["losses"][-1] < r["losses"][0]):
+            failed.append(f"rank {rank}: {label} losses {r['losses']}")
+    r = res["shard_cards_esm1b_lora"]
+    want = flash_counts(r["n"], lse=SHARD_FAMILY_STEPS, bwd=SHARD_FAMILY_STEPS)
+    if r["counts"] != want:
+        failed.append(f"rank {rank}: ESM-1b LoRA launches {r['counts']} != {want}")
+    r = res["shard_cards_pp_lora"]
+    log(f"[shard] {world} cards, rank {rank}: ESM2-650M ({r['layers']} layers) LoRA pp={world} "
+        f"M={SHARD_PP_CARDS_M}: step 0 {r['step0_s']:.2f} s, launches {r['counts']}; losses "
+        + ", ".join(f"{x:.5f}" for x in r["losses"])
+        + (f"; step 0 loss {r['loss']:.6f} vs one card {r['one_card_loss']:.6f}, adapter "
+           f"gradients lowest cosine {r['cos']:.6f} ({r['cos_name']}), norm ratio "
+           f"{r['ratio']:.6f}; the adapter state reloaded on one card equal to the gathered "
+           f"tensors bit for bit: {r['equal']}" if rank == 0 else ""))
+    want = flash_counts(r["layers"] // world, lse=2 * SHARD_PP_CARDS_M, bwd=SHARD_PP_CARDS_M)
+    if r["counts"] != want:
+        failed.append(f"rank {rank}: pipelined LoRA stage launches {r['counts']} != {want}")
+    if not (np.isfinite(r["losses"]).all() and r["losses"][-1] < r["losses"][0]):
+        failed.append(f"rank {rank}: pipelined LoRA losses {r['losses']}")
+    if rank == 0 and not (r["equal"] and abs(r["loss"] - r["one_card_loss"])
+                          <= SHARD_PP_LOSS_TOL * abs(r["one_card_loss"])
+                          and r["cos"] > 0.999 and abs(r["ratio"] - 1) <= 0.01):
+        failed.append("the pipelined LoRA step 0 or its reload is off the one-card step")
+    return failed
+
+
 def shard_several_cards(n_cards):
     """One NCCL rank per card (the largest power of two not above the count)."""
     import torch.multiprocessing as mp
@@ -2687,6 +3204,7 @@ def shard_several_cards(n_cards):
         want = flash_counts(pp["layers"] // world, lse=2 * SHARD_PP_CARDS_M, bwd=SHARD_PP_CARDS_M)
         if pp["counts"] != want:
             failed.append(f"rank {rank}: pipeline stage launches {pp['counts']} != {want}")
+        failed += check_shard_cards_families(world, res, rank)
     if failed:
         raise AssertionError("[shard] " + "; ".join(failed))
     return world
@@ -2696,12 +3214,17 @@ def shard_counts(res):
     """K1's, K1-with-the-lse's and K2's launches on [shard]'s one-card main
     path, summed over its windows (forward, step 0, the steps, the pipeline's
     forward and step, the 3B step, the LoRA steps on both bases, the
-    adafactor steps)."""
+    adafactor steps, the ESM-1b LoRA steps, the pipelined LoRA steps); the
+    ESM-1 family's forwards are counted at their own shapes
+    (:func:`shard_family_entries`)."""
     windows = [res[w] for w in ("forward_counts", "step_counts", "train_counts",
                                 "pp_forward_counts", "pp_step_counts", "3b_counts")]
     train = res["train"]
     windows += [r[w] for r in train["lora"].values() for w in ("step_counts", "steps_counts")]
     windows.append(train["adafactor"]["counts"])
+    families = res["families"]
+    windows += [r["counts"] for r in families["lora"].values()]
+    windows += [families["pp_lora"]["counts"], families["pp_lora"]["steps_counts"]]
     total = {k: sum(w[k] for w in windows) for k in res["forward_counts"]}
     log(f"[shard] launches on the one-card main path: {total}")
     return total
@@ -2720,11 +3243,80 @@ def shard_entries(k1, backward, total):
                  launches=total["flash_attention_bwd.dq"])]
 
 
+def shard_family_entries(k1_esm1, res):
+    """The kernels line's entries of K1 at the ESM-1 family's shapes on
+    [shard]'s path: [k1-esm1b]'s and [k1-esm1]'s times (the shapes the
+    one-rank sharded forwards run), with those forwards' launches."""
+    forward = res["families"]["forward"]
+    return [dict(e, name=f"{e['name']}/shard",
+                 launches=forward[e["name"].split("/")[1]]["counts"]["flash_attention"])
+            for e in k1_esm1]
+
+
+def phase_pp_profile(card):
+    """Where the pipelined steps' time goes (run alone: --only pp-profile):
+    ESM2-650M at B=SHARD_TRAIN_B x 1024 on a one-rank NCCL group, the
+    full-parameter step (fp32 weights, remat "dots") and the rank-16 LoRA
+    step (bf16 base), each on the (1, 1, 1) mesh and through the GPipe
+    schedule at pp=1, M=SHARD_M: one warm-up call, then one profiled call
+    (wall, device busy, device events, the top kernels)."""
+    import torch
+    import torch.distributed as dist
+    from esm_tpu_torch import lora, training
+    from esm_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+    from esm_tpu_torch.parallel.pipeline import make_pp_mesh
+    from esm_tpu_torch.parallel.sharding import shard_params
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}", world_size=1,
+                            rank=0)
+    try:
+        model, cfg, alphabet = shard_model("cuda", seed=93)
+        toks = torch.from_numpy(bench_tokens(alphabet, SHARD_TRAIN_B, 1022, seed=94)).cuda()
+        corrupted, target_mask = training._corrupt_batch(
+            cfg, torch.Generator(device="cuda").manual_seed(95), toks)
+        batch = (corrupted, toks, target_mask)
+        meshes = (("one card", make_mesh(MeshConfig(1, 1, 1))), (f"pp=1, M={SHARD_M}",
+                                                                  make_pp_mesh(1)))
+        rows = []
+
+        def step(adapters, pp):
+            (model if adapters is None else adapters).zero_grad(set_to_none=True)
+            if pp:
+                training.pp_loss_and_grads(model, cfg, *batch, num_microbatches=SHARD_M,
+                                           adapters=adapters)
+            else:
+                training.sharded_loss_and_grads(model, cfg, *batch, adapters=adapters)
+
+        for label, mesh in meshes:
+            shard_params(model, mesh)
+            step(None, "pp" in label)
+            rows.append((f"full-parameter step, {label}",
+                         profile(f"full-parameter step, {label}", lambda: step(None, "pp" in label))))
+        model.zero_grad(set_to_none=True)
+        lora.store_base(model)
+        adapters = _lora_adapters(model, 96)
+        for label, mesh in meshes:
+            shard_params(model, mesh)
+            with training.frozen_and_patched(model, adapters, 1.0):
+                step(adapters, "pp" in label)
+                rows.append((f"LoRA step, {label}", profile(
+                    f"LoRA rank {LORA_RANK} step, {label}", lambda: step(adapters, "pp" in label))))
+    finally:
+        dist.destroy_process_group()
+    for label, (wall, busy, events) in rows:
+        log(f"[pp-profile] ESM2-650M B={SHARD_TRAIN_B} x 1024, {label}: wall {wall:.1f} ms, "
+            f"device busy {busy:.1f} ms ({100 * busy / wall:.1f}%), {events} device events, "
+            f"{1e3 * (wall - busy) / events:.1f} us of idle wall a device event ({card})")
+
+
 def phase_shard(card):
     """Parameter sharding and the pipeline: on a one-rank NCCL group of this
     card, ESM2-650M through shard_params (forward and step 0 bit for bit
     against the unsharded model, the launch counts, 3 steps), the pipeline
     at pp=1, an ESM2-3B step, the plans against the peaks, the GEMM rate;
+    the ESM-1 family and the MSA Transformer sharded (forwards, MSA-1b's
+    step, ESM-1b LoRA) and ESM2-650M's LoRA through the pipeline;
     cli.pretrain and the sharded example under torchrun; with two or more
     cards, tp/fsdp/pp over one rank per card."""
     import torch
@@ -2738,11 +3330,15 @@ def phase_shard(card):
     try:
         res = shard_one_card(card)
         res["train"] = shard_train_one_card(card, MeshConfig(1, 1, 1))
+        t_families = time.perf_counter()
+        res["families"] = shard_families_one_card(card, MeshConfig(1, 1, 1))
+        log(f"[shard] the families' one-rank parts took {time.perf_counter() - t_families:.1f} s")
     finally:
         dist.destroy_process_group()
     torch.cuda.empty_cache()
     check_shard_one_card(res)
     check_shard_train(res["train"], res["n_layers"])
+    check_shard_families(res["families"])
     if not res["save"]["growth"] < res["save"]["tree"] / 2:
         raise AssertionError(f"[shard] the save's host RSS grew {res['save']['growth']} bytes "
                              f"for a tree of {res['save']['tree']}")
@@ -4542,6 +5138,10 @@ def phase_msa(card):
 VARIANT_TOL = 2e-3
 PPPL_TOL = 1e-2
 PPPL_CPU_ROWS = 1  # pseudo-ppl runs ~15 TFLOP a mutant, ~41 s on the CPU: the first row
+# rows of the masked-marginals MSA: its CPU run takes one MSA-1b forward a
+# position (250), most of [cli-variants]' time (the ensemble's CPU run took
+# 56.9 s at 64 rows on the H100 machine's host)
+VARIANT_MSA_ROWS = 16
 
 
 def seeded_lm_checkpoint(tmp, name, size, layers, seed):
@@ -4598,7 +5198,8 @@ def phase_cli_variants():
     measurement column; an ESM-1v-shaped checkpoint (full width, 3 of its 33
     layers) for wt-marginals, masked-marginals and pseudo-ppl; an MSA-1b-shaped
     one (full width, 2 of its 12 layers, save_msa) with masked-marginals over a
-    seeded a3m of 64 rows with lower-case insertions and '.' characters, both
+    seeded a3m of VARIANT_MSA_ROWS rows with lower-case insertions and '.'
+    characters, both
     models in one run with --eval-column (the ensemble). No pandas."""
     import csv
 
@@ -4634,7 +5235,8 @@ def phase_cli_variants():
                                         device="cuda"), os.path.join(tmp, "esm_msa1b_t2_seeded.pt"))
         a3m = os.path.join(tmp, "seeded.a3m")
         with open(a3m, "w") as f:
-            for i, (label, row) in enumerate(seeded_msa(64, L, seed=43, first=seq)):
+            msa_rows = seeded_msa(VARIANT_MSA_ROWS, L, seed=43, first=seq)
+            for i, (label, row) in enumerate(msa_rows):
                 if i:  # insertions relative to the query: lower case and '.'
                     cut = 20 + 3 * i
                     row = row[:cut] + "gak" + row[cut:cut + 50] + ".." + row[cut + 50:]
@@ -6418,14 +7020,15 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import esm_tpu_torch  # noqa: F401  (fails when run without the repo)
 
-    # --only ring,fold-shard,shard: those phases alone, in that order (after
-    # device, build and fasta), e.g. on 4 cards
+    # --only ring,fold-shard,shard,pp-profile: those phases alone, in that
+    # order (after device, build and fasta), e.g. on 4 cards; pp-profile
+    # runs only so
     only = None
     if sys.argv[1:]:
         only = sys.argv[2].split(",") if len(sys.argv) == 3 and sys.argv[1] == "--only" else []
-        if not only or not set(only) <= {"ring", "fold-shard", "shard"}:
+        if not only or not set(only) <= {"ring", "fold-shard", "shard", "pp-profile"}:
             print(f"chip_smoke: unknown arguments {sys.argv[1:]} (--only takes a comma-separated "
-                  "list of ring, fold-shard and shard)", file=sys.stderr)
+                  "list of ring, fold-shard, shard and pp-profile)", file=sys.stderr)
             return 2
     t_start = time.perf_counter()
     card, smi = phase_device()
@@ -6439,6 +7042,8 @@ def main():
             kernels += phase_fold_shard(card)
         if "shard" in only:
             shard_counts(phase_shard(card))
+        if "pp-profile" in only:
+            phase_pp_profile(card)
         log(f"[summary] [build], [fasta] and [{'], ['.join(only)}] passed in "
             f"{time.perf_counter() - t_start:.1f} s")
         log(smi)
@@ -6451,7 +7056,8 @@ def main():
     counts = phase_train(card)
     backward = measure_backward(counts)
     ring = phase_ring(card)
-    shard = shard_entries(k1, backward, shard_counts(phase_shard(card)))
+    shard_res = phase_shard(card)
+    shard = shard_entries(k1, backward, shard_counts(shard_res))
     phase_cli()
     phase_cli_pretrain()
     fold_counts, fold_handle, fold_ref = phase_fold(card)
@@ -6467,6 +7073,8 @@ def main():
     phase_cli_serve()
     log(f"[serve] [serve] and [cli-serve] took {time.perf_counter() - t_serve:.1f} s")
     k1_esm1 = measure_k1_esm1(phase_esm1(card))
+    shard += shard_family_entries(k1_esm1, shard_res)
+    del shard_res
     phase_msa(card)
     phase_cli_variants()
     t_if1 = time.perf_counter()

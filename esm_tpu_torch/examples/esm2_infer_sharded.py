@@ -11,8 +11,15 @@ released size, drawn one layer at a time so that no rank holds the whole
 model. It prints the mesh, the scaling model's warnings for this batch and
 each sequence's mean-embedding norm.
 
+--model takes every ESM-2 name and, as esm_tpu's example does, the ESM-1
+family's: ESM-1b (esm1b_t33_650M_UR50S), ESM-1v (esm1v_t33_650M_UR90S_1 to
+_5) and ESM-1 (esm1_t34_670M_UR50S/UR50D/UR100, esm1_t12_85M_UR50S,
+esm1_t6_43M_UR50S), each with its alphabet and forward. An MSA Transformer
+takes (B, R, C) alignments, not this example's sequences: shard it with
+``parallel.sharding.shard_params`` and call ``msa_transformer.apply``.
+
     torchrun --nproc_per_node 4 -m esm_tpu_torch.examples.esm2_infer_sharded \\
-        --random-seed 0
+        --random-seed 0 [--model esm1b_t33_650M_UR50S]
 
 Without a launcher it runs as a mesh of one rank. --cpu runs on the CPU
 (gloo), otherwise each rank uses the GPU of its LOCAL_RANK.
@@ -60,14 +67,48 @@ def _join(device_type):
     return 0
 
 
+def seeded(name: str, seed: int, device):
+    """The layer-at-a-time builder of a released size's seeded weights
+    (bf16 compute, flash): ESM-2's ``seeded_parts``, the ESM-1 family's
+    ``esm1.init_parts``."""
+    from esm_tpu_torch.data import Alphabet
+    from esm_tpu_torch.examples.esm2_15b_int8_single_chip import seeded_parts
+    from esm_tpu_torch.models import esm1
+
+    if name not in esm1.ESM1_SIZES:
+        return seeded_parts(name, seed, device)
+    size = esm1.ESM1_SIZES[name]
+    cfg = esm1.ESM1Config.from_alphabet(Alphabet.from_architecture(size["model_version"]),
+                                        **size, compute_dtype=torch.bfloat16, use_flash=True)
+    return esm1.init_parts(cfg, torch.Generator(device=device).manual_seed(seed), device)
+
+
+def family(model):
+    """(alphabet, apply) of a seeded model: ESM-2's or the ESM-1 family's."""
+    from esm_tpu_torch import pretrained
+    from esm_tpu_torch.data import Alphabet
+    from esm_tpu_torch.models import esm1, esm2
+
+    if isinstance(model, esm1.ESM1):
+        return Alphabet.from_architecture(model.cfg.model_version), esm1.apply
+    return pretrained._esm2_alphabet(), esm2.apply
+
+
 def main(argv=None):
     args = create_parser().parse_args(argv)
     from esm_tpu_torch import pretrained
-    from esm_tpu_torch.models import esm2
+    from esm_tpu_torch.models import msa_transformer
     from esm_tpu_torch.parallel.mesh import MeshConfig, make_mesh
     from esm_tpu_torch.parallel.scaling import warn_if_inefficient
     from esm_tpu_torch.parallel.sharding import batch_rows, shard_params, sharding_of
     from esm_tpu_torch.parallel.tensor_parallel import all_gather
+
+    name = pretrained._ALIASES.get(args.model, args.model)
+    if name in msa_transformer.MSA_SIZES or name.startswith("esm_msa"):
+        raise SystemExit(
+            f"{args.model} is an MSA Transformer: it takes (B, R, C) alignments, not this "
+            "example's (B, T) sequences. Shard it with parallel.sharding.shard_params and "
+            "call msa_transformer.apply on this rank's alignments (batch_rows).")
 
     device_type = "cpu" if args.cpu else None
     if not args.cpu and not torch.cuda.is_available():
@@ -83,16 +124,16 @@ def main(argv=None):
     say(f"mesh: {dict(zip(mesh.mesh_dim_names, mesh_cfg.shape))}")
 
     if args.random_seed is not None:
-        from esm_tpu_torch.examples.esm2_15b_int8_single_chip import seeded_parts
-
-        model = shard_params(seeded_parts(args.model, args.random_seed, device), mesh,
-                             dtype=torch.bfloat16)
+        model = shard_params(seeded(name, args.random_seed, device), mesh, dtype=torch.bfloat16)
         cfg = model.cfg
-        alphabet = pretrained._esm2_alphabet()
+        alphabet, apply = family(model)
     else:
         # read on the host: each card receives its shards only
         handle, alphabet = pretrained.load_model_and_alphabet(args.model, device="cpu")
+        if handle.kind == "msa":
+            raise SystemExit(f"{args.model} is an MSA Transformer: see this example's help")
         model, cfg = shard_params(handle.model, mesh).to(device), handle.cfg
+        apply = pretrained._APPLY[handle.kind]
     model.requires_grad_(False)
     tokens = alphabet.get_batch_converter(pad_to_multiple=128)(DATA)[2]
     dp = mesh_cfg.data * mesh_cfg.fsdp
@@ -105,7 +146,7 @@ def main(argv=None):
         warn_if_inefficient(cfg, mesh_cfg, batch=len(DATA), seqlen=int(tokens.shape[1]))
     rows = batch_rows(tokens, mesh).to(device)
     with torch.no_grad():
-        out = esm2.apply(model, cfg, rows, repr_layers=[cfg.num_layers])
+        out = apply(model, cfg, rows, repr_layers=[cfg.num_layers])
         reps = out["representations"][cfg.num_layers].float()
         keep = (rows != alphabet.padding_idx) & (rows != alphabet.cls_idx) & (
             rows != alphabet.eos_idx)

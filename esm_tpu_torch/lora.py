@@ -30,7 +30,15 @@ them on the mesh): they are drawn, checked and merged against the whole
 weights' shapes, each layer's product uses this rank's part of them
 (``parallel.tensor_parallel.gather_linear``), :func:`merge` adds each
 rank's cut of the whole delta to its shard, and :func:`store_base` quantizes
-each shard with the whole rows' scales. A pipeline-sharded base is refused.
+each shard with the whole rows' scales. The families' linears (ESM-1's, the
+MSA Transformer's axial projections) take their tp part alike. Over a
+pipeline-sharded ESM-2 a rank holds the adapters of its stage's layers (and
+of any targeted linear outside the layers): :func:`init_lora` draws every
+layer's factors in the unsharded order and keeps its stage's, so a
+pipelined run starts where one card's would; :func:`on_stage` cuts a whole
+LoRA module to a stage. The stage's LoRA module carries the base's
+``Sharding`` (``parallel.sharding``: the global norm counts each adapter
+once over ``pp``; a checkpoint gathers them over ``pp``).
 """
 
 from __future__ import annotations
@@ -43,6 +51,7 @@ import torch
 from torch import nn
 
 from .io.from_jax import jax_leaf
+from .parallel.sharding import _layer_of, sharding_of
 
 # The LM families' hot linears: attention projections and the MLP.
 DEFAULT_TARGETS: FrozenSet[str] = frozenset(
@@ -95,14 +104,29 @@ def fold_targets(path: Tuple) -> bool:
     return path[0] != "esm"
 
 
-def _sharding(model: nn.Module):
-    """The model's Sharding, or None; a pipeline-sharded model is refused."""
-    from .parallel.sharding import _LORA_PP, sharding_of
-
-    shard = sharding_of(model)
+def _carry(lora: "LoRA", shard) -> "LoRA":
+    """``lora`` carrying a pipeline-sharded base's Sharding (a stage's
+    adapters): a copy sharing its process groups, with the factors' names
+    added to its specs as replicated. Over any other base the adapters are
+    whole on every rank."""
     if shard is not None and shard.stages > 1:
-        raise NotImplementedError(_LORA_PP)
-    return shard
+        carried = copy.copy(shard)
+        carried.specs = {**shard.specs, **{name: () for name, _ in lora.named_parameters()}}
+        lora.__dict__["_sharding"] = carried
+    return lora
+
+
+def on_stage(lora: "LoRA", model: nn.Module) -> "LoRA":
+    """The adapters of a whole LoRA module (one card's, or a checkpoint's)
+    that a rank of a pipeline-sharded ``model`` holds: its stage's layers'
+    and those outside the layers, sharing their tensors, carrying the
+    model's Sharding. Over any other model, ``lora`` itself."""
+    shard = sharding_of(model)
+    if shard is None or shard.stages == 1:
+        return lora
+    factors = {path: (a.lora_a.data, a.lora_b.data) for path, a in lora.adapters()
+               if _layer_of(path) is None or _layer_of(path) in shard.layer_ids}
+    return _carry(LoRA(factors), shard)
 
 
 def _whole_shape(shard, name: str, weight: torch.Tensor) -> Tuple[int, ...]:
@@ -134,7 +158,7 @@ def init_lora(
     the model's device."""
     if rank < 1:
         raise ValueError(f"rank must be >= 1, got {rank}")
-    shard = _sharding(model)
+    shard = sharding_of(model)
     groups = {}
     for name, module in model.named_modules():
         if isinstance(module, nn.Linear):
@@ -146,25 +170,28 @@ def init_lora(
             "no linear nodes matched the LoRA targets "
             f"{targets if not callable(targets) else '<predicate>'}"
         )
+    # over a pipeline, a stacked leaf is drawn for every stage's layers and
+    # each of this stage's takes its own layer's slice
+    staged = shard is not None and shard.stages > 1
     factors = {}
     for path in sorted(groups):  # esm_tpu's traversal: sorted keys, list order
         members = sorted(groups[path], key=lambda m: m[0] or 0)
         d_out, d_in = _whole_shape(shard, members[0][1], members[0][2].weight)
         device = members[0][2].weight.device
         stacked = members[0][0] is not None
-        lead = (len(members),) if stacked else ()
+        lead = ((model.cfg.num_layers if staged else len(members)),) if stacked else ()
         a = torch.randn((*lead, d_in, rank), generator=generator, dtype=dtype,
                         device=device) / math.sqrt(d_in)
-        for i, (_, name, _) in enumerate(members):
-            factors[name] = ((a[i] if stacked else a).clone(),
+        for i, (layer, name, _) in enumerate(members):
+            factors[name] = ((a[layer if staged else i] if stacked else a).clone(),
                              torch.zeros((rank, d_out), dtype=dtype, device=device))
     order = {name: i for i, (name, _) in enumerate(model.named_modules())}
-    return LoRA(dict(sorted(factors.items(), key=lambda kv: order[kv[0]])))
+    return _carry(LoRA(dict(sorted(factors.items(), key=lambda kv: order[kv[0]]))), shard)
 
 
 def _resolve(model: nn.Module, lora: LoRA) -> List[Tuple[nn.Linear, Adapter]]:
     """The (linear, adapter) pairs, checked before anything is attached."""
-    shard = _sharding(model)
+    shard = sharding_of(model)
     pairs = []
     for path, adapter in lora.adapters():
         try:
@@ -221,9 +248,8 @@ def merge(model: nn.Module, lora: LoRA, *, scale: float = 1.0) -> nn.Module:
     is. A weight-only int8 weight is refused (merging would requantize the
     frozen base): run such a base patched. A sharded base gives a model
     sharded alike (the same ``Sharding``): each rank adds its cut of the
-    whole delta to its shard, so its whole state is the unsharded merge's."""
-    from .parallel.sharding import sharding_of
-
+    whole delta to its shard, so its whole state is the unsharded merge's
+    (over a pipeline, ``lora`` is the stage's: :func:`on_stage`)."""
     pairs = _resolve(model, lora)
     if any(layer.weight.dtype == torch.int8 for layer, _ in pairs):
         raise ValueError(_INT8_MERGE)

@@ -14,10 +14,17 @@ The forward contract is the reference's: ``{"logits", "representations",
 reference's names, so a reference state dict loads with ``load_state_dict``.
 On the flash path every layer runs kernel K1: ESM-1b/1v without rotary at
 S = T, ESM-1 at S = T + 1 (the bias_kv row appended to the keys).
+
+A model sharded by ``parallel.sharding.shard_params`` runs through
+:func:`apply` as it is (tensor parallelism and ZeRO-3 over the (data, fsdp,
+tp) mesh, each tp rank's heads, K1 on them; ``tokens`` are this rank's
+rows). :func:`init_parts` draws :func:`init`'s weights one layer at a time,
+so a released size is sharded without ever sitting whole on a rank.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import Optional
@@ -40,6 +47,8 @@ from ..ops.positional import (
     learned_positional_embedding,
     sinusoidal_positional_embedding,
 )
+from ..parallel.sharding import sharding_of
+from ..parallel.tensor_parallel import gather_from_tp
 from .lm_common import (
     LayerStatic,
     TransformerLayer,
@@ -134,17 +143,14 @@ class ESM1(nn.Module):
     Built without init: call :func:`init` for seeded random weights, or load
     a state dict."""
 
-    def __init__(self, cfg: ESM1Config, device=None):
+    def __init__(self, cfg: ESM1Config, device=None, *, with_layers: bool = True):
         super().__init__()
         self.cfg = cfg
         d = cfg.embed_dim
         self.embed_tokens = new_embedding(cfg.alphabet_size, d, padding_idx=cfg.padding_idx,
                                           device=device)
         self.layers = nn.ModuleList(
-            TransformerLayer(d, cfg.ffn_embed_dim, cfg.attention_heads, use_rotary=False,
-                             use_bias_kv=not cfg.is_1b, device=device)
-            for _ in range(cfg.num_layers)
-        )
+            new_layer(cfg, device) for _ in range(cfg.num_layers if with_layers else 0))
         self.contact_head = ContactPredictionHead(cfg.num_layers * cfg.attention_heads,
                                                   device=device)
         if cfg.is_1b:
@@ -167,7 +173,13 @@ class ESM1(nn.Module):
         return apply(self, self.cfg, tokens, **kw)
 
 
-@torch.no_grad()
+def new_layer(cfg: ESM1Config, device=None) -> TransformerLayer:
+    """One uninitialised transformer layer of ``cfg``'s widths (ESM-1's with
+    its bias_kv row)."""
+    return TransformerLayer(cfg.embed_dim, cfg.ffn_embed_dim, cfg.attention_heads,
+                            use_rotary=False, use_bias_kv=not cfg.is_1b, device=device)
+
+
 def init(cfg: ESM1Config, generator: torch.Generator, device=None) -> ESM1:
     """ESM1 with seeded random weights (esm_tpu/models/esm1.py:85-127): N(0, 1)
     embeddings with zero padding rows, the reference's layer init, unit LNs,
@@ -176,33 +188,54 @@ def init(cfg: ESM1Config, generator: torch.Generator, device=None) -> ESM1:
     leaves it zero, which makes every logit of a random model zero; at this
     scale the logits of the un-normalized sqrt(D)-scaled features are about
     as large as ESM-1b's). ``generator`` must live on ``device``."""
-    model = ESM1(cfg, device=device)
-    init_embedding(model.embed_tokens, generator, padding_idx=cfg.padding_idx)
-    for layer in model.layers:
-        layer.init_(generator)
-    model.contact_head.regression.weight.zero_()
-    model.contact_head.regression.bias.zero_()
-    if cfg.is_1b:
-        init_embedding(model.embed_positions, generator, padding_idx=cfg.padding_idx)
-        if cfg.emb_layer_norm_before:
-            init_layer_norm(model.emb_layer_norm_before)
-        init_layer_norm(model.emb_layer_norm_after)
-        init_linear_torch_default(model.lm_head.dense, generator)
-        init_layer_norm(model.lm_head.layer_norm)
-        model.lm_head.bias.zero_()
-    else:
-        model.embed_out.normal_(generator=generator).mul_(cfg.embed_dim ** -0.5)
-        if cfg.final_bias:
-            model.embed_out_bias.zero_()
+    parts = init_parts(cfg, generator, device)
+    _, model = next(parts)
+    model.layers.extend(parts)
     return model
+
+
+def init_parts(cfg: ESM1Config, generator: torch.Generator, device=None):
+    """:func:`init`'s weights one layer at a time, drawn in its order, as
+    ``parallel.sharding.shard_params`` takes a builder: yields (cfg, the
+    shell: the model without layers), then each layer. The shell's heads
+    and ESM-1b's positions and LNs are set once the last layer has been
+    taken (they are drawn after the layers), so a consumer reads them only
+    when the iteration has ended."""
+    shell = ESM1(cfg, device=device, with_layers=False)
+    with torch.no_grad():
+        init_embedding(shell.embed_tokens, generator, padding_idx=cfg.padding_idx)
+    yield cfg, shell
+    for _ in range(cfg.num_layers):
+        with torch.no_grad():
+            layer = new_layer(cfg, device).init_(generator)
+        yield layer
+    with torch.no_grad():
+        shell.contact_head.regression.weight.zero_()
+        shell.contact_head.regression.bias.zero_()
+        if cfg.is_1b:
+            init_embedding(shell.embed_positions, generator, padding_idx=cfg.padding_idx)
+            if cfg.emb_layer_norm_before:
+                init_layer_norm(shell.emb_layer_norm_before)
+            init_layer_norm(shell.emb_layer_norm_after)
+            init_linear_torch_default(shell.lm_head.dense, generator)
+            init_layer_norm(shell.lm_head.layer_norm)
+            shell.lm_head.bias.zero_()
+        else:
+            shell.embed_out.normal_(generator=generator).mul_(cfg.embed_dim ** -0.5)
+            if cfg.final_bias:
+                shell.embed_out_bias.zero_()
 
 
 def embed(model: ESM1, cfg: ESM1Config, tokens: torch.Tensor) -> torch.Tensor:
     """Token embedding (scaled by sqrt(d) for ESM-1), token dropout, and the
     positions (reference esm/model/esm1.py:116-140). Runs in fp32, returns
-    the compute dtype."""
+    the compute dtype. On a sharded model each tp rank looks up its columns
+    of the features, which are then gathered."""
     padding_mask = tokens == cfg.padding_idx
     x = embedding_lookup(model.embed_tokens.weight, tokens)
+    shard = sharding_of(model)
+    if shard is not None:
+        x = gather_from_tp(x, -1, shard.tp)
     if not cfg.is_1b:
         x = x * math.sqrt(cfg.embed_dim)
     if cfg.token_dropout:
@@ -243,9 +276,16 @@ def apply(
                        key column stripped)
       contacts:        (B, T', T') when return_contacts
     With ``return_contacts`` and no head weights the contact regression is
-    accumulated inside the layer loop (one (B, H, T, S) map at a time)."""
+    accumulated inside the layer loop (one (B, H, T, S) map at a time).
+
+    A sharded model (``parallel.sharding.shard_params``): ``tokens`` are this
+    rank's rows (``parallel.sharding.batch_rows``; the tp ranks of a row
+    group pass the same rows), and every output is those rows', whole in T
+    and in the features; attention maps carry every head."""
     from .esm2 import _stack_with_streaming_contacts
 
+    shard = sharding_of(model)
+    static = dataclasses.replace(cfg.layer_static(), shard=shard)
     streaming_contacts = return_contacts and not need_head_weights
     padding_mask = tokens == cfg.padding_idx
     x = embed(model, cfg, tokens)
@@ -269,13 +309,13 @@ def apply(
             )
         x, hiddens, contact_acc = _stack_with_streaming_contacts(
             model, cfg, x, tokens, padding_mask, return_representations,
-            strip_last_key=not cfg.is_1b,
+            strip_last_key=not cfg.is_1b, static=static,
         )
     else:
         x, hiddens, attn = transformer_stack_apply(
             model.layers,
             x,
-            static=cfg.layer_static(),
+            static=static,
             key_padding_mask=padding_mask,
             collect_hiddens=return_representations,
             collect_layer_ids=mid_layers,
@@ -296,11 +336,11 @@ def apply(
         elif reps is not None:
             if cfg.num_layers in repr_layers:
                 reps[cfg.num_layers] = x  # post-final-LN
-        logits = roberta_lm_head(model.lm_head, x.float(), model.embed_tokens.weight)
+        logits = roberta_lm_head(model.lm_head, x.float(), model.embed_tokens.weight, shard)
     else:
         if return_representations:
             result["representations"] = torch.cat([h0[None], hiddens], dim=0)
-        w = model.embed_out.float()
+        w = model.embed_out.float()  # replicated, as esm_tpu leaves it
         if model.embed_out.dtype == torch.int8:  # weight-only int8 (quantization.py)
             w = w * model.embed_out_scale[:, None]
         logits = torch.matmul(x.float(), w.t())

@@ -253,6 +253,8 @@ def apply(
     group pass the same rows), and every output is those rows', whole in T
     and in the features; attention maps carry every head.
     """
+    if ring is not None:
+        _ring_takes(model)
     shard = sharding_of(model)
     if shard is not None and ring is not None:
         raise ValueError("a sharded model runs without ring attention (sequence parallelism "
@@ -358,8 +360,16 @@ def apply_seq_sharded(model: ESM2, cfg: ESM2Config, tokens: torch.Tensor, *, mes
     rotating between the ranks (parallel/ring_attention.py), so activations
     and attention state are O(T/N) per rank. T must divide by the
     ``seq_axis`` size. Attention maps and contacts raise (they are T x T)."""
+    _ring_takes(model)
     local = local_shard(tokens, mesh, seq_axis=seq_axis)
     return apply(model, cfg, local, ring=(mesh, seq_axis), **kw)
+
+
+def _ring_takes(model) -> None:
+    if not isinstance(model, ESM2):
+        raise ValueError(f"sequence parallelism (ring attention) runs ESM-2 only, as in "
+                         f"esm_tpu, not {type(model).__name__}: shard its parameters instead "
+                         "(parallel.sharding.shard_params)")
 
 
 def apply_pipelined(model: ESM2, cfg: ESM2Config, tokens: torch.Tensor, *,

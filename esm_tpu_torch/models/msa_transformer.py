@@ -8,6 +8,13 @@ pre-LN residual block, esm/modules.py:145-221, :360-418), final LN, tied LM
 head, contacts from the stacked row attentions. ``MSATransformer`` holds the
 parameters under the reference's names. The axial attentions are plain
 PyTorch: the JAX package has no Pallas kernel for them.
+
+A model sharded by ``parallel.sharding.shard_params`` runs through
+:func:`apply` as it is: each layer's weights gathered over fsdp, row and
+column attention on this tp rank's heads, a column/row-parallel
+feed-forward (Megatron's collectives, parallel/tensor_parallel.py);
+``tokens`` are this rank's MSAs (``parallel.sharding.batch_rows`` splits
+dim 0 of (B, R, C)).
 """
 
 from __future__ import annotations
@@ -33,6 +40,8 @@ from ..ops.common import (
 )
 from ..ops.heads import ContactPredictionHead, RobertaLMHead, contact_head, roberta_lm_head
 from ..ops.positional import learned_positional_embedding
+from ..parallel.sharding import sharding_of
+from ..parallel.tensor_parallel import copy_to_tp, gather_from_tp, row_parallel_linear
 from .lm_common import embedding_lookup, normalize_repr_layers
 
 MAX_MSA_ROWS = 1024  # rows of the MSA position embedding (reference msa_transformer.py:102-107)
@@ -181,18 +190,29 @@ def axial_layer_apply(
     num_heads: int,
     padding_mask: Optional[torch.Tensor],
     max_tokens_per_msa: int = 2 ** 14,
+    shard=None,
+    need_weights: bool = True,
 ):
     """One AxialTransformerLayer: three pre-LN residual blocks (reference
     esm/modules.py:196-221, :360-392). The axial attentions are chunked when
     R*C exceeds ``max_tokens_per_msa`` (esm_tpu/models/msa_transformer.py:147-149).
-    Returns (x, row probs (B, H, C, C), column probs (B, H, C, R, R))."""
+    ``shard``: the model's parallel.sharding.Sharding (the layer's weights
+    gathered over fsdp, this tp rank's heads and feed-forward columns).
+    Returns (x, row probs (B, H, C, C), column probs (B, H, C, R, R)); the
+    probabilities are None without ``need_weights``."""
     b, r, c, d = x.shape
+    tp = None
+    if shard is not None:
+        layer = shard.gather_layer(layer, x.dtype)
+        tp = shard.tp
+        num_heads //= shard.sizes["tp"]
     chunked = r * c > max_tokens_per_msa
     row = layer.row_self_attention
     h, row_probs = row_self_attention(
         row.layer, layer_norm(row.layer_norm, x), num_heads=num_heads,
         padding_mask=padding_mask,
         max_rows_per_chunk=max(1, max_tokens_per_msa // c) if chunked else None,
+        tp_group=tp, need_weights=need_weights,
     )
     x = x + h
     col = layer.column_self_attention
@@ -200,11 +220,13 @@ def axial_layer_apply(
         col.layer, layer_norm(col.layer_norm, x), num_heads=num_heads,
         padding_mask=padding_mask,
         max_cols_per_chunk=max(1, max_tokens_per_msa // r) if chunked else None,
+        tp_group=tp, need_weights=need_weights,
     )
     x = x + h
     ffn = layer.feed_forward_layer
     h = layer_norm(ffn.layer_norm, x)
-    h = linear(ffn.layer.fc2, gelu_erf(linear(ffn.layer.fc1, h)))
+    h = linear(ffn.layer.fc1, copy_to_tp(h, tp))  # column-parallel
+    h = row_parallel_linear(ffn.layer.fc2, gelu_erf(h), tp)
     return x + h, row_probs, col_probs
 
 
@@ -223,13 +245,20 @@ def apply(
     (B, R, C, V) fp32, "representations" ((L+1, B, R, C, D), or a dict of the
     ``repr_layers``), "row_attentions" (B, L, H, C, C), "col_attentions"
     (B, L, H, C, R, R), "contacts" (B, C', C')}; contacts need the head
-    weights, so ``return_contacts`` turns them on."""
+    weights, so ``return_contacts`` turns them on.
+
+    A sharded model: ``tokens`` are this rank's MSAs (``batch_rows``; the tp
+    ranks of a row group pass the same ones), every output is theirs, and
+    the attention maps carry every head."""
     if return_contacts:
         need_head_weights = True
     b, r, c = tokens.shape
     padding_mask = tokens == cfg.padding_idx  # (B, R, C)
+    shard = sharding_of(model)
 
     x = embedding_lookup(model.embed_tokens.weight, tokens)
+    if shard is not None:  # each tp rank looked up its columns of the features
+        x = gather_from_tp(x, -1, shard.tp)
     x = x + learned_positional_embedding(
         model.embed_positions, tokens.reshape(b * r, c), cfg.padding_idx, cfg.max_positions
     ).reshape(x.shape)
@@ -255,7 +284,8 @@ def apply(
     for i, layer in enumerate(model.layers):
         x, row_probs, col_probs = axial_layer_apply(
             layer, x, num_heads=cfg.attention_heads, padding_mask=padding_mask,
-            max_tokens_per_msa=cfg.max_tokens_per_msa,
+            max_tokens_per_msa=cfg.max_tokens_per_msa, shard=shard,
+            need_weights=need_head_weights,
         )
         if return_representations:
             hiddens.append(x)
@@ -276,7 +306,8 @@ def apply(
             selected[cfg.num_layers] = x  # post-final-LN
         result["representations"] = selected
 
-    result["logits"] = roberta_lm_head(model.lm_head, x.float(), model.embed_tokens.weight)
+    result["logits"] = roberta_lm_head(model.lm_head, x.float(), model.embed_tokens.weight,
+                                       shard)
     if need_head_weights:
         row_attentions = torch.stack(rows, dim=1).float()   # (B, L, H, C, C)
         result["row_attentions"] = row_attentions

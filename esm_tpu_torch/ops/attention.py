@@ -115,7 +115,7 @@ def multihead_attention(
         raise ValueError("ring attention takes no bias_kv key (S = T + 1), no attention "
                          "mask and returns no attention maps")
 
-    b, t, d = x.shape
+    b, t, _ = x.shape
     x = copy_to_tp(x, tp_group)
     q = linear(attn.q_proj, x)
     head_dim = q.shape[-1] // num_heads  # a tp rank's projections hold D/tp features
@@ -124,9 +124,9 @@ def multihead_attention(
     q = q * scaling
     k = linear(attn.k_proj, x)
     v = linear(attn.v_proj, x)
-    if use_bias_kv:
-        k = torch.cat([k, attn.bias_k.to(k.dtype).expand(b, 1, d)], dim=1)
-        v = torch.cat([v, attn.bias_v.to(v.dtype).expand(b, 1, d)], dim=1)
+    if use_bias_kv:  # under tp, bias_k/bias_v hold this rank's heads' features, as k/v do
+        k = torch.cat([k, attn.bias_k.to(k.dtype).expand(b, 1, k.shape[-1])], dim=1)
+        v = torch.cat([v, attn.bias_v.to(v.dtype).expand(b, 1, v.shape[-1])], dim=1)
         if key_padding_mask is not None:
             key_padding_mask = torch.cat(
                 [key_padding_mask, key_padding_mask.new_zeros(b, 1)], dim=1)

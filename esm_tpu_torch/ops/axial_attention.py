@@ -14,6 +14,13 @@ logits over blocks of rows and ``max_cols_per_chunk`` runs blocks of
 columns, which bounds the memory as the reference's chunked inference does
 (the sum over rows commutes with the softmax that follows; columns are
 independent).
+
+Tensor parallelism (``tp_group``, parallel/sharding.py): the projections
+hold this tp rank's heads (q/k/v column-parallel, ``num_heads`` the local
+count, the head width taken from the local projection's width) and
+out_proj its input columns (row-parallel, all-reduced); the input passes
+Megatron's ``copy_to_tp`` once before every chunk's projections, and the
+probabilities come back with every head.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from ..parallel.tensor_parallel import _size, copy_to_tp, gather_from_tp, row_parallel_linear
 from .common import linear, new_linear, softmax_fp32
 
 PAD_FILL = -10000.0
@@ -53,14 +61,18 @@ def row_self_attention(
     num_heads: int,
     padding_mask: Optional[torch.Tensor] = None,
     max_rows_per_chunk: Optional[int] = None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    tp_group=None,
+    need_weights: bool = True,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Tied row attention. x: (B, R, C, D); padding_mask: (B, R, C) bool.
-    Returns (out (B, R, C, D), probs (B, H, C, C))."""
-    b, r, c, d = x.shape
-    scaling = (d // num_heads) ** -0.5 / (r ** 0.5)
+    Returns (out (B, R, C, D), probs (B, H, C, C), or None without
+    ``need_weights``)."""
+    b, r, c, _ = x.shape
+    x = copy_to_tp(x, tp_group)
 
     def chunk_logits(rows: slice) -> torch.Tensor:
-        q = _heads(linear(attn.q_proj, x[:, rows]), num_heads) * scaling
+        q = _heads(linear(attn.q_proj, x[:, rows]), num_heads)
+        q = q * (q.shape[-1] ** -0.5 / (r ** 0.5))
         k = _heads(linear(attn.k_proj, x[:, rows]), num_heads)
         if padding_mask is not None:
             q = q * (1.0 - padding_mask[:, rows, :, None, None].to(q.dtype))
@@ -79,7 +91,8 @@ def row_self_attention(
     probs = softmax_fp32(w)
     v = _heads(linear(attn.v_proj, x), num_heads)
     ctx = torch.einsum("bhij,brjhd->brihd", probs.to(v.dtype), v)
-    return linear(attn.out_proj, ctx.reshape(b, r, c, d)), probs
+    out = row_parallel_linear(attn.out_proj, ctx.reshape(b, r, c, -1), tp_group)
+    return out, gather_from_tp(probs, 1, tp_group) if need_weights else None
 
 
 def column_self_attention(
@@ -89,28 +102,41 @@ def column_self_attention(
     num_heads: int,
     padding_mask: Optional[torch.Tensor] = None,
     max_cols_per_chunk: Optional[int] = None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    tp_group=None,
+    need_weights: bool = True,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Attention over the rows of each column. x: (B, R, C, D).
-    Returns (out (B, R, C, D), probs (B, H, C, R, R))."""
-    b, r, c, d = x.shape
-    if max_cols_per_chunk is not None and max_cols_per_chunk < c and r > 1:
-        parts = [
-            column_self_attention(
-                attn, x[:, :, start:start + max_cols_per_chunk], num_heads=num_heads,
-                padding_mask=(None if padding_mask is None
-                              else padding_mask[:, :, start:start + max_cols_per_chunk]))
-            for start in range(0, c, max_cols_per_chunk)
-        ]
-        return (torch.cat([o for o, _ in parts], dim=2),
-                torch.cat([p for _, p in parts], dim=2))
-
+    Returns (out (B, R, C, D), probs (B, H, C, R, R), or None without
+    ``need_weights``)."""
+    b, r, c, _ = x.shape
+    x = copy_to_tp(x, tp_group)
     if r == 1:
         # one row: attention is the identity over the row axis
         # (reference esm/axial_attention.py:189-200)
-        probs = torch.ones((b, num_heads, c, 1, 1), dtype=x.dtype, device=x.device)
-        return linear(attn.out_proj, linear(attn.v_proj, x)), probs
+        out = row_parallel_linear(attn.out_proj, linear(attn.v_proj, x), tp_group)
+        heads = num_heads * _size(tp_group)
+        probs = torch.ones((b, heads, c, 1, 1), dtype=x.dtype, device=x.device)
+        return out, probs if need_weights else None
+    if max_cols_per_chunk is None or max_cols_per_chunk >= c:
+        out, probs = _columns(attn, x, num_heads, padding_mask, tp_group)
+    else:
+        parts = [
+            _columns(attn, x[:, :, start:start + max_cols_per_chunk], num_heads,
+                     None if padding_mask is None
+                     else padding_mask[:, :, start:start + max_cols_per_chunk], tp_group)
+            for start in range(0, c, max_cols_per_chunk)
+        ]
+        out = torch.cat([o for o, _ in parts], dim=2)
+        probs = torch.cat([p for _, p in parts], dim=2)
+    return out, gather_from_tp(probs, 1, tp_group) if need_weights else None
 
-    q = _heads(linear(attn.q_proj, x), num_heads) * (d // num_heads) ** -0.5
+
+def _columns(attn, x, num_heads, padding_mask, tp_group):
+    """Column attention over a block of columns of ``x`` (R > 1), already
+    past ``copy_to_tp``: (out, this rank's heads' probs)."""
+    b, r, c, _ = x.shape
+    q = _heads(linear(attn.q_proj, x), num_heads)
+    q = q * q.shape[-1] ** -0.5
     k = _heads(linear(attn.k_proj, x), num_heads)
     v = _heads(linear(attn.v_proj, x), num_heads)
     w = torch.einsum("bichd,bjchd->bhcij", q, k)   # (B, H, C, R_query, R_key)
@@ -119,4 +145,4 @@ def column_self_attention(
         w = w.masked_fill(keys_padded[:, None, :, None, :], PAD_FILL)
     probs = softmax_fp32(w)
     ctx = torch.einsum("bhcij,bjchd->bichd", probs.to(v.dtype), v)
-    return linear(attn.out_proj, ctx.reshape(b, r, c, d)), probs
+    return row_parallel_linear(attn.out_proj, ctx.reshape(b, r, c, -1), tp_group), probs

@@ -106,8 +106,8 @@ def pipeline_forward(stage_fn: Callable, x: torch.Tensor, aux=None, *, mesh: Dev
         m = t - s          # the microbatch in front of this stage at tick t
         sent = t - 1 - s   # the one it finished at tick t - 1
         ops = []
-        if s > 0 and 0 <= m < m_count:
-            inputs[m] = torch.empty_like(xs[m])
+        if s > 0 and 0 <= m < m_count:  # a receive needs a dense buffer, whatever x's strides
+            inputs[m] = torch.empty_like(xs[m], memory_format=torch.contiguous_format)
             ops.append(dist.P2POp(dist.irecv, inputs[m], st.prev, st.group))
         if not st.is_last and 0 <= sent < m_count:
             ops.append(dist.P2POp(dist.isend, outputs[sent].detach().contiguous(), st.next,
@@ -142,7 +142,7 @@ def pipeline_backward(inputs, outputs, output_grads, *, mesh: DeviceMesh,
         sent = m_count - 1 - (t - 1 - (n - 1 - s))   # finished at tick t - 1
         ops = []
         if not st.is_last and 0 <= m < m_count:
-            grads[m] = torch.empty_like(outputs[m])
+            grads[m] = torch.empty_like(outputs[m], memory_format=torch.contiguous_format)
             ops.append(dist.P2POp(dist.irecv, grads[m], st.next, st.group))
         if s > 0 and 0 <= sent < m_count:
             ops.append(dist.P2POp(dist.isend, in_grads[sent].contiguous(), st.prev, st.group))
@@ -163,7 +163,8 @@ def pipeline_apply(stage_fn: Callable, x: torch.Tensor, aux=None, *, mesh: Devic
     with torch.no_grad():
         _, outputs = pipeline_forward(stage_fn, x, aux, mesh=mesh,
                                       num_microbatches=num_microbatches)
-        out = torch.cat(outputs) if st.is_last else torch.empty_like(x)
+        out = (torch.cat(outputs) if st.is_last
+               else torch.empty_like(x, memory_format=torch.contiguous_format))
         if st.group is not None:
             dist.broadcast(out, src=st.last, group=st.group)
     return out

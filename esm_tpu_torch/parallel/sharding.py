@@ -1,4 +1,4 @@
-"""Parameter sharding of ESM-2 over the (data, fsdp, tp) mesh.
+"""Parameter sharding of the language models over the (data, fsdp, tp) mesh.
 
 Port of esm_tpu/parallel/sharding.py. The placement rules are esm_tpu's
 (``spec_for_param`` :43): Megatron tensor parallelism over ``tp`` and
@@ -13,6 +13,11 @@ ZeRO-3 over ``fsdp``:
   * the LM head's dense layer is column-parallel;
   * norms, the contact head and the row-parallel biases are replicated;
     int8 ``scale``s follow the bias rules;
+  * ESM-1's bias_kv row (``bias_k``, ``bias_v``) holds its features over
+    ``tp``, as the keys and values it joins do (esm_tpu replicates it: see
+    ROADMAP Queue 3, "Deliberate divergences"); ESM-1's untied ``embed_out``
+    and its bias, the positional embeddings and the MSA Transformer's
+    ``msa_position_embedding`` are replicated;
   * activations: the batch over (data, fsdp); the tp ranks hold the same
     rows and all of T (:func:`batch_rows`).
 
@@ -26,7 +31,10 @@ model carries its :class:`Sharding`, which ``esm2.apply``, the layers and
 the training step read; the collectives are in ``tensor_parallel``. With
 a four-axis mesh whose outermost axis is ``pp`` (``pipeline.make_pp_mesh``)
 the layers are split into stages as well: a rank keeps its stage's layers
-only.
+only. The families: ESM-2, ESM-1/1b/1v (``models.esm1``) and the MSA
+Transformer (``models.msa_transformer``, whose axial layers run row and
+column attention on a tp rank's heads); esm_tpu pipelines ESM-2 only
+(``esm2.apply_pipelined``), so a ``pp`` mesh takes ESM-2 only.
 
 Shards must be even: a dimension that the mesh axes do not divide is
 refused, so every ``all_gather_into_tensor`` and ``reduce_scatter_tensor``
@@ -39,7 +47,12 @@ column-parallel product adds ``(x @ a) @ b[:, this tp rank's outputs]``, a
 row-parallel one ``(x_local @ a[this tp rank's inputs]) @ b`` to its
 partial sum before the tp all-reduce. Each rank's adapter gradient is then
 its part of the whole batch's; :meth:`Sharding.sync_adapter_grads` sums
-them. LoRA on a pipeline-sharded model is refused.
+them. Over a pipeline-sharded base a rank holds the adapters of its
+stage's layers (and those outside the layers), and the LoRA module carries
+the base's :class:`Sharding`: their gradients come from the stage's
+backward, their global norm counts each once over ``pp``, and a checkpoint
+gathers them over ``pp`` as it gathers the base's layers. An entry the
+specs do not name (an adapter) is replicated.
 """
 
 from __future__ import annotations
@@ -67,6 +80,8 @@ def spec_for(name: str, ndim: int) -> Spec:
     replicated = (None,) * ndim
     if "embed_tokens" in parts or name == "lm_head.weight":  # the tied projection
         return (None, AXIS_TP)
+    if leaf in ("bias_k", "bias_v"):  # ESM-1's (1, 1, D) key/value row: K/V's heads
+        return (None, None, AXIS_TP)
     owner = next((p for p in parts if p in COLUMN_PARALLEL + ROW_PARALLEL), None)
     if owner in COLUMN_PARALLEL:
         return (AXIS_TP, AXIS_FSDP) if leaf == "weight" else (AXIS_TP,)
@@ -102,13 +117,16 @@ def shard_factor(spec: Spec, sizes: Dict[str, int]) -> int:
     return n
 
 
-def _check_family(model) -> None:
-    from ..models import esm2
+def _check_family(model, mesh) -> None:
+    from ..models import esm1, esm2, msa_transformer
 
-    if not isinstance(model, esm2.ESM2):
-        raise NotImplementedError(
-            f"parameter sharding covers ESM-2 only; {type(model).__name__} is not sharded "
-            "yet (ROADMAP Queue 1, item 13d)")
+    if not isinstance(model, (esm2.ESM2, esm1.ESM1, msa_transformer.MSATransformer)):
+        raise TypeError(f"parameter sharding takes ESM-2, ESM-1/1b/1v or the MSA Transformer, "
+                        f"not {type(model).__name__}")
+    if AXIS_PP in tuple(mesh.mesh_dim_names) and not isinstance(model, esm2.ESM2):
+        raise ValueError(f"a pipeline ('pp') mesh takes ESM-2 only, not {type(model).__name__}: "
+                         "esm_tpu pipelines ESM-2 alone (esm2.apply_pipelined); shard the model "
+                         "over a (data, fsdp, tp) mesh")
 
 
 def _layer_of(name: str) -> Optional[int]:
@@ -216,30 +234,49 @@ class Sharding:
     # -- the layers ---------------------------------------------------------
 
     def gather_layer(self, layer, dtype: Optional[torch.dtype] = None):
-        """A stand-in for ``layer`` whose weights are gathered over fsdp
-        (ZeRO-3; their tp shards stay) as ``dtype``, the compute dtype:
-        column-parallel weights along their input dimension, row-parallel
-        ones along their output dimension."""
+        """A stand-in for ``layer`` (a ``TransformerLayer``, or the MSA
+        Transformer's ``AxialTransformerLayer``) whose weights are gathered
+        over fsdp (ZeRO-3; their tp shards stay) as ``dtype``, the compute
+        dtype: column-parallel weights along their input dimension,
+        row-parallel ones along their output dimension. ESM-1's bias_kv row
+        comes as this tp rank's features; LayerNorms as they are."""
         from types import SimpleNamespace
 
         g = self.fsdp
-        attn = layer.self_attn
 
-        def gather(lin, dim):
-            # LoRA factors: a column-parallel product (dim 1) keeps this tp
-            # rank's outputs of b, a row-parallel one (dim 0) its inputs of a
-            return tpar.gather_linear(lin, dim, g, dtype=dtype, lora_tp=self.tp,
-                                      lora_dim=1 if dim == 1 else 0)
+        # LoRA factors: a column-parallel product keeps this tp rank's
+        # outputs of b, a row-parallel one its inputs of a
+        def column(lin):
+            return tpar.gather_linear(lin, 1, g, dtype=dtype, lora_tp=self.tp, lora_dim=1)
 
+        def row(lin):
+            return tpar.gather_linear(lin, 0, g, dtype=dtype, lora_tp=self.tp, lora_dim=0)
+
+        def attention(attn):
+            out = SimpleNamespace(q_proj=column(attn.q_proj), k_proj=column(attn.k_proj),
+                                  v_proj=column(attn.v_proj), out_proj=row(attn.out_proj))
+            for name in ("bias_k", "bias_v"):
+                if hasattr(attn, name):
+                    setattr(out, name, getattr(attn, name))
+            return out
+
+        if hasattr(layer, "row_self_attention"):  # an axial layer: three residual blocks
+            def block(residual, body):
+                return SimpleNamespace(layer=body, layer_norm=residual.layer_norm)
+
+            ffn = layer.feed_forward_layer
+            return SimpleNamespace(
+                row_self_attention=block(layer.row_self_attention,
+                                         attention(layer.row_self_attention.layer)),
+                column_self_attention=block(layer.column_self_attention,
+                                            attention(layer.column_self_attention.layer)),
+                feed_forward_layer=block(ffn, SimpleNamespace(fc1=column(ffn.layer.fc1),
+                                                              fc2=row(ffn.layer.fc2))))
         return SimpleNamespace(
-            self_attn=SimpleNamespace(
-                q_proj=gather(attn.q_proj, 1),
-                k_proj=gather(attn.k_proj, 1),
-                v_proj=gather(attn.v_proj, 1),
-                out_proj=gather(attn.out_proj, 0)),
+            self_attn=attention(layer.self_attn),
             self_attn_layer_norm=layer.self_attn_layer_norm,
-            fc1=gather(layer.fc1, 1),
-            fc2=gather(layer.fc2, 0),
+            fc1=column(layer.fc1),
+            fc2=row(layer.fc2),
             final_layer_norm=layer.final_layer_norm,
         )
 
@@ -264,30 +301,30 @@ class Sharding:
 
     def sync_adapter_grads(self, adapters: nn.Module) -> None:
         """Make every adapter's ``.grad`` (adapters whole on every rank, over
-        this sharded base) the whole batch's gradient on every rank: summed
-        over the (data, fsdp) rows, and over tp where the adapted product is
-        split over tp (each tp rank holds its block's or its partial sum's
-        part; a product every tp rank runs alike counts once). An adapter
-        without a gradient takes zeros, so every rank issues the same
-        collectives."""
-        if self.stages > 1:
-            raise NotImplementedError(_LORA_PP)
+        this sharded base; over a pipeline, a stage's layers' adapters on
+        that stage's ranks) the whole batch's gradient: summed over the
+        (data, fsdp) rows, over tp where the adapted product is split over
+        tp (each tp rank holds its block's or its partial sum's part; a
+        product every tp rank runs alike counts once), and for an adapter
+        outside the layers over pp, as :meth:`sync_grads` sums the
+        parameters every stage holds. An adapter without a gradient takes
+        zeros, so every rank issues the same collectives."""
         for path, adapter in adapters.adapters():
             split = any(part in COLUMN_PARALLEL + ROW_PARALLEL for part in path.split("."))
             groups = [self.group["dp"], self.tp if split else None]
+            if self.stages > 1 and _layer_of(path) is None:
+                groups.append(self.group[AXIS_PP])
             _sum_grads((p, groups) for p in (adapter.lora_a, adapter.lora_b))
 
     def norm_sq(self, tensors: Dict[str, torch.Tensor]) -> torch.Tensor:
         """sum over the whole model of sum(t * t), each shard once: the
-        copies of replicated entries count on one rank only."""
+        copies of replicated entries count on one rank only (a stage's
+        layers' adapters on one rank of their stage)."""
         total = sum(torch.sum(t * t) if self.counts_once(name) else torch.zeros_like(t.sum())
                     for name, t in tensors.items())
         if dist.get_world_size() > 1:
             dist.all_reduce(total)
         return total
-
-
-_LORA_PP = "LoRA on a pipeline-sharded model (ROADMAP Queue 1, item 13d)"
 
 
 def _sum_grads(items) -> None:
@@ -342,16 +379,18 @@ def _shard_module(module: nn.Module, prefix: str, sharding: Sharding, dtype,
 
 
 def shard_params(model_or_parts, mesh, *, dtype: Optional[torch.dtype] = None) -> nn.Module:
-    """Keep on this rank only its shard of every parameter of an ESM-2 and
-    attach the :class:`Sharding` (every rank of ``mesh`` calls it alike).
+    """Keep on this rank only its shard of every parameter of a language
+    model and attach the :class:`Sharding` (every rank of ``mesh`` calls it
+    alike).
 
-    ``model_or_parts``: a whole ``esm2.ESM2``, or a layer-at-a-time builder
-    as ``esm2.init_parts`` and ``examples.esm2_15b_int8_single_chip.
-    seeded_parts`` yield one: (cfg, the shell without layers), then each
-    layer. Each layer is cut as soon as it arrives, and the shell when the
+    ``model_or_parts``: a whole ``esm2.ESM2``, ``esm1.ESM1`` or
+    ``msa_transformer.MSATransformer``, or a layer-at-a-time builder as
+    ``esm2.init_parts``, ``esm1.init_parts`` and
+    ``examples.esm2_15b_int8_single_chip.seeded_parts`` yield one: (cfg, the
+    shell without layers), then each layer. Each layer is cut as soon as it arrives, and the shell when the
     builder has ended (``init_parts`` fills its head last), so no rank ever
-    holds more than the shell and one whole layer; with a ``pp`` axis, the
-    layers of other stages are dropped. ``dtype`` casts the floating
+    holds more than the shell and one whole layer; with a ``pp`` axis (ESM-2
+    only), the layers of other stages are dropped. ``dtype`` casts the floating
     shards (e.g. ``torch.bfloat16`` for a bf16 forward). Returns the model."""
     if isinstance(model_or_parts, nn.Module):
         model, layers = model_or_parts, None
@@ -359,7 +398,7 @@ def shard_params(model_or_parts, mesh, *, dtype: Optional[torch.dtype] = None) -
         parts = iter(model_or_parts)
         cfg, model = next(parts)
         layers = parts
-    _check_family(model)
+    _check_family(model, mesh)
     cfg = model.cfg
     sharding = Sharding(mesh, param_specs(model), cfg.num_layers)
     if cfg.attention_heads % sharding.sizes[AXIS_TP]:

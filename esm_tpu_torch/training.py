@@ -46,7 +46,10 @@ What differs from the JAX package, and why:
     tensor or a leaf is split over, so they are the whole matrix's).
     :func:`train_step_pp` is the pipelined step. A LoRA step over a sharded
     base keeps the adapters whole on every rank and sums their gradients
-    over the mesh (``Sharding.sync_adapter_grads``).
+    over the mesh (``Sharding.sync_adapter_grads``); over a pipeline-sharded
+    ESM-2 it runs the GPipe schedule with each stage's adapters. The ESM-1
+    family and the MSA Transformer train on a sharded model through the
+    same steps (``apply_fn``; :func:`train_step_msa`).
 """
 
 from __future__ import annotations
@@ -694,13 +697,15 @@ def sharded_loss_and_grads(model: nn.Module, cfg, corrupted: torch.Tensor,
 
 def pp_loss_and_grads(model: nn.Module, cfg: esm2.ESM2Config, corrupted: torch.Tensor,
                       targets: torch.Tensor, target_mask: torch.Tensor, *,
-                      num_microbatches: int) -> dict:
+                      num_microbatches: int, adapters: Optional[_lora.LoRA] = None) -> dict:
     """:func:`sharded_loss_and_grads` through the GPipe pipeline of a model
     sharded over a pp mesh: the embedding on every stage (stage 0 feeds
     it), the layer stack as ``num_microbatches`` microbatches through the
     stages, the final LN, head and loss on the last stage, then the reverse
     schedule (parallel/pipeline.py). The metrics are the last stage's,
-    broadcast to every stage."""
+    broadcast to every stage. With ``adapters`` (the stage's LoRA module,
+    attached to the frozen ``model``) the adapters take the gradients, each
+    from its stage's backward (``Sharding.sync_adapter_grads``)."""
     from .parallel.pipeline import Stage, pipeline_backward, pipeline_forward, stage_function
 
     shard = sharding_of(model)
@@ -724,14 +729,18 @@ def pp_loss_and_grads(model: nn.Module, cfg: esm2.ESM2Config, corrupted: torch.T
             nll_w, correct, w = _terms_of_logits(logits, targets, target_mask)
             return nll_w.sum(), correct.sum(), w.sum()
 
-        sums = _mlm_backward(model, [head_piece], functools.partial(dp_sum, sharding=shard))
+        sums = _mlm_backward(model if adapters is None else adapters, [head_piece],
+                             functools.partial(dp_sum, sharding=shard))
         grads = [hh.grad for hh in hs]
     in_grads = pipeline_backward(inputs, outputs, grads, **kw)
-    if st.index == 0:
+    if st.index == 0 and x.requires_grad:  # a frozen base's embedding takes none
         x.backward(torch.cat(in_grads))
     if st.group is not None:
         dist.broadcast(sums, src=st.last, group=st.group)
-    shard.sync_grads(model)
+    if adapters is None:
+        shard.sync_grads(model)
+    else:
+        shard.sync_adapter_grads(adapters)
     return _metrics(sums)
 
 
@@ -826,9 +835,24 @@ def train_step_lora_corrupted(
     *,
     scale: float = 1.0,
     apply_fn=None,
+    num_microbatches: Optional[int] = None,
 ) -> Tuple[TrainState, dict]:
     """:func:`train_step_lora` on a given corruption."""
-    if sharding_of(base) is not None:
+    shard = sharding_of(base)
+    if shard is not None and shard.stages > 1 and num_microbatches is None:
+        raise ValueError("a LoRA step over a pipeline-sharded base takes num_microbatches")
+    if num_microbatches is not None:
+        if shard is None or apply_fn is not None:
+            raise ValueError("num_microbatches pipelines ESM-2 over a pp mesh "
+                             "(parallel.pipeline.make_pp_mesh)")
+
+        def loss_and_grads():
+            with frozen_and_patched(base, state.model, scale):
+                return pp_loss_and_grads(base, cfg, corrupted, targets, target_mask,
+                                         num_microbatches=num_microbatches, adapters=state.model)
+
+        return _grads_step(state, tx, loss_and_grads)
+    if shard is not None:
         def loss_and_grads():
             with frozen_and_patched(base, state.model, scale):
                 return sharded_loss_and_grads(base, cfg, corrupted, targets, target_mask,
@@ -850,6 +874,7 @@ def train_step_lora(
     *,
     scale: float = 1.0,
     apply_fn=None,
+    num_microbatches: Optional[int] = None,
 ) -> Tuple[TrainState, dict]:
     """One parameter-efficient MLM step: ``state.model`` is the LoRA module
     (esm_tpu_torch/lora.py), ``base`` the frozen base (fp32, bf16 or
@@ -860,10 +885,16 @@ def train_step_lora(
     ``parallel.sharding.shard_params`` every rank passes the full batch and
     keeps its rows, as :func:`train_step` does; the adapters stay whole on
     every rank and get the whole batch's gradient, so every rank makes the
-    same update."""
+    same update. Over an ESM-2 base sharded on a pp mesh
+    (``pipeline.make_pp_mesh``), ``num_microbatches`` runs the step through
+    :func:`train_step_pp`'s GPipe schedule (esm_tpu's ``train_step_lora``
+    with ``apply_fn=partial(esm2.apply_pipelined, ...)``); ``state.model``
+    is then the stage's adapters (``lora.init_lora`` over the sharded base,
+    or ``lora.on_stage``)."""
     corrupted, target_mask = _corrupt_batch(cfg, generator, tokens)
     return train_step_lora_corrupted(state, base, cfg, tx, corrupted, tokens, target_mask,
-                                     scale=scale, apply_fn=apply_fn)
+                                     scale=scale, apply_fn=apply_fn,
+                                     num_microbatches=num_microbatches)
 
 
 def if_loss_sums(model, cfg, coords, padding_mask, confidence, tokens) -> Tuple[torch.Tensor, dict]:

@@ -1,6 +1,7 @@
 """Rank bodies of the parameter-sharding and pipeline tests
 (tests/test_torch_sharding.py, tests/test_torch_pipeline.py,
-tests/test_torch_pretrain_mesh.py).
+tests/test_torch_pretrain_mesh.py, tests/test_torch_shard_train.py; the
+families' bodies are in tests/_torch_shard_family_ranks.py).
 
 Each body runs in one of ``world`` processes spawned by :func:`spawn` over a
 gloo process group whose FileStore lives in the test's temporary directory,
@@ -492,11 +493,71 @@ def shard_train_body(inp: dict, rank: int) -> dict:
     if rank == 0:
         whole, _ = _model(inp)
         out["unsharded_merge"] = lora.merge(whole, adapters, scale=0.5).state_dict()
-    # LoRA on a pipeline-sharded base
-    model, _ = _model(inp, pipeline.make_pp_mesh(2, tp=2, device_type="cpu"))
-    out["pp_refusals"] = [
-        _errors(lambda: lora.init_lora(torch.Generator(), model, rank=4)),
-        _errors(lambda: lora.patch(model, adapters))]
     if "cli" in inp:
         out["cli"] = pretrain_body(inp["cli"], rank)
+    return out
+
+
+# ------------------------------------------------ LoRA on a pipeline-sharded base
+
+
+def _lookup_raises(shard) -> bool:
+    """Whether ``shard`` refuses an entry its specs do not hold."""
+    try:
+        shard.axes_of("layers.0.self_attn.no_such_entry")
+    except KeyError:
+        return True
+    return False
+
+
+def pp_lora_body(inp: dict, rank: int) -> dict:
+    """LoRA over a pipeline-sharded ESM-2 on each ((pp, data, fsdp, tp),
+    microbatches, options) of ``inp["cases"]``, the base stored in bf16:
+    step 0 with esm_tpu's corruption and adapters (each stage's, ``on_stage``)
+    through pp_loss_and_grads (the loss, the adapter gradients gathered over
+    the stages, the global norm the clip sees, the adapters after AdamW's
+    update on esm_tpu's gradients), then a whole train_step_lora_corrupted;
+    on the first case init_lora over the stages gathered whole, the specs
+    the stage's adapters carry, and the adapters' train state saved to
+    ``inp["dir"]``."""
+    from esm_tpu_torch import lora
+
+    out = {}
+    batch = (inp["corrupted"], inp["tokens"], inp["target_mask"])
+    for i, (tag, shape, m, options) in enumerate(inp["cases"]):
+        mesh = pipeline.make_pp_mesh(*shape, device_type="cpu")
+        model, cfg = _model(dict(inp, size=inp["lora_size"]), mesh, **options)
+        lora.store_base(model)
+        adapters = lora.on_stage(_adapters(inp), model)
+        shard = sharding.sharding_of(adapters)
+        tx = training.make_optimizer(1e-3, warmup_steps=0, total_steps=10,
+                                     grad_clip_norm=inp["clip"])
+        state = training.init_state(adapters, tx)
+        with training.frozen_and_patched(model, adapters, inp["scale"]):
+            metrics = training.pp_loss_and_grads(model, cfg, *batch, num_microbatches=m,
+                                                 adapters=adapters)
+        grads = {n: p.grad for n, p in adapters.named_parameters()}
+        got = {"loss": metrics["loss"].item(), "norm": torch.sqrt(shard.norm_sq(grads)).item(),
+               "grads": sharding.whole_state(adapters, grads), "stage": sorted(grads)}
+        for n, p in adapters.named_parameters():
+            p.grad = inp["lora_grads"][n].clone()
+        tx.update(adapters, state.opt_state)
+        adapters.zero_grad(set_to_none=True)
+        got["updated"] = sharding.whole_state(adapters)
+        state, metrics = training.train_step_lora_corrupted(
+            state, model, cfg, tx, *batch, scale=inp["scale"], num_microbatches=m)
+        got["loss1"] = metrics["loss"].item()
+        if i == 0:
+            got["init"] = sharding.whole_state(
+                lora.init_lora(torch.Generator().manual_seed(5), model, rank=4))
+            names = [n for n, _ in adapters.named_parameters()]
+            got["specs"] = {"adapters": {n: shard.specs[n] for n in names},
+                            "in_base": [n for n in names if n in sharding.sharding_of(model).specs],
+                            "missing_raises": [_lookup_raises(s) for s in
+                                               (shard, sharding.sharding_of(model))]}
+            checkpoint.save_train_state(inp["dir"] + "/pp_lora", state)
+            got["saved"] = {"params": sharding.whole_state(adapters),
+                            "mu": sharding.whole_state(adapters, state.opt_state.mu),
+                            "nu": sharding.whole_state(adapters, state.opt_state.nu)}
+        out[tag] = got
     return out

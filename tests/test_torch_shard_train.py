@@ -431,11 +431,6 @@ def test_sharded_merge_equals_unsharded_merge(ranks4):
         _equal_trees(res["merged"], want, f"rank {rank}")
 
 
-def test_lora_on_a_pipeline_is_refused(ranks4):
-    for res in ranks4["ranks"]:
-        assert all("item 13d" in msg for msg in res["pp_refusals"]), res["pp_refusals"]
-
-
 # ------------------------------------------------------------------------ cli
 
 

@@ -6,7 +6,11 @@ The port's ranks are processes spawned over a gloo group
 (tests/_torch_shard_ranks.py, which imports no JAX); esm_tpu runs on its
 8-device virtual mesh (tests/conftest.py) with its own shard_params. One
 8-rank group runs the (2, 2, 2) mesh, one 4-rank group the (1, 1, 4),
-(1, 4, 1), (4, 1, 1) and (1, 2, 2) meshes.
+(1, 4, 1), (4, 1, 1) and (1, 2, 2) meshes. The other families (ESM-1,
+ESM-1b, ESM-1v, the MSA Transformer) are sharded in
+tests/test_torch_shard_family.py; training on a sharded model is in
+tests/test_torch_shard_train.py, LoRA on a pipeline in
+tests/test_torch_pipeline.py.
 
 Tolerances: esm_tpu's own for a sharded forward, atol 2e-5 and rtol 1e-5
 (tests/test_sharding.py:35), for the logits, representations, attention
@@ -41,7 +45,7 @@ from esm_tpu_torch import training
 from esm_tpu_torch.data import Alphabet
 from esm_tpu_torch.io import checkpoint
 from esm_tpu_torch.io.from_jax import esm2_state_dict_from_jax, jax_leaf
-from esm_tpu_torch.models import esm1, esm2
+from esm_tpu_torch.models import esm2
 from esm_tpu_torch.parallel import sharding
 
 SIZE = dict(num_layers=2, embed_dim=64, attention_heads=4)
@@ -192,15 +196,6 @@ def test_param_specs_are_esm_tpu_rules(lm):
             if leaf == "kernel":
                 want = want[::-1]
             assert spec == want, (name, spec, want)
-
-
-def test_other_families_and_adafactor_are_refused():
-    """ESM-1 (and the MSA Transformer) are not sharded yet. Adafactor runs on
-    a sharded model (tests/test_torch_shard_train.py holds it to optax)."""
-    cfg = esm1.ESM1Config.from_alphabet(Alphabet.from_architecture("ESM-1b"), num_layers=1,
-                                        embed_dim=32, attention_heads=2)
-    with pytest.raises(NotImplementedError, match="item 13d"):
-        sharding.shard_params(esm1.init(cfg, torch.Generator(), device="cpu"), mesh=None)
 
 
 # --------------------------------------------------------------------- training
