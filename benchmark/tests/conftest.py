@@ -1,0 +1,17 @@
+"""The benchmark's own tests: on the CPU at tiny sizes, with the cells'
+files and limits as committed. Run from the repository's root:
+
+    python -m pytest benchmark/tests -q
+
+Tests marked ``cuda`` need the card and skip without one."""
+
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+if str(ROOT) not in sys.path:
+    sys.path.insert(0, str(ROOT))
+
+
+def pytest_configure(config):
+    config.addinivalue_line("markers", "cuda: needs an NVIDIA GPU; skips without one")
